@@ -1,0 +1,673 @@
+"""The engine's hand-written CUDA kernels, their plain PyTorch versions, the
+build, and the launch counters.
+
+Three kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
+what it replaces, what bounds it and how its design answers that):
+
+- ``gather_probe``: ``out = table[idx]``, the port of the Pallas
+  ``_gather_kernel`` / ``probe_vmem_gather``: the first build-and-launch
+  check of every later kernel (:func:`probe_gather`), and the engine's
+  per-lane read of the two angle inverse-CDF knots in each event resolve
+  (:func:`cbctmc_tpu_torch.engine.samplers.sample_icdf_rows_cdt1`);
+- ``flight_prototype``: the exact contract of the Pallas ``_flight_kernel``
+  (fused Woodcock multi-flight over split material/density arrays);
+- ``flight_step``: the engine's production flight over the packed voxel
+  word, which :func:`cbctmc_tpu_torch.engine.transport.run_projection` runs
+  ``max_virtual_trips`` times per outer iteration.
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ctypes, at first use, into
+``cbctmc_tpu_torch/_build/`` (:func:`build_kernels` starts one ``nvcc`` per
+source, all together). Every wrapper checks device, dtype, shape and
+contiguity; on a CPU tensor it runs the plain version, on a CUDA tensor it
+launches the kernel or raises - it never falls back. ``launch_counts``
+counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from cbctmc_tpu_torch.physics.constants import EPS_SOURCE, TALLY_MIN_COS_ANGLE
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+KERNELS = ("gather_probe", "flight_prototype", "flight_step")
+# -fmad=false: every product and sum rounds on its own, as the plain
+# versions' separate PyTorch operations do (no --use_fast_math: the physics
+# needs logf/expf/expm1f to full accuracy)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: kernel launches per kernel since the last :func:`reset_launch_counts`
+launch_counts = dict.fromkeys(KERNELS, 0)
+#: nvcc/ptxas output of each library built by this process
+build_logs: dict = {}
+_libs: dict = {}
+
+_BIG = 1.0e30
+_DEN_MASK = (1 << 21) - 1
+MAX_POLY = 16
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_kernels(names=KERNELS) -> dict:
+    """Compile every named kernel whose library is missing, one ``nvcc`` per
+    source, all started together. Returns ``{name: library path}``; raises
+    with the compiler's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: _library_path(name) for name in names}
+    procs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+            out,
+        )
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+class _LanesC(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "px", "py", "pz", "dx", "dy", "dz", "energy", "ebin", "scatter", "alive",
+        "pending", "escaped", "k_air", "k_soft", "vox", "mat_evt", "xi", "stash_idx",
+        "stash_energy", "stash_valid", "cand_free",
+    )]
+
+
+class _CandidatesC(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "px", "py", "pz", "dx", "dy", "dz", "energy", "ebin")]
+
+
+_PARAM_INTS = ("n", "nx", "ny", "nz", "n_voxels", "npix_x", "npix_z", "n_mats", "cheb_d",
+               "poly_len", "air_skip", "soft_skip")
+_PARAM_FLOATS = (
+    ("wc_poly", MAX_POLY), ("air_poly", MAX_POLY), ("soft_poly", MAX_POLY),
+    ("log_e_lo", 1), ("inv_log_range", 1), ("inv_air_den", 1), ("voxmin", 1),
+    ("den_scale", 1), ("nonair_lo", 3), ("nonair_hi", 3), ("bbox_hi", 3),
+    ("voxel_size", 3), ("sigma_log_lo", 1), ("sigma_range", 1), ("sdir", 3),
+    ("det_center", 3), ("rot0", 3), ("rot2", 3), ("corner_x", 1), ("corner_z", 1),
+    ("inv_pix_x", 1), ("inv_pix_z", 1),
+)
+
+
+class _ParamsC(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in _PARAM_INTS] + [
+        (f, ctypes.c_float * k if k > 1 else ctypes.c_float) for f, k in _PARAM_FLOATS
+    ]
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "gather_probe": [_P, _I, _P, _P, _I, _P],
+    "flight_prototype": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P],
+    "flight_step": [ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC), _P, _P, _P, _P,
+                    _I, _P, _P, ctypes.POINTER(_ParamsC), _P],
+}
+
+
+def _launcher(name: str):
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build_kernels((name,))[name]))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _libs[name] = fn
+    return _libs[name]
+
+
+def _launch(name: str, *args) -> None:
+    err = _launcher(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(t: torch.Tensor, what: str, dtype, shape=None, device=None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+
+
+# ---------------------------------------------------------------------------
+# gather_probe
+# ---------------------------------------------------------------------------
+PROBE_N = 8192
+PROBE_TABLE = 32768
+
+
+def gather_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``table[idx]`` (indices clamped into the table)."""
+    return table[idx.long().clamp(0, table.shape[0] - 1)]
+
+
+def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[i] = table[idx[i]]`` (f32 table, i32 indices)."""
+    _check(table, "table", torch.float32)
+    _check(idx, "idx", torch.int32, device=table.device)
+    if table.ndim != 1 or idx.ndim != 1:
+        raise ValueError("gather takes 1-D table and indices")
+    if table.device.type == "cpu":
+        return gather_reference(table, idx)
+    out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
+    _launch("gather_probe", table.data_ptr(), table.shape[0], idx.data_ptr(),
+            out.data_ptr(), idx.shape[0], _stream(table))
+    return out
+
+
+def probe_inputs(device) -> tuple:
+    """The probe's table ``arange(32768) * 2`` and 8192 seeded indices."""
+    dev = torch.device(device)
+    table = torch.arange(PROBE_TABLE, dtype=torch.float32, device=dev) * 2.0
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    idx = torch.randint(0, PROBE_TABLE, (PROBE_N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    return table, idx
+
+
+def probe_gather(device="cuda") -> bool:
+    """True iff the gather kernel builds, launches and matches ``table[idx]``.
+    On a CUDA device a build or launch failure raises (it is never reported
+    as False, which would hide a broken device or toolchain)."""
+    table, idx = probe_inputs(device)
+    out = gather(table, idx)
+    return bool(torch.allclose(out, table[idx.long()]))
+
+
+# ---------------------------------------------------------------------------
+# flight_prototype
+# ---------------------------------------------------------------------------
+def _f2i_sat(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 truncating toward zero and saturating (the
+    conversion XLA and the card perform)."""
+    return torch.clamp(x, -2147483648.0, 2147483520.0).to(torch.int32)
+
+
+def flight_prototype_reference(n_flights, pos, dir, state, active, u, voxmat, voxden,
+                               mfp_ab, geom):
+    """Plain version of ``_flight_kernel``: returns (pos f32[3, n],
+    flags f32[4, n] = pending, escaped, randno, mfp_density)."""
+    inv_vx, inv_vy, inv_vz, bx, by, bz, nx, nxny = (geom[k] for k in range(8))
+    px, py, pz = pos[0], pos[1], pos[2]
+    dx, dy, dz = dir[0], dir[1], dir[2]
+    energy, mfp_wc = state[0], state[1]
+    eps = 1.5e-5
+    pending = torch.zeros_like(px)
+    escaped = torch.zeros_like(px)
+    randno = torch.zeros_like(px)
+    mfp_density = torch.zeros_like(px)
+    act_lane = active[0] > 0.5
+    nvox = voxden.shape[0]
+    rows = mfp_ab.shape[0]
+    nx_i, nxny_i = _f2i_sat(nx), _f2i_sat(nxny)
+    for f in range(min(int(n_flights[0]), u.shape[0])):
+        act = act_lane & (pending < 0.5) & (escaped < 0.5)
+        u_step, u_int = u[f, 0], u[f, 1]
+        step = -mfp_wc * torch.log(u_step)
+        npx = torch.where(act, px + step * dx, px)
+        npy = torch.where(act, py + step * dy, py)
+        npz = torch.where(act, pz + step * dz, pz)
+        inside = (
+            (npx >= eps) & (npx <= bx - eps)
+            & (npy >= eps) & (npy <= by - eps)
+            & (npz >= eps) & (npz <= bz - eps)
+        )
+        vx = torch.clamp(_f2i_sat(npx * inv_vx), 0, 1 << 30)
+        vy = _f2i_sat(npy * inv_vy)
+        vz = _f2i_sat(npz * inv_vz)
+        vox = torch.clamp(vx + vy * nx_i + vz * nxny_i, 0, nvox - 1).long()
+        mat = voxmat[vox].to(torch.int32)
+        den = voxden[vox]
+        row = torch.clamp(state[2].to(torch.int32) + mat, 0, rows - 1).long()
+        inv_mfp = mfp_ab[row, 0] + energy * mfp_ab[row, 1]
+        mfp_den = mfp_wc * den
+        p_delta = 1.0 - mfp_den * inv_mfp
+        real = act & inside & (u_int >= p_delta)
+        newly_escaped = act & ~inside
+        px, py, pz = npx, npy, npz
+        pending = torch.where(real, 1.0, pending)
+        escaped = torch.where(newly_escaped, 1.0, escaped)
+        randno = torch.where(real, u_int, randno)
+        mfp_density = torch.where(real, mfp_den, mfp_density)
+    return torch.stack([px, py, pz]), torch.stack([pending, escaped, randno, mfp_density])
+
+
+def flight_prototype(n_flights, pos, dir, state, active, u, voxmat, voxden, mfp_ab, geom):
+    """Fused Woodcock multi-flight with the Pallas prototype's contract:
+    ``n_flights i32[1]``, ``pos/dir f32[3, n]``, ``state f32[4, n]`` (energy,
+    mfp_wc, ebin * n_mats, unused), ``active f32[1, n]``, ``u f32[F, 2, n]``,
+    ``voxmat/voxden f32[nvox]``, ``mfp_ab f32[rows, 2]``, ``geom f32[8]``
+    (inv voxel x/y/z, bbox x/y/z, nx, nx*ny) -> (pos f32[3, n],
+    flags f32[4, n])."""
+    n = pos.shape[1]
+    dev = pos.device
+    _check(n_flights, "n_flights", torch.int32, (1,), dev)
+    _check(pos, "pos", torch.float32, (3, n))
+    for t, what, shape in ((dir, "dir", (3, n)), (state, "state", (4, n)),
+                           (active, "active", (1, n)), (geom, "geom", (8,))):
+        _check(t, what, torch.float32, shape, dev)
+    _check(u, "u", torch.float32, None, dev)
+    if u.ndim != 3 or u.shape[1:] != (2, n):
+        raise ValueError(f"u: shape {tuple(u.shape)}, expected (F, 2, {n})")
+    _check(voxmat, "voxmat", torch.float32, None, dev)
+    _check(voxden, "voxden", torch.float32, voxmat.shape, dev)
+    _check(mfp_ab, "mfp_ab", torch.float32, None, dev)
+    if voxmat.ndim != 1 or mfp_ab.ndim != 2 or mfp_ab.shape[1] != 2:
+        raise ValueError("voxmat must be 1-D and mfp_ab [rows, 2]")
+    if dev.type == "cpu":
+        return flight_prototype_reference(n_flights, pos, dir, state, active, u, voxmat,
+                                          voxden, mfp_ab, geom)
+    out_pos = torch.empty((3, n), dtype=torch.float32, device=dev)
+    out_flags = torch.empty((4, n), dtype=torch.float32, device=dev)
+    _launch("flight_prototype", n_flights.data_ptr(), pos.data_ptr(), dir.data_ptr(),
+            state.data_ptr(), active.data_ptr(), u.data_ptr(), u.shape[0],
+            voxmat.data_ptr(), voxden.data_ptr(), voxmat.shape[0], mfp_ab.data_ptr(),
+            mfp_ab.shape[0], geom.data_ptr(), out_pos.data_ptr(), out_flags.data_ptr(), n,
+            _stream(pos))
+    return out_pos, out_flags
+
+
+# ---------------------------------------------------------------------------
+# flight_step
+# ---------------------------------------------------------------------------
+class FlightLanes(NamedTuple):
+    """Structure-of-arrays lane state a flight reads and updates in place
+    (f32 / i32 / bool, each contiguous [n])."""
+
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    energy: torch.Tensor
+    ebin: torch.Tensor
+    scatter: torch.Tensor
+    alive: torch.Tensor
+    pending: torch.Tensor
+    escaped: torch.Tensor
+    k_air: torch.Tensor
+    k_soft: torch.Tensor
+    vox: torch.Tensor
+    mat_evt: torch.Tensor
+    xi: torch.Tensor
+    stash_idx: torch.Tensor
+    stash_energy: torch.Tensor
+    stash_valid: torch.Tensor
+    cand_free: torch.Tensor
+
+
+class Candidates(NamedTuple):
+    """The pre-sampled photon each lane adopts when its photon escapes."""
+
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    energy: torch.Tensor
+    ebin: torch.Tensor
+
+
+_INT_LANE_FIELDS = {"ebin", "scatter", "k_air", "k_soft", "vox", "mat_evt", "stash_idx"}
+_BOOL_LANE_FIELDS = {"alive", "pending", "escaped", "stash_valid", "cand_free"}
+
+
+def _lane_dtype(field: str):
+    if field in _INT_LANE_FIELDS:
+        return torch.int32
+    if field in _BOOL_LANE_FIELDS:
+        return torch.bool
+    return torch.float32
+
+
+@dataclasses.dataclass
+class FlightConsts:
+    """Everything a flight reads besides the lanes: scene, majorant and
+    detector scalars (float32 values held as Python floats) and the packed
+    voxel words and sigma coefficient rows on the device."""
+
+    ints: dict
+    floats: dict
+    packed: torch.Tensor  # i32 [n_voxels], the u32 words' bits
+    coeffs: torch.Tensor  # f32 [n_mats, 3*D + 6]
+
+    def params(self) -> _ParamsC:
+        p = _ParamsC()
+        for k, v in self.ints.items():
+            setattr(p, k, int(v))
+        for k, v in self.floats.items():
+            if isinstance(v, (list, tuple)):
+                arr = getattr(p, k)
+                for j, x in enumerate(v):
+                    arr[j] = x
+            else:
+                setattr(p, k, v)
+        return p
+
+
+def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_z: int,
+                  n_lanes: int, air_skip: bool = True, soft_skip: bool = True,
+                  coeffs: torch.Tensor | None = None) -> FlightConsts:
+    """Gather the flight's constants once per engine call (one host read of
+    the small scalars). Derived values are computed in float32 exactly as
+    the JAX engine derives them."""
+    from cbctmc_tpu_torch.engine.tables import sigma_coeff_table
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32).cpu()
+
+    def flist(x):
+        return [float(v) for v in f32(x).reshape(-1)]
+
+    polys = [f32(woodcock.wc_logpoly), f32(woodcock.air_logpoly), f32(woodcock.soft_logpoly)]
+    poly_len = polys[0].shape[0]
+    if poly_len > MAX_POLY or any(p.shape[0] != poly_len for p in polys):
+        raise ValueError(f"majorant polynomials must share one length <= {MAX_POLY}")
+    bbox = f32(volume.bbox)
+    rot = f32(detector.rot_inv)
+    corner = f32(detector.corner_min)
+    nx, ny, nz = (int(s) for s in volume.shape)
+    if coeffs is None:
+        coeffs = sigma_coeff_table(tables)
+    floats = dict(
+        wc_poly=flist(polys[0]), air_poly=flist(polys[1]), soft_poly=flist(polys[2]),
+        log_e_lo=float(f32(woodcock.log_e_lo)),
+        inv_log_range=float(1.0 / (f32(woodcock.log_e_hi) - f32(woodcock.log_e_lo))),
+        inv_air_den=float(1.0 / f32(volume.air_den_max)),
+        voxmin=float(f32(volume.voxmin)),
+        den_scale=float(f32(volume.den_scale)),
+        nonair_lo=flist(volume.nonair_lo), nonair_hi=flist(volume.nonair_hi),
+        bbox_hi=flist(bbox - EPS_SOURCE),
+        voxel_size=flist(volume.voxel_size),
+        sigma_log_lo=float(f32(tables.sigma_log_lo)),
+        sigma_range=float(f32(tables.sigma_log_hi) - f32(tables.sigma_log_lo)),
+        sdir=flist(detector.source_direction), det_center=flist(detector.center),
+        rot0=flist(rot[0]), rot2=flist(rot[2]),
+        corner_x=float(corner[0]), corner_z=float(corner[2]),
+        inv_pix_x=float(f32(detector.inv_pixel_size_x)),
+        inv_pix_z=float(f32(detector.inv_pixel_size_z)),
+    )
+    ints = dict(
+        n=n_lanes, nx=nx, ny=ny, nz=nz, n_voxels=int(volume.packed.shape[0]),
+        npix_x=n_pixels_x, npix_z=n_pixels_z, n_mats=int(coeffs.shape[0]),
+        cheb_d=int(tables.sigma_cheb.shape[-1]), poly_len=poly_len,
+        air_skip=int(air_skip), soft_skip=int(soft_skip),
+    )
+    return FlightConsts(ints=ints, floats=floats, packed=volume.packed,
+                        coeffs=coeffs.contiguous())
+
+
+def _horner(coeffs, t):
+    acc = torch.full_like(t, coeffs[0])
+    for c in coeffs[1:]:
+        acc = acc * t + c
+    return acc
+
+
+def locate_voxel(px, py, pz, voxel_size, shape, bbox_hi):
+    """The JAX engine's ``_locate_voxel``: flat voxel index at the position
+    (each axis clamped to ``shape - 1``) and whether the position lies in
+    ``[EPS_SOURCE, bbox_hi]`` on every axis (``bbox_hi = bbox - EPS_SOURCE``
+    in float32)."""
+    in_bbox = (
+        (px >= EPS_SOURCE) & (px <= bbox_hi[0]) & (py >= EPS_SOURCE) & (py <= bbox_hi[1])
+        & (pz >= EPS_SOURCE) & (pz <= bbox_hi[2])
+    )
+    nx, ny, nz = shape
+    cells = [
+        torch.clamp(p / voxel_size[a], 0.0, float(s - 1)).to(torch.int32)
+        for a, (p, s) in enumerate(((px, nx), (py, ny), (pz, nz)))
+    ]
+    return cells[0] + cells[1] * nx + cells[2] * (nx * ny), in_bbox
+
+
+def flight_step_reference(lanes: FlightLanes, cand: Candidates, u_step, u_int,
+                          consts: FlightConsts, remaining, counts) -> None:
+    """Plain version of :func:`flight_step`, with the same contract: updates
+    ``lanes`` in place, sets ``counts[0]`` to the adoptions of this flight,
+    adds the active lanes to ``counts[1]`` and subtracts the adoptions from
+    ``remaining``. A transliteration of the JAX engine's flight closure."""
+    I, F = consts.ints, consts.floats
+    n = I["n"]
+    L = lanes
+    px, py, pz, dx, dy, dz = L.px, L.py, L.pz, L.dx, L.dy, L.dz
+    energy = L.energy
+    active = L.alive & ~L.pending
+
+    log_e = torch.log(energy)
+    t = torch.clamp((log_e - F["log_e_lo"]) * F["inv_log_range"], 0.0, 1.0)
+    mfp_wc = torch.exp(_horner(F["wc_poly"], t))
+    mfp_air = torch.exp(_horner(F["air_poly"], t)) * F["inv_air_den"]
+    mfp_soft = torch.exp(_horner(F["soft_poly"], t)) if I["soft_skip"] else mfp_wc
+
+    if I["air_skip"]:
+        lo, hi = F["nonair_lo"], F["nonair_hi"]
+        outside = (
+            (px < lo[0]) | (px > hi[0]) | (py < lo[1]) | (py > hi[1])
+            | (pz < lo[2]) | (pz > hi[2])
+        )
+        tmin = torch.full_like(px, -_BIG)
+        tmax = torch.full_like(px, _BIG)
+        for a, (p, d) in enumerate(((px, dx), (py, dy), (pz, dz))):
+            inv_d = 1.0 / torch.where(torch.abs(d) > 1e-12, d, 1e-12)
+            t1 = (lo[a] - p) * inv_d
+            t2 = (hi[a] - p) * inv_d
+            tmin = torch.maximum(tmin, torch.minimum(t1, t2))
+            tmax = torch.minimum(tmax, torch.maximum(t1, t2))
+        t_box = torch.where((tmax >= tmin) & (tmax > 0.0), tmin, _BIG)
+        t_box = torch.clamp(t_box, min=0.0) + 1.0e-4
+
+        def clamped_advance(mfp, bound):
+            return mfp * -torch.expm1(-bound / mfp)
+
+        b_air = ((1 << L.k_air) - 1).to(torch.float32) * F["voxmin"]
+        adv_air = torch.where(L.k_air >= 1, clamped_advance(mfp_air, b_air), 0.0)
+        if I["soft_skip"]:
+            b_soft = ((1 << L.k_soft) - 1).to(torch.float32) * F["voxmin"]
+            adv_soft = torch.where(L.k_soft >= 1, clamped_advance(mfp_soft, b_soft), 0.0)
+        else:
+            b_soft = torch.zeros_like(px)
+            adv_soft = torch.zeros_like(px)
+        use_air = (adv_air > mfp_wc) & (adv_air >= adv_soft)
+        use_soft = (adv_soft > mfp_wc) & ~use_air
+        mfp_in = torch.where(use_air, mfp_air, torch.where(use_soft, mfp_soft, mfp_wc))
+        b_in = torch.where(use_air, b_air, torch.where(use_soft, b_soft, _BIG))
+        mfp_samp = torch.where(outside, mfp_air, mfp_in)
+        bound = torch.where(outside, t_box, b_in)
+    else:
+        mfp_samp = mfp_wc
+        bound = torch.full_like(px, _BIG)
+
+    raw = -mfp_samp * torch.log(u_step)
+    step = torch.minimum(raw, bound)
+    clamped = raw > bound
+    px = torch.where(active, px + step * dx, px)
+    py = torch.where(active, py + step * dy, py)
+    pz = torch.where(active, pz + step * dz, pz)
+
+    nvox, in_bbox = locate_voxel(px, py, pz, F["voxel_size"], (I["nx"], I["ny"], I["nz"]),
+                                 F["bbox_hi"])
+    cvox = torch.clamp(nvox, 0, I["n_voxels"] - 1).long()
+    word = consts.packed[cvox]
+    mat = (word >> 27) & 31
+    k_new = (word >> 24) & 7
+    ks_new = (word >> 21) & 7
+    den = (word & _DEN_MASK).to(torch.float32) * F["den_scale"]
+
+    d = I["cheb_d"]
+    rows = consts.coeffs[torch.clamp(mat, max=I["n_mats"] - 1).long()]
+    cheb = rows[:, : 3 * d].reshape(n, 3, d)
+    edge = rows[:, 3 * d :].reshape(n, 3, 2)
+    s = torch.clamp(2.0 * (log_e - F["sigma_log_lo"]) / F["sigma_range"] - 1.0, -1.0, 1.0)
+    s = s[:, None]
+    two_s = 2.0 * s
+    b1 = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
+    b2 = torch.zeros_like(b1)
+    for k in range(d - 1, 0, -1):
+        b1, b2 = cheb[:, :, k] + two_s * b1 - b2, b1
+    val = cheb[:, :, 0] + s * b1 - b2
+    sig = torch.exp(val + torch.where(s >= edge[:, :, 0], edge[:, :, 1], 0.0))
+    inv_tot = sig[:, 0] + sig[:, 1] + sig[:, 2]
+    mfp_den = mfp_samp * den
+    p_delta = 1.0 - mfp_den * inv_tot
+
+    newly_escaped = active & ~in_bbox
+    real = active & in_bbox & ~clamped & (u_int >= p_delta)
+    pending = L.pending | real
+    vox = torch.where(real, nvox, L.vox)
+    mat_evt = torch.where(real, mat, L.mat_evt)
+    xi = torch.where(real, (u_int - p_delta) / torch.clamp(mfp_den, min=1e-30), L.xi)
+    k_air = torch.where(active, k_new, L.k_air)
+    k_soft = torch.where(active, ks_new, L.k_soft)
+
+    # detector-plane pixel of an escaping photon
+    sd, c = F["sdir"], F["det_center"]
+    cos_angle = dx * sd[0] + dy * sd[1] + dz * sd[2]
+    moving_towards = cos_angle >= TALLY_MIN_COS_ANGLE
+    safe_cos = torch.where(moving_towards, cos_angle, 1.0)
+    dist = (sd[0] * (c[0] - px) + sd[1] * (c[1] - py) + sd[2] * (c[2] - pz)) / safe_cos
+    hx, hy, hz = px + dist * dx, py + dist * dy, pz + dist * dz
+    r0, r2 = F["rot0"], F["rot2"]
+    rx = r0[0] * hx + r0[1] * hy + r0[2] * hz
+    rz = r2[0] * hx + r2[1] * hy + r2[2] * hz
+    fx = torch.floor((rx - F["corner_x"]) * F["inv_pix_x"])
+    fz = torch.floor((rz - F["corner_z"]) * F["inv_pix_z"])
+    npx_, npz_ = I["npix_x"], I["npix_z"]
+    hit = moving_towards & (fx >= 0.0) & (fx < npx_) & (fz >= 0.0) & (fz < npz_)
+    npix = npx_ * npz_
+    pix = (
+        torch.where(hit, fx, 0.0).to(torch.int32)
+        + torch.where(hit, fz, 0.0).to(torch.int32) * npx_
+    )
+    rec = torch.where(hit, L.scatter * npix + pix, 4 * npix)
+
+    do_stash = newly_escaped & ~L.stash_valid
+    stash_idx = torch.where(do_stash, rec, L.stash_idx)
+    stash_energy = torch.where(do_stash, energy, L.stash_energy)
+    stash_valid = L.stash_valid | do_stash
+    adopt = do_stash & L.cand_free & (remaining >= n)
+    escaped = L.escaped | (newly_escaped & ~do_stash)
+    alive = L.alive & (~newly_escaped | adopt)
+    cand_free = L.cand_free & ~adopt
+
+    updates = dict(
+        px=torch.where(adopt, cand.px, px), py=torch.where(adopt, cand.py, py),
+        pz=torch.where(adopt, cand.pz, pz), dx=torch.where(adopt, cand.dx, dx),
+        dy=torch.where(adopt, cand.dy, dy), dz=torch.where(adopt, cand.dz, dz),
+        energy=torch.where(adopt, cand.energy, energy),
+        ebin=torch.where(adopt, cand.ebin, L.ebin),
+        scatter=torch.where(adopt, 0, L.scatter),
+        alive=alive, pending=pending, escaped=escaped,
+        k_air=torch.where(adopt, 0, k_air), k_soft=torch.where(adopt, 0, k_soft),
+        vox=vox, mat_evt=mat_evt, xi=xi, stash_idx=stash_idx, stash_energy=stash_energy,
+        stash_valid=stash_valid, cand_free=cand_free,
+    )
+    for k, v in updates.items():
+        getattr(L, k).copy_(v)
+    n_adopt = adopt.sum().to(torch.int32)
+    counts[0] = n_adopt
+    counts[1] += active.sum().to(torch.int32)
+    remaining -= n_adopt
+
+
+def _check_flight_args(lanes: FlightLanes, cand: Candidates, u_step, u_int,
+                       consts: FlightConsts, remaining, counts) -> None:
+    n = consts.ints["n"]
+    dev = lanes.px.device
+    for k in FlightLanes._fields:
+        _check(getattr(lanes, k), f"lanes.{k}", _lane_dtype(k), (n,), dev)
+    for k in Candidates._fields:
+        _check(getattr(cand, k), f"cand.{k}", _lane_dtype(k), (n,), dev)
+    _check(u_step, "u_step", torch.float32, (n,), dev)
+    _check(u_int, "u_int", torch.float32, (n,), dev)
+    _check(consts.packed, "packed", torch.int32, (consts.ints["n_voxels"],), dev)
+    _check(consts.coeffs, "coeffs", torch.float32,
+           (consts.ints["n_mats"], 3 * consts.ints["cheb_d"] + 6), dev)
+    _check(remaining, "remaining", torch.int32, (), dev)
+    _check(counts, "counts", torch.int32, (2,), dev)
+
+
+def flight_step(lanes: FlightLanes, cand: Candidates, u_step, u_int, consts: FlightConsts,
+                remaining, counts) -> None:
+    """One Woodcock flight of every lane, in place (the JAX engine's flight
+    closure; the port updates the lane state in place instead of returning
+    a new pytree, which saves a copy of ~31 words per lane per flight).
+
+    ``remaining`` (i32 scalar) is the history budget, read on the device as
+    the adoption guard ``remaining >= n_lanes`` and decremented by this
+    flight's adoptions; ``counts`` (i32[2]) receives the adoptions in
+    ``[0]`` and accumulates the active lanes in ``[1]``."""
+    _check_flight_args(lanes, cand, u_step, u_int, consts, remaining, counts)
+    if lanes.px.device.type == "cpu":
+        flight_step_reference(lanes, cand, u_step, u_int, consts, remaining, counts)
+        return
+    counts[0] = 0
+    lanes_c = _LanesC(*(getattr(lanes, k).data_ptr() for k in FlightLanes._fields))
+    cand_c = _CandidatesC(*(getattr(cand, k).data_ptr() for k in Candidates._fields))
+    params = consts.params()
+    _launch("flight_step", ctypes.byref(lanes_c), ctypes.byref(cand_c), u_step.data_ptr(),
+            u_int.data_ptr(), consts.packed.data_ptr(), consts.coeffs.data_ptr(),
+            consts.coeffs.numel(), remaining.data_ptr(), counts.data_ptr(),
+            ctypes.byref(params), _stream(lanes.px))
+    remaining -= counts[0]

@@ -1,0 +1,129 @@
+"""The port's package boundary: it imports neither JAX nor any module of the
+JAX package, and its entry points run on the card unless the caller asks
+for the CPU."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cbctmc_tpu_torch.engine.device import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+
+SLICE_MODULES = [
+    "cbctmc_tpu_torch",
+    "cbctmc_tpu_torch.interop",
+    "cbctmc_tpu_torch.physics.constants",
+    "cbctmc_tpu_torch.physics.materials",
+    "cbctmc_tpu_torch.physics.spectrum",
+    "cbctmc_tpu_torch.geometry.mc_geometry",
+    "cbctmc_tpu_torch.geometry.phantoms",
+    "cbctmc_tpu_torch.engine.device",
+    "cbctmc_tpu_torch.engine.rng",
+    "cbctmc_tpu_torch.engine.ct",
+    "cbctmc_tpu_torch.engine.tables",
+    "cbctmc_tpu_torch.engine.samplers",
+    "cbctmc_tpu_torch.engine.kernels",
+    "cbctmc_tpu_torch.engine.transport",
+    "cbctmc_tpu_torch.engine.simulate",
+]
+
+_PROBE = """
+import importlib, json, sys
+sys.modules["jax"] = None  # any 'import jax' now raises ImportError
+for name in {modules!r}:
+    importlib.import_module(name)
+print(json.dumps(sorted(k for k, v in sys.modules.items() if v is not None)))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(modules=SLICE_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
+    )
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(SLICE_MODULES) <= set(loaded)
+    # exact names: cbctmc_tpu_torch itself starts with "cbctmc_tpu"
+    offending = [m for m in loaded if m == "cbctmc_tpu" or m.startswith("cbctmc_tpu.")]
+    assert offending == []
+    assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
+
+
+def test_port_sources_name_no_jax_import():
+    for path in (REPO / "cbctmc_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        for needle in ("import jax", "from jax", "import cbctmc_tpu\n", "from cbctmc_tpu."):
+            assert needle not in text, f"{path.name}: {needle.strip()}"
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mcscanner_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from cbctmc_tpu_torch.engine.simulate import MCScanner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mats = np.ones((4, 4, 4), np.uint8)
+    dens = np.full((4, 4, 4), 1.0e-3, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MCScanner(mats, dens, (1.0, 1.0, 1.0))
+
+
+@pytest.mark.parametrize("entry", ["make_scene", "build_device_tables", "make_voxel_volume"])
+def test_entry_points_default_to_cuda(entry, monkeypatch):
+    from cbctmc_tpu_torch.engine import tables, transport
+    from cbctmc_tpu_torch.physics.materials import default_material_set
+    from cbctmc_tpu_torch.physics.spectrum import default_spectrum
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ts = default_material_set()
+    mats = np.zeros((4, 4, 4), np.int32)
+    dens = np.full((4, 4, 4), 1.0e-3, np.float32)
+    call = {
+        "make_scene": lambda: transport.make_scene(ts, mats, dens, (0.1,) * 3),
+        "build_device_tables": lambda: tables.build_device_tables(ts, default_spectrum()),
+        "make_voxel_volume": lambda: transport.make_voxel_volume(mats, dens, (0.1,) * 3),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+def test_run_projection_defaults_to_cuda(monkeypatch):
+    from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
+    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.tables import build_device_tables
+    from cbctmc_tpu_torch.engine.transport import EngineConfig, make_scene, run_projection
+    from cbctmc_tpu_torch.physics.materials import default_material_set
+    from cbctmc_tpu_torch.physics.spectrum import default_spectrum
+
+    ts = default_material_set()
+    mats = np.zeros((4, 4, 4), np.int32)
+    dens = np.full((4, 4, 4), 1.0e-3, np.float32)
+    volume, woodcock = make_scene(ts, mats, dens, (0.5,) * 3, device="cpu")
+    tables = build_device_tables(ts, default_spectrum(), device="cpu")
+    geom = ScanGeometry(
+        n_pixels_x=4, n_pixels_z=4, detector_size_x=4.0, detector_size_z=4.0,
+        sdd=6.0, sad=4.0, aperture_phi1=-1.0, aperture_phi2=-1.0,
+        aperture_theta=-1.0, source_position_0=(1.0, -3.0, 1.0),
+    )
+    src, det = build_scan(geom, [270.0], device="cpu")
+    args = (tables, woodcock, volume, select_projection(src, 0), select_projection(det, 0),
+            100, make_generator("cpu", 0), 4, 4)
+    cfg = EngineConfig(n_lanes=64, max_virtual_trips=2)
+    image = run_projection(*args, config=cfg, device="cpu")
+    assert image.shape == (4, 4, 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_projection(*args, config=cfg)
