@@ -1,19 +1,34 @@
 """The engine's hand-written CUDA kernels, their plain PyTorch versions, the
 build, and the launch counters.
 
-Three kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
-what it replaces, what bounds it and how its design answers that):
+Six kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
+what it replaces, what bounds it and how its design answers that). Three
+are the phases of the engine's outer iteration, the only device work
+:func:`cbctmc_tpu_torch.engine.transport.run_projection` issues on the card
+besides the draw of the iteration's random bits:
+
+- ``refill``: the history budget, the refill of dead lanes and the
+  candidate pool (:func:`launch_refill`);
+- ``flight_resolve``: one Woodcock flight and the in-place resolve of the
+  pending events, state in registers in between, the angle inverse-CDF
+  knots read in the sampler's body (:func:`launch_flight_resolve`);
+- ``tally``: the escape records into the image by ``atomicAdd`` and the
+  loop-condition word (:func:`launch_tally`).
+
+Their plain versions are the ``*_phase_reference`` functions of
+``transport.py``. Three more are the single-purpose kernels the phases grew
+out of, each still checked and timed on its own:
 
 - ``gather_probe``: ``out = table[idx]``, the port of the Pallas
   ``_gather_kernel`` / ``probe_vmem_gather``: the first build-and-launch
   check of every later kernel (:func:`probe_gather`), and the engine's
-  per-lane read of the two angle inverse-CDF knots in each event resolve
-  (:func:`cbctmc_tpu_torch.engine.samplers.sample_icdf_rows_cdt1`);
+  per-lane read of the two angle inverse-CDF knots for a caller of
+  :func:`cbctmc_tpu_torch.engine.samplers.sample_icdf_rows_cdt1`;
 - ``flight_prototype``: the exact contract of the Pallas ``_flight_kernel``
   (fused Woodcock multi-flight over split material/density arrays);
 - ``flight_step``: the engine's production flight over the packed voxel
-  word, which :func:`cbctmc_tpu_torch.engine.transport.run_projection` runs
-  ``max_virtual_trips`` times per outer iteration.
+  word, one flight per launch with the lane state in device memory (the
+  body is ``csrc/flight.cuh``, which ``flight_resolve`` shares).
 
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ctypes, at first use, into
@@ -42,7 +57,10 @@ from cbctmc_tpu_torch.physics.constants import EPS_SOURCE, TALLY_MIN_COS_ANGLE
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("gather_probe", "flight_prototype", "flight_step")
+KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_resolve",
+           "tally")
+#: lanes per block of the phase kernels (PHASE_THREADS in csrc/engine.cuh)
+PHASE_BLOCK = 256
 # -fmad=false: every product and sum rounds on its own, as the plain
 # versions' separate PyTorch operations do (no --use_fast_math: the physics
 # needs logf/expf/expm1f to full accuracy)
@@ -60,6 +78,7 @@ _libs: dict = {}
 _BIG = 1.0e30
 _DEN_MASK = (1 << 21) - 1
 MAX_POLY = 16
+MAX_SHELLS = 32  # per-lane shell arrays of csrc/samplers.cuh
 
 
 def reset_launch_counts() -> None:
@@ -79,6 +98,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -144,8 +165,41 @@ class _ParamsC(ctypes.Structure):
     ]
 
 
+_PHASE_INTS = ("n", "n_spec_bins", "n_bins", "n_ie", "k_knots", "n_icdf_rows", "n_mats",
+               "s_max")
+_PHASE_FLOATS = (
+    ("src_pos", 3), ("rot_fan", 9), ("cos_theta_low", 1), ("d_cos_theta", 1),
+    ("phi_low", 1), ("d_phi", 1), ("max_height", 1), ("bbox", 3), ("e0", 1), ("ide", 1),
+    ("icdf_log_lo", 1), ("icdf_scale", 1),
+)
+
+
+class _PhaseParamsC(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in _PHASE_INTS] + [
+        (f, ctypes.c_float * k if k > 1 else ctypes.c_float) for f, k in _PHASE_FLOATS
+    ]
+
+
+def _fill_struct(struct, ints: dict, floats: dict):
+    for k, v in ints.items():
+        setattr(struct, k, int(v))
+    for k, v in floats.items():
+        if isinstance(v, (list, tuple)):
+            arr = getattr(struct, k)
+            for j, x in enumerate(v):
+                arr[j] = x
+        else:
+            setattr(struct, k, v)
+    return struct
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_LP, _CP = ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC)
 _SIGNATURES = {
+    "refill": [_LP, _CP, _P, _I, _I, _P, _P, _P, _P, ctypes.POINTER(_PhaseParamsC), _P],
+    "flight_resolve": [_LP, _CP, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
+                       ctypes.POINTER(_ParamsC), ctypes.POINTER(_PhaseParamsC), _P],
+    "tally": [_LP, _P, _P, _P, _P, _P, ctypes.POINTER(_ParamsC), _P],
     "gather_probe": [_P, _I, _P, _P, _I, _P],
     "flight_prototype": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P],
     "flight_step": [ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC), _P, _P, _P, _P,
@@ -393,17 +447,20 @@ class FlightConsts:
     coeffs: torch.Tensor  # f32 [n_mats, 3*D + 6]
 
     def params(self) -> _ParamsC:
-        p = _ParamsC()
-        for k, v in self.ints.items():
-            setattr(p, k, int(v))
-        for k, v in self.floats.items():
-            if isinstance(v, (list, tuple)):
-                arr = getattr(p, k)
-                for j, x in enumerate(v):
-                    arr[j] = x
-            else:
-                setattr(p, k, v)
-        return p
+        return _fill_struct(_ParamsC(), self.ints, self.floats)
+
+
+@dataclasses.dataclass
+class PhaseParams:
+    """Source, spectrum and interaction-sampler scalars of the phase kernels
+    (float32 values held as Python floats; ``PhaseParams`` in
+    ``csrc/engine.cuh``)."""
+
+    ints: dict
+    floats: dict
+
+    def params(self) -> _PhaseParamsC:
+        return _fill_struct(_PhaseParamsC(), self.ints, self.floats)
 
 
 def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_z: int,
@@ -458,6 +515,14 @@ def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_
                         coeffs=coeffs.contiguous())
 
 
+def _div(x: torch.Tensor, scalar: float) -> torch.Tensor:
+    """``x / scalar`` as a correctly rounded division. On the card PyTorch
+    turns division by a Python scalar into multiplication by its reciprocal,
+    which rounds differently in about one value in six; the kernels and the
+    JAX engine divide."""
+    return x / torch.full_like(x, scalar)
+
+
 def _horner(coeffs, t):
     acc = torch.full_like(t, coeffs[0])
     for c in coeffs[1:]:
@@ -476,7 +541,7 @@ def locate_voxel(px, py, pz, voxel_size, shape, bbox_hi):
     )
     nx, ny, nz = shape
     cells = [
-        torch.clamp(p / voxel_size[a], 0.0, float(s - 1)).to(torch.int32)
+        torch.clamp(_div(p, voxel_size[a]), 0.0, float(s - 1)).to(torch.int32)
         for a, (p, s) in enumerate(((px, nx), (py, ny), (pz, nz)))
     ]
     return cells[0] + cells[1] * nx + cells[2] * (nx * ny), in_bbox
@@ -559,7 +624,7 @@ def flight_step_reference(lanes: FlightLanes, cand: Candidates, u_step, u_int,
     rows = consts.coeffs[torch.clamp(mat, max=I["n_mats"] - 1).long()]
     cheb = rows[:, : 3 * d].reshape(n, 3, d)
     edge = rows[:, 3 * d :].reshape(n, 3, 2)
-    s = torch.clamp(2.0 * (log_e - F["sigma_log_lo"]) / F["sigma_range"] - 1.0, -1.0, 1.0)
+    s = torch.clamp(_div(2.0 * (log_e - F["sigma_log_lo"]), F["sigma_range"]) - 1.0, -1.0, 1.0)
     s = s[:, None]
     two_s = 2.0 * s
     b1 = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
@@ -671,3 +736,91 @@ def flight_step(lanes: FlightLanes, cand: Candidates, u_step, u_int, consts: Fli
             consts.coeffs.numel(), remaining.data_ptr(), counts.data_ptr(),
             ctypes.byref(params), _stream(lanes.px))
     remaining -= counts[0]
+
+
+# ---------------------------------------------------------------------------
+# the phase kernels of the engine's outer iteration
+# ---------------------------------------------------------------------------
+class _PhaseArgs:
+    """The ctypes arguments of one engine call's phase launches, built once:
+    the state tensors are updated in place, so every pointer holds for the
+    whole call."""
+
+    def __init__(self, C, st):
+        n = C.n_lanes
+        dev = st.lanes.px.device
+        if dev.type != "cuda":
+            raise ValueError(f"the phase kernels launch on a CUDA device, not {dev}")
+        for k in FlightLanes._fields:
+            _check(getattr(st.lanes, k), f"lanes.{k}", _lane_dtype(k), (n,), dev)
+        for k in Candidates._fields:
+            _check(getattr(st.cand, k), f"cand.{k}", _lane_dtype(k), (n,), dev)
+        _check(st.ctrl, "ctrl", torch.int32, None, dev)
+        _check(st.block_dead, "block_dead", torch.int32, (-(-n // PHASE_BLOCK),), dev)
+        _check(st.image, "image", torch.float32, (4 * C.n_pixels + 1,), dev)
+        _check(st.counters, "counters", torch.int64, (10,), dev)
+        _check(st.energy, "energy", torch.float64, (1,), dev)
+        F = C.flight
+        _check(F.packed, "packed", torch.int32, (F.ints["n_voxels"],), dev)
+        _check(F.coeffs, "coeffs", torch.float32,
+               (F.ints["n_mats"], 3 * F.ints["cheb_d"] + 6), dev)
+        Q = C.phase_params.ints
+        _check(C.spec, "spec", torch.float32, (3 * Q["n_spec_bins"] - 1,), dev)
+        _check(C.icdf, "icdf", torch.float32, (2 * Q["n_icdf_rows"] * Q["k_knots"],), dev)
+        _check(C.shells, "shells", torch.float32, (3, Q["n_mats"], Q["s_max"]), dev)
+        if F.ints["n"] != n or Q["n"] != n or Q["n_mats"] != F.ints["n_mats"]:
+            raise ValueError("flight and phase constants disagree on the lane or material count")
+        if Q["s_max"] > MAX_SHELLS:
+            raise ValueError(f"at most {MAX_SHELLS} Compton shells per material")
+        self.consts = C
+        self.lanes = _LanesC(*(getattr(st.lanes, k).data_ptr() for k in FlightLanes._fields))
+        self.cand = _CandidatesC(*(getattr(st.cand, k).data_ptr() for k in Candidates._fields))
+        self.params = F.params()
+        self.phase = C.phase_params.params()
+        self.stream = _stream(st.lanes.px)
+        self.bits_shape = (C.rows.n_rows, n)
+        self.device = dev
+
+
+def _phase_args(C, st) -> _PhaseArgs:
+    if st.launch_args is None or st.launch_args.consts is not C:
+        st.launch_args = _PhaseArgs(C, st)
+    return st.launch_args
+
+
+def launch_refill(C, st, bits, pool: int, cand_pool: int) -> None:
+    """Launch ``refill`` on the engine state of a CUDA device: start a
+    history from the photon pool at row ``pool`` of ``bits`` in every dead
+    lane the budget allows and, when ``cand_pool >= 0`` (the start of an
+    iteration), sample each lane's candidate from that pool. Plain version:
+    ``transport.refill_phase_reference``."""
+    a = _phase_args(C, st)
+    _check(bits, "bits", torch.int64, a.bits_shape, a.device)
+    _launch("refill", ctypes.byref(a.lanes), ctypes.byref(a.cand), bits.data_ptr(), pool,
+            cand_pool, C.spec.data_ptr(), st.ctrl.data_ptr(), st.counters.data_ptr(),
+            st.block_dead.data_ptr(), ctypes.byref(a.phase), a.stream)
+
+
+def launch_flight_resolve(C, st, bits, flight_row: int, resolve_row: int) -> None:
+    """Launch ``flight_resolve``: one flight of every active lane on rows
+    ``flight_row, flight_row + 1`` of ``bits`` and, when ``resolve_row >= 0``,
+    the resolve of every pending event on the rows from ``resolve_row``.
+    Plain version: ``transport.flight_resolve_phase_reference``."""
+    a = _phase_args(C, st)
+    _check(bits, "bits", torch.int64, a.bits_shape, a.device)
+    F = C.flight
+    _launch("flight_resolve", ctypes.byref(a.lanes), ctypes.byref(a.cand), bits.data_ptr(),
+            flight_row, resolve_row, F.packed.data_ptr(), F.coeffs.data_ptr(),
+            F.coeffs.numel(), C.icdf.data_ptr(), C.shells.data_ptr(), st.ctrl.data_ptr(),
+            st.counters.data_ptr(), st.block_dead.data_ptr(), ctypes.byref(a.params),
+            ctypes.byref(a.phase), a.stream)
+
+
+def launch_tally(C, st) -> None:
+    """Launch ``tally``: every lane's escape record into ``st.image`` and the
+    loop-condition word into ``st.ctrl``. Plain version:
+    ``transport.tally_phase_reference``."""
+    a = _phase_args(C, st)
+    _launch("tally", ctypes.byref(a.lanes), st.image.data_ptr(), st.ctrl.data_ptr(),
+            st.counters.data_ptr(), st.energy.data_ptr(), st.block_dead.data_ptr(),
+            ctypes.byref(a.params), a.stream)

@@ -11,6 +11,11 @@ Layout differs from the JAX package in one place: per-lane shell rows are
 lane-major ``[n, s_max]`` (what ``table[mat]`` yields); the one-hot selects
 the TPU needed become ``gather``s, which pick the same element exactly.
 Functions that take uniforms give the JAX results on the same inputs.
+
+Every sampler that draws numbers has two forms: ``*_u`` takes its uniforms
+as rows of the engine's per-iteration block (the form the engine and the
+CUDA phase kernels share), and the generator-taking entry point draws the
+same rows with one generator call and delegates.
 """
 
 from __future__ import annotations
@@ -69,8 +74,16 @@ def _shell_pzomc(energy, ui, j0, cdt1):
     return torch.where(safe, pz, 0.002)
 
 
-def compton_scatter_rows_tab(
-    generator: torch.Generator,
+def compton_scatter_rows_tab(generator, energy, cdt1, f_rows, ui_rows, j0_rows, mask):
+    """:func:`compton_scatter_rows_tab_u` on ``3 * COMPTON_SHELL_TRIPS`` rows
+    of uniforms drawn from ``generator``."""
+    u_shell = uniform_open(generator, (3 * COMPTON_SHELL_TRIPS, energy.shape[0]),
+                           energy.device)
+    return compton_scatter_rows_tab_u(u_shell, energy, cdt1, f_rows, ui_rows, j0_rows, mask)
+
+
+def compton_scatter_rows_tab_u(
+    u_shell: torch.Tensor,
     energy: torch.Tensor,
     cdt1: torch.Tensor,
     f_rows: torch.Tensor,
@@ -79,23 +92,26 @@ def compton_scatter_rows_tab(
     mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compton sampling with a pre-sampled angle (cdt1 from the tabulated
-    inverse CDF): target shell + Doppler-broadened energy. Shell rows are
-    lane-major [n, s_max]. Returns (new_energy, cos_theta)."""
+    inverse CDF): target shell + Doppler-broadened energy. ``u_shell`` is
+    [3 * COMPTON_SHELL_TRIPS, n]; shell rows are lane-major [n, s_max].
+    Returns (new_energy, cos_theta)."""
     ek = energy * INV_ELECTRON_REST_ENERGY
     tau = 1.0 / (1.0 + ek * cdt1)
     open_shell = ui_rows < energy[:, None]
     f_open = torch.where(open_shell, f_rows, 0.0)
     ui = torch.where(open_shell, ui_rows, 0.0)
     return _shell_doppler_and_energy(
-        generator, energy, tau, cdt1, f_open, open_shell, ui, j0_rows, mask
+        u_shell, energy, tau, cdt1, f_open, open_shell, ui, j0_rows, mask
     )
 
 
 def _shell_doppler_and_energy(
-    generator, energy, tau, cdt1, f_open, open_shell, ui, j0, mask
+    u_shell, energy, tau, cdt1, f_open, open_shell, ui, j0, mask
 ):
     """Target-shell selection + Doppler-broadened momentum + scattered
-    energy (the second half of PENELOPE's GCOa)."""
+    energy (the second half of PENELOPE's GCOa). The running sum over the
+    shell axis is taken shell by shell, in shell order, so that a per-lane
+    loop (the CUDA kernel's) rounds exactly as this does."""
     n, s_max = f_open.shape
     dev = energy.device
     costh = 1.0 - cdt1
@@ -103,12 +119,13 @@ def _shell_doppler_and_energy(
     pz_final = _shell_pzomc(energy[:, None], ui, j0, cdt1[:, None])
     rn = _profile_cdf_complement_terms(pz_final)
     rn_weighted = torch.where(open_shell, f_open * rn, 0.0)
-    s = torch.sum(rn_weighted, dim=1)
-    cum = torch.cumsum(rn_weighted, dim=1)
+    cols = [rn_weighted[:, 0]]
+    for k in range(1, s_max):
+        cols.append(cols[-1] + rn_weighted[:, k])
+    cum = torch.stack(cols, dim=1)
+    s = cols[-1]
     last_open = torch.clamp(open_shell.sum(dim=1) - 1, min=0)
     shell_iota = torch.arange(s_max, device=dev)[None, :]
-
-    u_shell = uniform_open(generator, (3 * COMPTON_SHELL_TRIPS, n), dev)
 
     xqc = 1.0 + tau * (tau - 2.0 * costh)
     af = torch.where(
@@ -163,12 +180,14 @@ def sample_icdf_rows_cdt1(
     row_in_table: Callable[[torch.Tensor], torch.Tensor],
     icdf_table: torch.Tensor,
     tables,
+    gather_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = gather,
 ) -> torch.Tensor:
     """Map two uniforms [2, n] to a 1-cos(theta) sample via a tabulated
     inverse CDF on the coarse log-energy grid: stochastic interpolation
     between the two bracketing log-energy rows + linear interpolation at an
     equal-probability knot. ``row_in_table(j_e)`` addresses a (possibly
-    concatenated Compton|Rayleigh) table."""
+    concatenated Compton|Rayleigh) table; ``gather_fn`` reads the knots
+    (the engine's plain path passes ``gather_reference``)."""
     n_ie = tables.n_icdf_energies
     pos = torch.clamp(
         (torch.log(energy) - tables.icdf_log_lo)
@@ -186,8 +205,8 @@ def sample_icdf_rows_cdt1(
     # the two knots are per-lane gathers from the flat table (the
     # hand-written gather kernel on the card)
     flat = icdf_table.reshape(-1)
-    v0 = gather(flat, row * k_knots + jk)
-    v1 = gather(flat, row * k_knots + torch.clamp(jk + 1, max=k_knots - 1))
+    v0 = gather_fn(flat, row * k_knots + jk)
+    v1 = gather_fn(flat, row * k_knots + torch.clamp(jk + 1, max=k_knots - 1))
     return v0 * (1.0 - fk) + v1 * fk
 
 
@@ -232,11 +251,21 @@ def rotate_direction(dx, dy, dz, costh, phi):
 def sample_source_direction(
     generator: torch.Generator, source: FanBeamSource, n: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`sample_source_direction_u` on ``2 * SOURCE_DIR_TRIPS`` rows of
+    uniforms drawn from ``generator``."""
+    u_src = uniform_open(generator, (2 * SOURCE_DIR_TRIPS, n), source.position.device)
+    return sample_source_direction_u(u_src, source)
+
+
+def sample_source_direction_u(
+    u_src: torch.Tensor, source: FanBeamSource
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fan-beam directions with the PENMAIN square-field rejection (uniform
-    in (cos theta, phi) within the aperture, |w/v| <= tan(theta/2)).
-    Returns (dx, dy, dz, accepted); unaccepted lanes retry next iteration."""
-    dev = source.position.device
-    u_src = uniform_open(generator, (2 * SOURCE_DIR_TRIPS, n), dev)
+    in (cos theta, phi) within the aperture, |w/v| <= tan(theta/2)), from
+    uniforms [2 * SOURCE_DIR_TRIPS, n]. Returns (dx, dy, dz, accepted);
+    unaccepted lanes retry next iteration."""
+    dev = u_src.device
+    n = u_src.shape[1]
 
     dx = torch.zeros((n,), dtype=torch.float32, device=dev)
     dy = torch.ones((n,), dtype=torch.float32, device=dev)
@@ -265,14 +294,27 @@ def sample_source_direction(
 
 
 def sample_spectrum_energy_cdf(generator: torch.Generator, tables, n: int) -> torch.Tensor:
-    """Inverse-CDF spectrum sampling: bin = #{k in 1..nb-1 : u1 >= cdf[k]}
-    (a sorted search, the count the JAX engine takes by broadcast-compare),
-    then uniform within the bin."""
-    dev = tables.spectrum_cdf.device
-    u = uniform_open(generator, (2, n), dev)
+    """:func:`sample_spectrum_energy_cdf_u` on two rows of uniforms drawn
+    from ``generator``."""
+    u = uniform_open(generator, (2, n), tables.spectrum_cdf.device)
+    return sample_spectrum_energy_cdf_u(u, spectrum_search_table(tables))
+
+
+def spectrum_search_table(tables) -> torch.Tensor:
+    """The spectrum sampler's table, one flat float32 tensor
+    ``[inner CDF (nb - 1) | bin low edge (nb) | bin width (nb)]``."""
     nb = tables.n_spectrum_bins
-    inner = tables.spectrum_cdf[1:nb].contiguous()
-    b = torch.searchsorted(inner, u[0], right=True)
     e_lo = tables.spectrum_energies[:-1]
-    de = tables.spectrum_energies[1:] - e_lo
-    return e_lo[b] + u[1] * de[b]
+    return torch.cat(
+        [tables.spectrum_cdf[1:nb], e_lo, tables.spectrum_energies[1:] - e_lo]
+    ).contiguous()
+
+
+def sample_spectrum_energy_cdf_u(u: torch.Tensor, spec: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF spectrum sampling from uniforms [2, n] and
+    :func:`spectrum_search_table`: bin = #{k in 1..nb-1 : u[0] >= cdf[k]} (a
+    sorted search, the count the JAX engine takes by broadcast-compare),
+    then uniform within the bin."""
+    nb = (spec.shape[0] + 1) // 3
+    b = torch.searchsorted(spec[: nb - 1], u[0].contiguous(), right=True)
+    return spec[nb - 1 : 2 * nb - 1][b] + u[1] * spec[2 * nb - 1 :][b]

@@ -80,7 +80,8 @@ class SimulationRunInfo:
     n_histories: int
     wall_time_s: float
     # outer engine iterations summed over every chunk and projection (each
-    # runs config.max_virtual_trips flight_step launches)
+    # is one draw of random bits and the refill, flight_resolve and tally
+    # launches of engine/transport.py)
     iterations: int = 0
     # the engine's 10-slot counters summed over the run (run_projection)
     counts: np.ndarray | None = None
@@ -203,7 +204,7 @@ class MCScanner:
         n_proj = len(angles)
         npx, npz = self.scan_geometry.n_pixels_x, self.scan_geometry.n_pixels_z
         images = np.zeros((n_proj, 4, npz, npx), np.float64)
-        counts = torch.zeros((10,), dtype=torch.float32, device=dev)
+        counts = torch.zeros((10,), dtype=torch.float64, device=dev)
         iterations = 0
 
         chunk_size = min(PILOT_CHUNK, n_histories)
@@ -255,7 +256,7 @@ class MCScanner:
         images /= pixel_area_cm2 * n_histories
         info = SimulationRunInfo(
             n_histories=n_histories * n_proj, wall_time_s=wall,
-            iterations=iterations, counts=counts.cpu().numpy().astype(np.float64),
+            iterations=iterations, counts=counts.cpu().numpy(),
         )
         return images, info
 

@@ -4,26 +4,30 @@ The port of the JAX package's ``engine/transport.py`` production path
 (``resolve_inplace=True``, ``sigma_mode="cheb"``, ``spectrum_mode="cdf"``,
 ``rayleigh_mode="icdf"``). A fixed batch of photon lanes is stepped in
 lockstep; dead lanes are refilled from the fan-beam source until the
-history budget is spent. Each outer iteration:
+history budget is spent. Each outer iteration draws ONE block of random
+bits (:func:`bits_row_map` says which rows each consumer reads) and runs
+its phases in order:
 
-1. refills dead lanes (exclusive-cumsum budget ordering, so the last
-   ``< n_lanes`` histories never overdraw the budget) and pre-samples one
-   adoption candidate per lane from a second, independent pool;
-2. runs ``max_virtual_trips`` Woodcock flights, split into ``n_resolves``
-   sub-phases - each flight is ONE launch of the hand-written
-   ``flight_step`` kernel (:mod:`cbctmc_tpu_torch.engine.kernels`), which
-   reads the packed u32 voxel word, tests for a real event, and stashes an
-   escaping photon's detector record and adopts the lane's candidate;
-3. after each sub-phase resolves pending real events in place over all
-   lanes (Compton / Rayleigh from the tabulated angle inverse CDFs,
-   photoelectric absorption) and, between sub-phases, refills lanes that
-   died (``_mid_refill``);
-4. tallies each lane's stash or parked record into the 4-class detector
-   image once (``index_add_`` into a ``4 * npix + 1`` buffer whose last slot
-   is the dropped sentinel).
+1. ``refill``: dead lanes start a history (exclusive-cumsum budget ordering,
+   so the last ``< n_lanes`` histories never overdraw the budget) and every
+   lane gets one pre-sampled adoption candidate from a second pool;
+2. ``flight_resolve``, once per sub-phase: the Woodcock flights (packed u32
+   voxel word, real-event test, the escaping photon's detector record
+   stashed, the candidate adopted), then the pending real events resolved in
+   place (Compton / Rayleigh from the tabulated angle inverse CDFs,
+   photoelectric absorption); between sub-phases another ``refill`` of the
+   lanes that died;
+3. ``tally``: each lane's stash or parked record into the 4-class detector
+   image once (a ``4 * npix + 1`` buffer whose last slot is the dropped
+   sentinel), and the loop condition.
 
-The outer loop is a host loop: its condition is one host read per
-iteration. Lane state is updated in place by the flight kernel.
+Each phase is one hand-written CUDA kernel on the card
+(:mod:`cbctmc_tpu_torch.engine.kernels`, ``csrc/refill.cu``,
+``csrc/flight_resolve.cu``, ``csrc/tally.cu``) and a plain PyTorch function
+here (``*_phase_reference``), which the CPU runs and the kernels are held
+against. The outer loop is a host loop: one generator call, the phase
+launches and one host read of two control words per iteration. All state
+lives in an :class:`EngineState` and is updated in place.
 
 Detector images accumulate energy in eV (float32) per (primary, Compton,
 Rayleigh, multi-scatter); the caller normalises to eV/cm^2/history.
@@ -32,7 +36,8 @@ Rayleigh, multi-scatter); the caller normalises to eV/cm^2/history.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+import functools
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -41,12 +46,21 @@ from cbctmc_tpu_torch.engine import samplers
 from cbctmc_tpu_torch.engine.ct import DetectorGeom
 from cbctmc_tpu_torch.engine.device import resolve_device
 from cbctmc_tpu_torch.engine.kernels import (
+    PHASE_BLOCK,
     Candidates,
+    FlightConsts,
     FlightLanes,
+    PhaseParams,
     flight_consts,
     flight_step,
+    flight_step_reference,
+    gather,
+    gather_reference,
+    launch_flight_resolve,
+    launch_refill,
+    launch_tally,
 )
-from cbctmc_tpu_torch.engine.rng import uniform_open
+from cbctmc_tpu_torch.engine.rng import random_bits, uniform_from_bits
 from cbctmc_tpu_torch.engine.samplers import FanBeamSource
 from cbctmc_tpu_torch.engine.tables import (
     DeviceTables,
@@ -455,6 +469,459 @@ def _exclusive_budget(dead: torch.Tensor, remaining: torch.Tensor, n: int) -> to
     return dead & ((remaining >= n) | (order < remaining))
 
 
+# ---------------------------------------------------------------------------
+# the per-iteration block of random bits
+# ---------------------------------------------------------------------------
+#: rows of one sampled photon: 2 spectrum rows, then the direction trips
+PHOTON_ROWS = 2 + 2 * samplers.SOURCE_DIR_TRIPS
+#: rows of one event resolve: 2 angle rows, the shell trips, 1 azimuth row
+RESOLVE_ROWS = 2 + 3 * samplers.COMPTON_SHELL_TRIPS + 1
+
+
+class BitsRows(NamedTuple):
+    """Which rows of the per-iteration block ``bits[n_rows, n_lanes]`` each
+    consumer reads (first row of each group; both engine paths and the CUDA
+    kernels address the block through this one map).
+
+    A photon pool is ``PHOTON_ROWS`` rows: ``+0, +1`` the spectrum energy,
+    ``+2 ...`` the ``2 * SOURCE_DIR_TRIPS`` direction uniforms. Flight ``i``
+    reads ``flight + 2 i`` (step length) and ``flight + 2 i + 1``
+    (interaction test). A resolve is ``RESOLVE_ROWS`` rows: ``+0, +1`` the
+    angle inverse CDF, ``+2 ...`` the ``3 * COMPTON_SHELL_TRIPS`` shell
+    uniforms, the last the azimuth."""
+
+    n_rows: int
+    refill: int  # pool of the refill at the start of the iteration
+    cand: int  # pool of the adoption candidates
+    mid: Tuple[int, ...]  # pool of the refill after sub-phase r < R - 1
+    flight: int
+    resolve: Tuple[int, ...]  # one group per sub-phase
+
+    def groups(self) -> dict:
+        """``{consumer: range of rows}`` over every consumer."""
+        out = {"refill": range(self.refill, self.refill + PHOTON_ROWS),
+               "cand": range(self.cand, self.cand + PHOTON_ROWS)}
+        for r, row in enumerate(self.mid):
+            out[f"mid{r}"] = range(row, row + PHOTON_ROWS)
+        first_resolve = self.resolve[0] if self.resolve else self.n_rows
+        for i in range((first_resolve - self.flight) // 2):
+            out[f"flight{i}"] = range(self.flight + 2 * i, self.flight + 2 * i + 2)
+        for r, row in enumerate(self.resolve):
+            out[f"resolve{r}"] = range(row, row + RESOLVE_ROWS)
+        return out
+
+
+def bits_row_map(config: EngineConfig) -> BitsRows:
+    """The row map of ``config``: (2 + R - 1) photon pools, 2 rows per
+    flight, R resolves. The production config reads 18 + 4 + 54 = 76 rows."""
+    R = max(1, config.n_resolves)
+    mid = tuple(PHOTON_ROWS * (2 + r) for r in range(R - 1))
+    flight = PHOTON_ROWS * (R + 1)
+    first_resolve = flight + 2 * config.max_virtual_trips
+    resolve = tuple(first_resolve + RESOLVE_ROWS * r for r in range(R))
+    return BitsRows(n_rows=first_resolve + RESOLVE_ROWS * R, refill=0, cand=PHOTON_ROWS,
+                    mid=mid, flight=flight, resolve=resolve)
+
+
+# ---------------------------------------------------------------------------
+# engine constants and state
+# ---------------------------------------------------------------------------
+# EngineState.ctrl slots (int32, as in csrc/engine.cuh): the two words the
+# host reads; the words after them are scratch of the kernels' epilogues
+CTRL_REMAINING, CTRL_LIVE = 0, 1
+CTRL_WORDS = 8
+
+
+@dataclasses.dataclass
+class EngineConsts:
+    """Everything an outer iteration reads besides the lane state and the
+    bits: the configuration and its row map, the flight's constants, and the
+    sampler tables laid out as both engine paths read them."""
+
+    config: EngineConfig
+    rows: BitsRows
+    flight: FlightConsts
+    tables: DeviceTables
+    source: FanBeamSource
+    detector: DetectorGeom
+    bbox: torch.Tensor  # f32[3]
+    spec: torch.Tensor  # samplers.spectrum_search_table
+    icdf: torch.Tensor  # flat Compton|Rayleigh angle inverse CDF
+    n_icdf_rows: int  # rows of the Compton half
+    shells: torch.Tensor  # f32[3, n_mats, s_max]: f, ui (finite), j0
+    n_bins: int
+    n_pixels_x: int
+    n_pixels_z: int
+    phase_params: PhaseParams
+
+    @property
+    def n_lanes(self) -> int:
+        return self.config.n_lanes
+
+    @property
+    def n_pixels(self) -> int:
+        return self.n_pixels_x * self.n_pixels_z
+
+
+def engine_consts(tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVolume,
+                  source: FanBeamSource, detector: DetectorGeom, n_pixels_x: int,
+                  n_pixels_z: int, config: EngineConfig) -> EngineConsts:
+    """Gather the constants of one engine call (one host read of the small
+    scalars; derived values are computed in float32 as the plain path
+    derives them)."""
+    coeffs = sigma_coeff_table(tables)
+    flight = flight_consts(
+        tables, woodcock, volume, detector, n_pixels_x, n_pixels_z, config.n_lanes,
+        air_skip=config.air_skip, soft_skip=config.soft_skip, coeffs=coeffs,
+    )
+    # padded shells carry ui=+inf; a large finite value keeps the arithmetic
+    # NaN-free exactly as the JAX engine's shell table does
+    shell_ui = torch.where(torch.isinf(tables.shell_ui), 1.0e30, tables.shell_ui)
+    shells = torch.stack([tables.shell_f, shell_ui, tables.shell_j0]).contiguous()
+    # fused Compton|Rayleigh angular inverse CDF: one row index serves both
+    icdf = torch.cat([tables.compton_icdf, tables.rayleigh_icdf], dim=0).reshape(-1)
+    n_bins = int(woodcock.a.shape[0])
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32).cpu()
+
+    def flist(x):
+        return [float(v) for v in f32(x).reshape(-1)]
+
+    n_ie = tables.n_icdf_energies
+    phase_params = PhaseParams(
+        ints=dict(n=config.n_lanes, n_spec_bins=tables.n_spectrum_bins, n_bins=n_bins,
+                  n_ie=n_ie, k_knots=int(tables.compton_icdf.shape[1]),
+                  n_icdf_rows=int(tables.compton_icdf.shape[0]), n_mats=tables.n_mats,
+                  s_max=tables.max_shells),
+        floats=dict(
+            src_pos=flist(source.position), rot_fan=flist(source.rot_fan),
+            cos_theta_low=float(f32(source.cos_theta_low)),
+            d_cos_theta=float(f32(source.d_cos_theta)),
+            phi_low=float(f32(source.phi_low)), d_phi=float(f32(source.d_phi)),
+            max_height=float(f32(source.max_height_at_y1cm)),
+            bbox=flist(volume.bbox), e0=float(f32(tables.e0)), ide=float(f32(tables.ide)),
+            icdf_log_lo=float(f32(tables.icdf_log_lo)),
+            icdf_scale=float((n_ie - 1.0) / (f32(tables.icdf_log_hi) - f32(tables.icdf_log_lo))),
+        ),
+    )
+    return EngineConsts(
+        config=config, rows=bits_row_map(config), flight=flight, tables=tables,
+        source=source, detector=detector, bbox=volume.bbox,
+        spec=samplers.spectrum_search_table(tables), icdf=icdf.contiguous(),
+        n_icdf_rows=int(tables.compton_icdf.shape[0]), shells=shells, n_bins=n_bins,
+        n_pixels_x=n_pixels_x, n_pixels_z=n_pixels_z, phase_params=phase_params,
+    )
+
+
+def _block_dead(dead: torch.Tensor) -> torch.Tensor:
+    """Dead lanes per block of ``PHASE_BLOCK`` lanes (a block of the phase
+    kernels), i32[n_blocks]."""
+    n = dead.shape[0]
+    n_blocks = -(-n // PHASE_BLOCK)
+    d = torch.zeros((n_blocks * PHASE_BLOCK,), dtype=torch.int32, device=dead.device)
+    d[:n] = dead
+    return d.view(n_blocks, PHASE_BLOCK).sum(dim=1, dtype=torch.int32)
+
+
+@dataclasses.dataclass
+class EngineState:
+    """What one engine call carries from phase to phase, all on the device
+    and updated in place: the lanes (``LaneState`` plus the per-iteration
+    ``escaped`` / ``cand_free`` flags), the adoption candidates, the control
+    words (``ctrl[CTRL_REMAINING]`` the history budget, ``ctrl[CTRL_LIVE]``
+    whether any lane is alive or holds a stashed record after the last
+    tally; the other words are scratch of the kernels' last-block
+    epilogues), the dead lanes per block as the last phase left them (the
+    refill's ordered budget tail sums them), the ``4 * npix + 1`` image, and
+    the counters of ``extras["counts"]`` (integers, and the tallied energy
+    in float64)."""
+
+    lanes: FlightLanes
+    cand: Candidates
+    ctrl: torch.Tensor  # i32[CTRL_WORDS]
+    block_dead: torch.Tensor  # i32[n_blocks]
+    image: torch.Tensor  # f32[4 * npix + 1]
+    counters: torch.Tensor  # i64[10]
+    energy: torch.Tensor  # f64[1]
+    # the ctypes arguments of this state's kernel launches, built at the
+    # first launch (kernels._phase_args); not carried over by clone()
+    launch_args: object = dataclasses.field(default=None, repr=False, compare=False)
+
+    @classmethod
+    def start(cls, carry_in: LaneState, n_histories: int, n_pixels: int) -> "EngineState":
+        """The state of a call that starts from ``carry_in`` (cloned: the
+        phases update lanes in place)."""
+        n = carry_in.px.shape[0]
+        dev = carry_in.px.device
+        fields = {k: getattr(carry_in, k).clone() for k in _LANE_STATE_FIELDS}
+        fields["escaped"] = torch.zeros((n,), dtype=torch.bool, device=dev)
+        fields["cand_free"] = torch.zeros((n,), dtype=torch.bool, device=dev)
+        cand = Candidates(*(
+            torch.zeros((n,), dtype=torch.int32 if k == "ebin" else torch.float32, device=dev)
+            for k in Candidates._fields
+        ))
+        ctrl = torch.zeros((CTRL_WORDS,), dtype=torch.int32, device=dev)
+        ctrl[CTRL_REMAINING] = int(n_histories)
+        return cls(
+            lanes=FlightLanes(**fields), cand=cand, ctrl=ctrl,
+            block_dead=_block_dead(~fields["alive"]),
+            image=torch.zeros((4 * n_pixels + 1,), dtype=torch.float32, device=dev),
+            counters=torch.zeros((10,), dtype=torch.int64, device=dev),
+            energy=torch.zeros((1,), dtype=torch.float64, device=dev),
+        )
+
+    @property
+    def remaining(self) -> torch.Tensor:
+        """The history budget, a 0-d int32 view into ``ctrl``."""
+        return self.ctrl[CTRL_REMAINING]
+
+    def clone(self) -> "EngineState":
+        return EngineState(
+            lanes=FlightLanes(*(t.clone() for t in self.lanes)),
+            cand=Candidates(*(t.clone() for t in self.cand)),
+            ctrl=self.ctrl.clone(), block_dead=self.block_dead.clone(),
+            image=self.image.clone(), counters=self.counters.clone(),
+            energy=self.energy.clone(),
+        )
+
+    def carry(self) -> LaneState:
+        return LaneState(*(getattr(self.lanes, k) for k in _LANE_STATE_FIELDS))
+
+    def counts(self) -> torch.Tensor:
+        """The JAX engine's 10-slot counters, f64[10] (exact integers)."""
+        out = self.counters.to(torch.float64)
+        out[8] = self.energy[0]
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the phases of one outer iteration, plain versions
+# ---------------------------------------------------------------------------
+def _ebin_of(energy: torch.Tensor, C: EngineConsts) -> torch.Tensor:
+    return torch.clamp(
+        ((energy - C.tables.e0) * C.tables.ide).to(torch.int32), -1, C.n_bins - 1
+    )
+
+
+def _set(dst: torch.Tensor, mask: torch.Tensor, value) -> None:
+    dst.copy_(torch.where(mask, value, dst))
+
+
+def sample_photons(C: EngineConsts, bits: torch.Tensor, pool: int):
+    """One source photon per lane from the pool of rows starting at
+    ``pool``: (energy, direction, entry point on the volume wall, accepted)."""
+    n = C.n_lanes
+    u = uniform_from_bits(bits[pool : pool + PHOTON_ROWS])
+    e = samplers.sample_spectrum_energy_cdf_u(u[:2], C.spec)
+    sdx, sdy, sdz, ok = samplers.sample_source_direction_u(u[2:], C.source)
+    src = [C.source.position[a].expand(n) for a in range(3)]
+    sx, sy, sz, _ = _move_to_bbox(*src, sdx, sdy, sdz, C.bbox)
+    return e, (sdx, sdy, sdz), (sx, sy, sz), ok
+
+
+def refill_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, pool: int,
+                           with_candidates: bool) -> None:
+    """Plain version of the ``refill`` kernel: start a history in every dead
+    lane the budget allows (in lane order when it runs short), from the
+    photon pool at row ``pool``. At the start of an iteration
+    (``with_candidates``) also sample every lane's adoption candidate and
+    reset the per-iteration flags; between sub-phases lanes that parked an
+    escape record keep it (they are not refilled)."""
+    L, n = st.lanes, C.n_lanes
+    dead = ~L.alive if with_candidates else ~L.alive & ~L.escaped
+    want = _exclusive_budget(dead, st.remaining, n)
+    e, rdir, rpos, ok = sample_photons(C, bits, pool)
+    start = want & ok
+    for dst, v in zip((L.px, L.py, L.pz, L.dx, L.dy, L.dz), (*rpos, *rdir)):
+        _set(dst, start, v)
+    _set(L.energy, start, e)
+    _set(L.ebin, start, _ebin_of(e, C))
+    _set(L.scatter, start, 0)
+    L.alive.logical_or_(start)
+    L.pending.logical_and_(~start)
+    # refilled lanes enter at the volume wall: the analytic-air flight
+    # branch covers the crossing, no clearance lookup at the entry point
+    _set(L.k_air, start, 0)
+    _set(L.k_soft, start, 0)
+    started = start.sum()
+    st.remaining.sub_(started.to(torch.int32))
+    st.counters[5 if with_candidates else 6] += started
+    if with_candidates:
+        e_c, cdir, cpos, dir_ok = sample_photons(C, bits, C.rows.cand)
+        for dst, v in zip(st.cand, (*cpos, *cdir, e_c, _ebin_of(e_c, C))):
+            dst.copy_(v)
+        L.escaped.zero_()
+        L.cand_free.copy_(dir_ok)
+
+
+def _resolve_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, row: int,
+                       gather_fn=gather_reference) -> None:
+    """Resolve every pending real event in place: Compton / Rayleigh from the
+    tabulated angle inverse CDFs, photoelectric absorption."""
+    L, T = st.lanes, C.tables
+    n_mats = T.n_mats
+    u = uniform_from_bits(bits[row : row + RESOLVE_ROWS])
+    pending = L.pending & L.alive
+    energy, mat_evt = L.energy, L.mat_evt
+    inv_com, inv_ray, _ = eval_sigma_partials(T, energy, mat_evt, C.flight.coeffs)
+    want_c = pending & (L.xi < inv_com)
+    want_r = pending & ~want_c & (L.xi < inv_com + inv_ray)
+    took_photo = pending & ~want_c & ~want_r
+
+    icdf_rows = C.icdf.view(2 * C.n_icdf_rows, -1)
+    cdt1 = samplers.sample_icdf_rows_cdt1(
+        u[:2], energy,
+        lambda j_e: torch.where(want_r, C.n_icdf_rows, 0) + j_e * n_mats + mat_evt,
+        icdf_rows, T, gather_fn=gather_fn,
+    )
+    costh_ray = 1.0 - cdt1
+    m = mat_evt.long()
+    new_e_c, costh_c = samplers.compton_scatter_rows_tab_u(
+        u[2:-1], energy, cdt1, C.shells[0][m], C.shells[1][m], C.shells[2][m], want_c,
+    )
+    new_energy = torch.where(want_c, new_e_c, energy)
+    costh = torch.where(want_c, costh_c, torch.where(want_r, costh_ray, 1.0))
+    phi = u[-1] * TWO_PI
+    rdx, rdy, rdz = samplers.rotate_direction(L.dx, L.dy, L.dz, costh, phi)
+    rotate = want_c | want_r
+    _set(L.dx, rotate, rdx)
+    _set(L.dy, rotate, rdy)
+    _set(L.dz, rotate, rdz)
+
+    new_ebin = _ebin_of(new_energy, C)
+    absorbed = took_photo | (want_c & (new_ebin < 0))
+    L.alive.logical_and_(~absorbed)
+    L.energy.copy_(new_energy)
+    _set(L.ebin, want_c, new_ebin)
+    first = L.scatter == 0
+    L.scatter.copy_(torch.where(
+        want_c & first, COMPTON,
+        torch.where(want_r & first, RAYLEIGH, torch.where(rotate, MULTI, L.scatter)),
+    ))
+    L.pending.zero_()
+    st.counters[2] += want_c.sum()
+    st.counters[3] += want_r.sum()
+    st.counters[4] += took_photo.sum()
+
+
+def flight_resolve_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
+                                   r: int, flight=flight_step_reference,
+                                   gather_fn=gather_reference) -> None:
+    """Plain version of the ``flight_resolve`` kernel: the flights of
+    sub-phase ``r`` (each reads the budget its predecessor left), then the
+    in-place resolve of the pending events. ``flight`` / ``gather_fn`` let
+    :func:`run_projection_stepwise` put the single-purpose kernels in."""
+    t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
+    for i in range(r * t_sub, (r + 1) * t_sub):
+        u = uniform_from_bits(bits[C.rows.flight + 2 * i : C.rows.flight + 2 * i + 2])
+        counts = torch.zeros((2,), dtype=torch.int32, device=bits.device)
+        flight(st.lanes, st.cand, u[0].contiguous(), u[1].contiguous(), C.flight,
+               st.remaining, counts)
+        st.counters[6:8] += counts
+    _resolve_reference(C, st, bits, C.rows.resolve[r], gather_fn)
+    st.block_dead.copy_(_block_dead(~st.lanes.alive & ~st.lanes.escaped))
+
+
+def tally_phase_reference(C: EngineConsts, st: EngineState) -> None:
+    """Plain version of the ``tally`` kernel: each lane's stashed or parked
+    escape record goes into the 4-class image once (a lane holding both
+    tallies the stash and keeps the parked record as its next stash), and
+    ``ctrl[CTRL_LIVE]`` says whether any lane is alive or still holds a
+    record."""
+    L, npix = st.lanes, C.n_pixels
+    pix, hit = _tally_pixel(L.px, L.py, L.pz, L.dx, L.dy, L.dz, C.detector,
+                            C.n_pixels_x, C.n_pixels_z)
+    tally_mask = L.escaped & hit
+    tally_idx = torch.where(tally_mask, L.scatter * npix + pix, 4 * npix)
+    has_stash_rec = L.stash_valid & (L.stash_idx < 4 * npix)
+    primary_idx = torch.where(has_stash_rec, L.stash_idx, tally_idx)
+    primary_val = torch.where(
+        has_stash_rec, L.stash_energy, torch.where(tally_mask, L.energy, 0.0)
+    )
+    st.image.index_add_(0, primary_idx.long(), primary_val)
+    doubles = has_stash_rec & tally_mask
+    _set(L.stash_idx, doubles, tally_idx)
+    _set(L.stash_energy, doubles, L.energy)
+    L.stash_valid.copy_(doubles)
+    tallied = primary_idx < 4 * npix
+    st.counters[0] += tallied.sum()
+    st.energy += torch.where(tallied, primary_val, 0.0).sum(dtype=torch.float64)
+    st.ctrl[CTRL_LIVE] = (L.alive.any() | doubles.any()).to(torch.int32)
+    st.block_dead.copy_(_block_dead(~L.alive))
+
+
+# ---------------------------------------------------------------------------
+# the phases as the engine calls them: the kernel on the card
+# ---------------------------------------------------------------------------
+def refill_phase(C: EngineConsts, st: EngineState, bits: torch.Tensor, pool: int,
+                 with_candidates: bool) -> None:
+    if bits.device.type == "cpu":
+        refill_phase_reference(C, st, bits, pool, with_candidates)
+    else:
+        launch_refill(C, st, bits, pool, C.rows.cand if with_candidates else -1)
+
+
+def flight_resolve_phase(C: EngineConsts, st: EngineState, bits: torch.Tensor, r: int) -> None:
+    """One launch per flight of sub-phase ``r`` (the adoption guard of a
+    flight reads the budget as the previous flight of the whole grid left
+    it, and a kernel boundary is what orders the grid); the last carries the
+    resolve. The production configuration flies once per sub-phase."""
+    if bits.device.type == "cpu":
+        flight_resolve_phase_reference(C, st, bits, r)
+        return
+    t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
+    for i in range(r * t_sub, (r + 1) * t_sub):
+        last = i == (r + 1) * t_sub - 1
+        launch_flight_resolve(C, st, bits, C.rows.flight + 2 * i,
+                              C.rows.resolve[r] if last else -1)
+
+
+def tally_phase(C: EngineConsts, st: EngineState) -> None:
+    if st.image.device.type == "cpu":
+        tally_phase_reference(C, st)
+    else:
+        launch_tally(C, st)
+
+
+class Phases(NamedTuple):
+    refill: Callable
+    flight_resolve: Callable
+    tally: Callable
+
+
+def _engine_phases() -> Phases:
+    # looked up at call time, so a caller can wrap a phase of this module
+    return Phases(refill_phase, flight_resolve_phase, tally_phase)
+
+
+def _plain_phases() -> Phases:
+    return Phases(refill_phase_reference, flight_resolve_phase_reference,
+                  tally_phase_reference)
+
+
+def _stepwise_phases() -> Phases:
+    return Phases(
+        refill_phase_reference,
+        functools.partial(flight_resolve_phase_reference, flight=flight_step, gather_fn=gather),
+        tally_phase_reference,
+    )
+
+
+def outer_iteration(phases: Phases, C: EngineConsts, st: EngineState,
+                    bits: torch.Tensor) -> None:
+    """One outer iteration on the rows of ``bits``: refill + candidate pool,
+    then per sub-phase the flights, the resolve and (between sub-phases) the
+    refill of lanes that died, then the tally."""
+    R = max(1, C.config.n_resolves)
+    phases.refill(C, st, bits, C.rows.refill, True)
+    for r in range(R):
+        phases.flight_resolve(C, st, bits, r)
+        if r < R - 1:
+            phases.refill(C, st, bits, C.rows.mid[r], False)
+    phases.tally(C, st)
+
+
 def run_projection(
     tables: DeviceTables,
     woodcock: WoodcockTable,
@@ -477,7 +944,7 @@ def run_projection(
 
     With ``return_stats`` or ``return_carry`` returns ``(image, extras)``:
     ``iterations`` / ``remaining`` / ``counts`` (the JAX engine's 10-slot
-    layout: [0] records tallied, [2] Compton, [3] Rayleigh,
+    layout, f64: [0] records tallied, [2] Compton, [3] Rayleigh,
     [4] photoelectric, [5] refills, [6] adoptions + mid-refills,
     [7] flight slots active, [8] energy tallied) and ``carry``.
 
@@ -486,7 +953,51 @@ def run_projection(
     next chunk of the same projection as ``carry_in``. The last chunk runs
     without ``return_carry`` and drains every survivor. The engine runs on
     ``device`` (``cuda`` unless the caller passes ``"cpu"``); the scene,
-    tables and ``generator`` must live there."""
+    tables and ``generator`` must live there. On the card every phase of an
+    iteration is one hand-written kernel; on the CPU its plain version."""
+    return _run_projection(
+        _engine_phases(), tables, woodcock, volume, source, detector, n_histories,
+        generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in, return_carry,
+        device,
+    )
+
+
+def run_projection_reference(
+    tables, woodcock, volume, source, detector, n_histories, generator, n_pixels_x,
+    n_pixels_z, config: EngineConfig = EngineConfig(), return_stats: bool = False,
+    carry_in: LaneState | None = None, return_carry: bool = False, device=None,
+):
+    """:func:`run_projection` through the plain PyTorch versions of the
+    phases on whatever device the tensors lie (what the kernels are held
+    against; the same generator seed gives the same bits to both)."""
+    return _run_projection(
+        _plain_phases(), tables, woodcock, volume, source, detector, n_histories,
+        generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in, return_carry,
+        device,
+    )
+
+
+def run_projection_stepwise(
+    tables, woodcock, volume, source, detector, n_histories, generator, n_pixels_x,
+    n_pixels_z, config: EngineConfig = EngineConfig(), return_stats: bool = False,
+    carry_in: LaneState | None = None, return_carry: bool = False, device=None,
+):
+    """:func:`run_projection` as an eager loop of plain PyTorch around the
+    two single-purpose kernels: every flight is one ``flight_step`` launch
+    and the angle inverse-CDF knots of every resolve are two ``gather``
+    launches (on the CPU their plain versions). This is the path the phase
+    kernels replaced; it stays as the path on which those two kernels are
+    driven and timed."""
+    return _run_projection(
+        _stepwise_phases(), tables, woodcock, volume, source, detector, n_histories,
+        generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in, return_carry,
+        device,
+    )
+
+
+def _run_projection(phases, tables, woodcock, volume, source, detector, n_histories,
+                    generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in,
+                    return_carry, device):
     _check_supported(config)
     validate_volume(volume)
     dev = resolve_device(device)
@@ -495,173 +1006,32 @@ def run_projection(
         if on.type != dev.type:
             raise ValueError(f"{what} on {on}, engine on {dev}")
     n = config.n_lanes
-    n_mats = tables.n_mats
     npix = n_pixels_x * n_pixels_z
-    n_bins = woodcock.a.shape[0]
-    R = max(1, config.n_resolves)
-    t_sub = config.max_virtual_trips // R
-
-    coeffs = sigma_coeff_table(tables)
-    consts = flight_consts(
-        tables, woodcock, volume, detector, n_pixels_x, n_pixels_z, n,
-        air_skip=config.air_skip, soft_skip=config.soft_skip, coeffs=coeffs,
-    )
-    # fused Compton|Rayleigh angular inverse CDF: one row index serves both
-    icdf_cat = torch.cat([tables.compton_icdf, tables.rayleigh_icdf], dim=0)
-    n_icdf_rows = tables.compton_icdf.shape[0]
-    # padded shells carry ui=+inf; a large finite value keeps the arithmetic
-    # NaN-free exactly as the JAX engine's shell table does
-    shell_ui = torch.where(torch.isinf(tables.shell_ui), 1.0e30, tables.shell_ui)
-    src_pos = [source.position[a].expand(n) for a in range(3)]
-
-    def ebin_of(energy):
-        return torch.clamp(
-            ((energy - tables.e0) * tables.ide).to(torch.int32), -1, n_bins - 1
-        )
-
-    def sample_photons():
-        e = samplers.sample_spectrum_energy_cdf(generator, tables, n)
-        sdx, sdy, sdz, ok = samplers.sample_source_direction(generator, source, n)
-        sx, sy, sz, _ = _move_to_bbox(*src_pos, sdx, sdy, sdz, volume.bbox)
-        return e, (sdx, sdy, sdz), (sx, sy, sz), ok
-
+    C = engine_consts(tables, woodcock, volume, source, detector, n_pixels_x, n_pixels_z,
+                      config)
     if carry_in is None:
         carry_in = LaneState.empty(n, npix, dev)
-    # the flight kernel updates lanes in place: work on the run's own copy
-    S = {k: getattr(carry_in, k).clone() for k in _LANE_STATE_FIELDS}
-    remaining = torch.tensor(int(n_histories), dtype=torch.int32, device=dev)
-    image = torch.zeros((4 * npix + 1,), dtype=torch.float32, device=dev)
-    counts = torch.zeros((2,), dtype=torch.int32, device=dev)  # flight counters
-    stats = torch.zeros((10,), dtype=torch.float32, device=dev)
+    st = EngineState.start(carry_in, n_histories, npix)
+    bits = torch.empty((C.rows.n_rows, n), dtype=torch.int64, device=dev)
 
-    def refill(lanes_to_start, e, rdir, rpos):
-        for k, v in zip(("px", "py", "pz"), rpos):
-            S[k] = torch.where(lanes_to_start, v, S[k])
-        for k, v in zip(("dx", "dy", "dz"), rdir):
-            S[k] = torch.where(lanes_to_start, v, S[k])
-        S["energy"] = torch.where(lanes_to_start, e, S["energy"])
-        S["ebin"] = torch.where(lanes_to_start, ebin_of(e), S["ebin"])
-        S["scatter"] = torch.where(lanes_to_start, 0, S["scatter"])
-        S["alive"] = S["alive"] | lanes_to_start
-        # refilled lanes enter at the volume wall: the analytic-air flight
-        # branch covers the crossing, no clearance lookup at the entry point
-        S["k_air"] = torch.where(lanes_to_start, 0, S["k_air"])
-        S["k_soft"] = torch.where(lanes_to_start, 0, S["k_soft"])
-        started = lanes_to_start.sum().to(torch.int32)
-        remaining.sub_(started)
-        return started
-
-    def resolve_inplace():
-        pending = S["pending"] & S["alive"]
-        energy, mat_evt = S["energy"], S["mat_evt"]
-        inv_com, inv_ray, _ = eval_sigma_partials(tables, energy, mat_evt, coeffs)
-        xi = S["xi"]
-        want_c = pending & (xi < inv_com)
-        want_r = pending & ~want_c & (xi < inv_com + inv_ray)
-        took_photo = pending & ~want_c & ~want_r
-
-        u2 = uniform_open(generator, (2, n), dev)
-        cdt1 = samplers.sample_icdf_rows_cdt1(
-            u2, energy,
-            lambda j_e: torch.where(want_r, n_icdf_rows, 0) + j_e * n_mats + mat_evt,
-            icdf_cat, tables,
-        )
-        costh_ray = 1.0 - cdt1
-        m = mat_evt.long()
-        new_e_c, costh_c = samplers.compton_scatter_rows_tab(
-            generator, energy, cdt1, tables.shell_f[m], shell_ui[m], tables.shell_j0[m],
-            want_c,
-        )
-        energy = torch.where(want_c, new_e_c, energy)
-        costh = torch.where(want_c, costh_c, torch.where(want_r, costh_ray, 1.0))
-        phi = uniform_open(generator, (n,), dev) * TWO_PI
-        rdx, rdy, rdz = samplers.rotate_direction(S["dx"], S["dy"], S["dz"], costh, phi)
-        rotate = want_c | want_r
-        S["dx"] = torch.where(rotate, rdx, S["dx"])
-        S["dy"] = torch.where(rotate, rdy, S["dy"])
-        S["dz"] = torch.where(rotate, rdz, S["dz"])
-
-        new_ebin = ebin_of(energy)
-        absorbed = took_photo | (want_c & (new_ebin < 0))
-        S["alive"] = S["alive"] & ~absorbed
-        S["energy"] = energy
-        S["ebin"] = torch.where(want_c, new_ebin, S["ebin"])
-        scatter = S["scatter"]
-        first = scatter == 0
-        S["scatter"] = torch.where(
-            want_c & first, COMPTON,
-            torch.where(want_r & first, RAYLEIGH,
-                        torch.where(want_c | want_r, MULTI, scatter)),
-        )
-        S["pending"] = torch.zeros_like(pending)
-        if return_stats:
-            stats[2] += want_c.sum()
-            stats[3] += want_r.sum()
-            stats[4] += took_photo.sum()
-
+    # the loop condition: budget left or, when draining, a lane alive or a
+    # record stashed; one host read per iteration of the two control words
+    remaining = int(n_histories)
+    live = not return_carry and bool(st.lanes.alive.any() | st.lanes.stash_valid.any())
     it = 0
-    while it < config.max_outer_iterations:
-        live = remaining > 0
-        if not return_carry:
-            live = live | S["alive"].any() | S["stash_valid"].any()
-        if not bool(live):
-            break
-        remaining_before = remaining.clone() if return_stats else None
-
-        # ---------------- 1. refill dead lanes + candidate pool -----------
-        want = _exclusive_budget(~S["alive"], remaining, n)
-        e_ref, rdir, rpos, ref_ok = sample_photons()
-        e_cand, cdir, cpos, dir_ok = sample_photons()
-        S["pending"] = S["pending"] & ~(want & ref_ok)
-        n_started = refill(want & ref_ok, e_ref, rdir, rpos)
-        cand = Candidates(*cpos, *cdir, e_cand, ebin_of(e_cand))
-        S["escaped"] = torch.zeros((n,), dtype=torch.bool, device=dev)
-        S["cand_free"] = dir_ok
-
-        # ---------------- 2-3. flights, resolves, mid-iteration refills ---
-        u_flights = uniform_open(generator, (2 * config.max_virtual_trips, n), dev)
-        for r in range(R):
-            lanes = FlightLanes(**{k: S[k] for k in FlightLanes._fields})
-            for i in range(r * t_sub, (r + 1) * t_sub):
-                flight_step(lanes, cand, u_flights[2 * i], u_flights[2 * i + 1], consts,
-                            remaining, counts)
-            resolve_inplace()
-            if r < R - 1:
-                want_mid = _exclusive_budget(~S["alive"] & ~S["escaped"], remaining, n)
-                e_m, mdir, mpos, ok_m = sample_photons()
-                refill(want_mid & ok_m, e_m, mdir, mpos)
-
-        # ---------------- 4. one full-lane tally per iteration ------------
-        pix, hit = _tally_pixel(S["px"], S["py"], S["pz"], S["dx"], S["dy"], S["dz"],
-                                detector, n_pixels_x, n_pixels_z)
-        tally_mask = S["escaped"] & hit
-        tally_idx = torch.where(tally_mask, S["scatter"] * npix + pix, 4 * npix)
-        has_stash_rec = S["stash_valid"] & (S["stash_idx"] < 4 * npix)
-        primary_idx = torch.where(has_stash_rec, S["stash_idx"], tally_idx)
-        primary_val = torch.where(
-            has_stash_rec, S["stash_energy"],
-            torch.where(tally_mask, S["energy"], 0.0),
-        )
-        image.index_add_(0, primary_idx.long(), primary_val)
-        doubles = has_stash_rec & tally_mask
-        S["stash_idx"] = torch.where(doubles, tally_idx, S["stash_idx"])
-        S["stash_energy"] = torch.where(doubles, S["energy"], S["stash_energy"])
-        S["stash_valid"] = doubles
-        if return_stats:
-            tallied = primary_idx < 4 * npix
-            stats[0] += tallied.sum()
-            stats[8] += torch.where(tallied, primary_val, 0.0).sum()
-            stats[5] += n_started
-            stats[6] += remaining_before - n_started - remaining
+    while it < config.max_outer_iterations and (remaining > 0 or live):
+        random_bits(generator, bits.shape, dev, out=bits)
+        outer_iteration(phases, C, st, bits)
+        remaining, live = st.ctrl[: CTRL_LIVE + 1].tolist()
+        live = bool(live) and not return_carry
         it += 1
 
-    image = image[: 4 * npix].reshape(4, n_pixels_z, n_pixels_x)
+    image = st.image[: 4 * npix].reshape(4, n_pixels_z, n_pixels_x)
     extras = {}
     if return_stats:
-        stats[7] = counts[1].to(torch.float32)
-        extras.update(iterations=it, remaining=remaining, counts=stats)
+        extras.update(iterations=it, remaining=st.remaining.clone(), counts=st.counts())
     if return_carry:
-        extras["carry"] = LaneState(*(S[k] for k in _LANE_STATE_FIELDS))
+        extras["carry"] = st.carry()
     if extras:
         return image, extras
     return image

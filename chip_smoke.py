@@ -4,24 +4,38 @@ NVIDIA card and hold every hand-written kernel against its plain version.
 
 Phases (each raises on failure; nothing lets the run exit 0 after one):
 
-1. print the card (``nvidia-smi`` name, power limit); build the kernels
+1. print the card (``nvidia-smi`` name, power limit); build the six kernels
    from ``cbctmc_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. ``probe_gather("cuda")`` must be True;
 3. the golden slab on the card: the JAX package's recorded slab channel sums
    (``tests/golden_slab_values.json``) against the mean of 4 port seeds,
    within 4 combined standard errors (the CPU test's statistical bound);
-4. the main path: ``MCScanner`` on the 500^3 CatPhan604 at 1 mm with the
+4. the whole engine on the slab's scene, 1e6 histories, one seed: the card's
+   path (phase kernels) against the plain version on the card, from the same
+   generator seed: iterations and integer counters equal, channel sums
+   within 1e-4 relative;
+5. the main path: ``MCScanner`` on the 500^3 CatPhan604 at 1 mm with the
    1848x768 detector and ``production_engine_config()``, ``simulate`` of
    two projections (270 and 90 deg) at 2e7 histories each; launch counters
-   are zeroed just before and read just after; a lane state and a gather
-   input are captured from that run;
-5. each kernel against its plain version on the card at the main path's
-   shapes (``flight_step`` and ``gather`` on the captured inputs,
+   are zeroed just before and read just after (``refill``,
+   ``flight_resolve`` and ``tally`` must match ``info.iterations`` and the
+   config); the engine state and bits before the 5th iteration are captured;
+6. the same scene for three repeats of a run sized to last at least 10 s
+   (median and spread of histories/s), and the engine alone at three lane
+   widths;
+7. the stepwise path (the eager loop around ``flight_step`` and ``gather``,
+   which the phase kernels replaced) on the same scene at a small history
+   count, its launch counters zeroed before and read after;
+8. each phase kernel against its plain version on the captured state, phase
+   after phase of that iteration, and each single-purpose kernel against
+   its plain version at the main path's shapes (``flight_step`` and
+   ``gather`` on inputs derived from the captured state,
    ``flight_prototype`` at 1,048,576 lanes x 4 flights over the CatPhan's
    material and density), with device times, bounds and library times;
-6. a profiled short engine call on the same scene (device time by kernel,
-   written to ``smoke_out/profile_main_path.txt``);
-7. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+9. two profiled engine calls of different length on the same scene: device
+   operations per outer iteration, busy share, device time by kernel
+   (written to ``smoke_out/profile_main_path.txt``);
+10. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card (the kernels build into ``cbctmc_tpu_torch/_build/``).
@@ -52,11 +66,18 @@ PHANTOM_SHAPE, PHANTOM_SPACING_MM = (500, 500, 500), 1.0
 MAIN_ANGLES = (270.0, 90.0)
 MAIN_HISTORIES = 20_000_000
 ENGINE_OVERRIDES: dict = {}  # production_engine_config() as it is
-CAPTURE_FLIGHT = 8  # the main path's 9th flight_step launch (5th iteration)
+CAPTURE_ITERATION = 4  # the engine state before the main path's 5th iteration
+PHASE_KERNELS = ("refill", "flight_resolve", "tally")
+WHOLE_ENGINE_HISTORIES = 1_000_000
+STEPWISE_HISTORIES = 200_000
+LONG_WINDOW_S = 10.0  # the long run's timed window lasts at least this
+LONG_REPEATS = 3
+LANE_WIDTHS = (65_536, 262_144, 1_048_576)
+WIDTH_HISTORIES = 200_000_000
 PROTO_LANES = 1 << 20
 PROTO_FLIGHTS = 4
 TIMING_REPS = 20
-PROFILE_HISTORIES = 1_000_000
+PROFILE_HISTORIES = (1_000_000, 3_000_000)
 
 
 def card_line() -> str:
@@ -142,16 +163,14 @@ def build(kernels, card):
     say(f"built {len(paths)} kernels in {dt:.1f} s: {', '.join(sorted(paths))}")
 
 
-def golden_slab(card):
-    """The JAX engine's golden slab channel sums on the card (statistical)."""
+def slab_scene():
+    """The golden slab's scene and engine configuration on the card."""
     from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
-    from cbctmc_tpu_torch.engine.rng import make_generator
     from cbctmc_tpu_torch.engine.tables import build_device_tables, build_woodcock_table
-    from cbctmc_tpu_torch.engine.transport import EngineConfig, make_voxel_volume, run_projection
+    from cbctmc_tpu_torch.engine.transport import EngineConfig, make_voxel_volume
     from cbctmc_tpu_torch.physics.materials import default_material_set
     from cbctmc_tpu_torch.physics.spectrum import Spectrum
 
-    golden = json.loads((ROOT / "tests" / "golden_slab_values.json").read_text())
     ts = default_material_set()
     mono = Spectrum("mono60", np.array([59_995.0, 60_005.0], np.float32),
                     np.array([1.0], np.float32))
@@ -173,9 +192,17 @@ def golden_slab(card):
     source, detector = build_scan(geom, [270.0], device=DEVICE)
     src, det = select_projection(source, 0), select_projection(detector, 0)
     cfg = EngineConfig(n_lanes=1 << 14, max_virtual_trips=8)
+    return (tables, woodcock, volume, src, det), cfg
+
+
+def golden_slab(card, scene, cfg):
+    """The JAX engine's golden slab channel sums on the card (statistical)."""
+    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.transport import run_projection
+
+    golden = json.loads((ROOT / "tests" / "golden_slab_values.json").read_text())
     sums = np.array([
-        run_projection(tables, woodcock, volume, src, det, 120_000,
-                       make_generator(DEVICE, 1234 + k), 32, 32, config=cfg,
+        run_projection(*scene, 120_000, make_generator(DEVICE, 1234 + k), 32, 32, config=cfg,
                        device=DEVICE).double().cpu().numpy().sum(axis=(1, 2))
         for k in range(4)
     ])
@@ -186,6 +213,36 @@ def golden_slab(card):
         f"|diff|/limit {(np.abs(mean - ref) / limit).round(3).tolist()}", card)
     if not ((np.abs(mean - ref) <= limit).all() and (s > 0).all()):
         raise AssertionError("golden slab channel sums outside 4 combined standard errors")
+
+
+INT_COUNTERS = (0, 2, 3, 4, 5, 6, 7)  # slot 8 is the tallied energy (float)
+
+
+def whole_engine(card, scene, cfg):
+    """The card's path against the plain version on the card, same seed: the
+    two draw the same bits, so they run the same iterations and count the
+    same events; the images differ by the order of their float adds."""
+    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.transport import run_projection, run_projection_reference
+
+    out = []
+    for run in (run_projection, run_projection_reference):
+        image, extras = run(*scene, WHOLE_ENGINE_HISTORIES, make_generator(DEVICE, 5), 32, 32,
+                            config=cfg, return_stats=True, device=DEVICE)
+        out.append((image.double().sum(dim=(1, 2)).cpu().numpy(), extras["iterations"],
+                    extras["counts"].cpu().numpy()))
+    (sums_k, it_k, counts_k), (sums_p, it_p, counts_p) = out
+    rel = np.abs(sums_k - sums_p) / np.abs(sums_p)
+    ints = list(INT_COUNTERS)
+    say(f"whole engine, {WHOLE_ENGINE_HISTORIES} histories on the slab: iterations "
+        f"{it_k} (plain {it_p}), integer counters {counts_k[ints].tolist()} (plain "
+        f"{counts_p[ints].tolist()}), channel sums rel diff {rel.tolist()}", card)
+    if it_k != it_p or not np.array_equal(counts_k[ints], counts_p[ints]):
+        raise AssertionError("whole engine: iterations or integer counters differ")
+    if counts_k[5] + counts_k[6] != WHOLE_ENGINE_HISTORIES:
+        raise AssertionError("whole engine: histories started != budget")
+    if not (rel <= 1e-4).all() or abs(counts_k[8] - counts_p[8]) > 1e-6 * counts_p[8]:
+        raise AssertionError("whole engine: channel sums beyond 1e-4 relative")
 
 
 class Capture:
@@ -199,29 +256,53 @@ class Capture:
         self.args = None
         setattr(module, name, self)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         if self.calls == self.at:
+            # tensors and the engine state clone themselves
             self.args = tuple(
                 clone(a) if isinstance(a, tuple) else
-                a.clone() if isinstance(a, torch.Tensor) else a
+                a.clone() if hasattr(a, "clone") else a
                 for a in args
             )
         self.calls += 1
-        return self.fn(*args)
+        return self.fn(*args, **kwargs)
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
 
 
+def expected_phase_launches(iterations: int, cfg) -> dict:
+    """Launches of the phase kernels over ``iterations`` outer iterations:
+    one refill at the start and one after every sub-phase but the last, one
+    flight_resolve per flight, one tally."""
+    R = max(1, cfg.n_resolves)
+    return {"refill": iterations * R, "flight_resolve": iterations * cfg.max_virtual_trips,
+            "tally": iterations}
+
+
+def check_images(images, info, scanner, n_histories):
+    n_pz, n_px = scanner.scan_geometry.n_pixels_z, scanner.scan_geometry.n_pixels_x
+    if images.shape != (len(MAIN_ANGLES), 4, n_pz, n_px):
+        raise AssertionError(f"image shape {images.shape}")
+    if not np.isfinite(images).all():
+        raise AssertionError("non-finite image")
+    sums = images.sum(axis=(2, 3))
+    if not ((sums > 0).all() and (sums.argmax(axis=1) == 0).all()):
+        raise AssertionError("every channel must be > 0 with the primary largest")
+    if info.counts[5] + info.counts[6] != len(MAIN_ANGLES) * n_histories:
+        raise AssertionError(f"histories started {info.counts[5] + info.counts[6]}")
+    return sums
+
+
 def main_path(kernels, card):
-    from cbctmc_tpu_torch.engine import samplers, transport
+    from cbctmc_tpu_torch.engine import transport
     from cbctmc_tpu_torch.engine.simulate import MCScanner
     from cbctmc_tpu_torch.engine.transport import production_engine_config
     from cbctmc_tpu_torch.geometry.phantoms import CatPhan604Geometry
 
-    cap_flight = Capture(transport, "flight_step", CAPTURE_FLIGHT)
-    cap_gather = Capture(samplers, "gather", 2 * CAPTURE_FLIGHT)
     cfg = production_engine_config(**ENGINE_OVERRIDES)
+    # the first refill of the 5th iteration sees the state before it
+    capture = Capture(transport, "refill_phase", CAPTURE_ITERATION * max(1, cfg.n_resolves))
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     phantom = CatPhan604Geometry(shape=PHANTOM_SHAPE, image_spacing=(PHANTOM_SPACING_MM,) * 3)
@@ -234,35 +315,137 @@ def main_path(kernels, card):
                                     n_histories=MAIN_HISTORIES, seed=0, progress=False)
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
-    cap_flight.restore()
-    cap_gather.restore()
+    capture.restore()
 
     say(f"main path set-up: {setup_s:.2f} s (CatPhan {PHANTOM_SHAPE[0]}^3 voxelisation "
         f"{t_phantom:.2f} s, scene + tables {setup_s - t_phantom:.2f} s)")
     say(f"main path: {info.n_histories} histories in {info.wall_time_s:.3f} s = "
-        f"{info.histories_per_second:.6e} hist/s, {info.iterations} iterations, "
+        f"{info.histories_per_second:.6e} hist/s, {info.iterations} iterations "
+        f"({info.wall_time_s / info.iterations * 1e6:.1f} us each, chunk set-up included), "
         f"launches {launches}", card)
-    n_pz, n_px = scanner.scan_geometry.n_pixels_z, scanner.scan_geometry.n_pixels_x
-    if images.shape != (len(MAIN_ANGLES), 4, n_pz, n_px):
-        raise AssertionError(f"image shape {images.shape}")
-    if not np.isfinite(images).all():
-        raise AssertionError("non-finite image")
-    sums = images.sum(axis=(2, 3))
+    sums = check_images(images, info, scanner, MAIN_HISTORIES)
     say(f"channel sums [eV/cm^2/history] (primary, Compton, Rayleigh, multi): {sums.tolist()}")
-    if not ((sums > 0).all() and (sums.argmax(axis=1) == 0).all()):
-        raise AssertionError("every channel must be > 0 with the primary largest")
-    if info.counts[5] + info.counts[6] != len(MAIN_ANGLES) * MAIN_HISTORIES:
-        raise AssertionError(f"histories started {info.counts[5] + info.counts[6]}")
-    want = {
-        "flight_step": info.iterations * cfg.max_virtual_trips,
-        "gather_probe": info.iterations * cfg.n_resolves * 2,
-    }
-    for name, n in want.items():
-        if launches[name] != n or n == 0:
+    want = expected_phase_launches(info.iterations, cfg)
+    for name in kernels.KERNELS:
+        n = want.get(name, 0)
+        if launches[name] != n or (name in want and n == 0):
             raise AssertionError(f"{name}: {launches[name]} launches, expected {n}")
-    if cap_flight.args is None or cap_gather.args is None:
-        raise AssertionError("no lane state captured from the main path")
-    return scanner, info, launches, cap_flight.args, cap_gather.args, setup_s
+    if capture.args is None:
+        raise AssertionError("no engine state captured from the main path")
+    return scanner, info, launches, capture.args[:3], setup_s
+
+
+def long_runs(scanner, rate, card):
+    """Three repeats of a run of the main path's scene sized, from the rate
+    just measured, so that each timed window lasts at least LONG_WINDOW_S."""
+    n = int(np.ceil(rate * 1.5 * LONG_WINDOW_S / len(MAIN_ANGLES) / 1e7)) * 10_000_000
+    rates = []
+    while len(rates) < LONG_REPEATS:
+        images, info = scanner.simulate(angles_deg=list(MAIN_ANGLES), n_histories=n,
+                                        seed=1 + len(rates), progress=False)
+        torch.cuda.synchronize()
+        check_images(images, info, scanner, n)
+        if info.wall_time_s < LONG_WINDOW_S:  # faster than the estimate: size up, start over
+            n = int(np.ceil(n * 1.3 * LONG_WINDOW_S / info.wall_time_s / 1e7)) * 10_000_000
+            rates = []
+            continue
+        rates.append(info.histories_per_second)
+        say(f"long run {len(rates)}: {info.n_histories} histories in {info.wall_time_s:.3f} s "
+            f"= {info.histories_per_second:.6e} hist/s, {info.iterations} iterations "
+            f"({info.wall_time_s / info.iterations * 1e6:.1f} us each)", card)
+    med = float(np.median(rates))
+    say(f"long runs: median {med:.6e} hist/s, spread (max - min) / median "
+        f"{(max(rates) - min(rates)) / med:.4f}, {LONG_REPEATS} repeats of "
+        f"{len(MAIN_ANGLES)} views x {n} histories", card)
+    return med
+
+
+def projection_args(scanner, config=None):
+    from cbctmc_tpu_torch.engine.ct import build_scan, select_projection
+
+    source, detector = build_scan(scanner.scan_geometry, [MAIN_ANGLES[0]], device=DEVICE)
+    geo = scanner.scan_geometry
+    return dict(
+        tables=scanner.tables, woodcock=scanner.woodcock, volume=scanner.volume,
+        source=select_projection(source, 0), detector=select_projection(detector, 0),
+        n_pixels_x=geo.n_pixels_x, n_pixels_z=geo.n_pixels_z,
+        config=config or scanner.engine_config, device=DEVICE,
+    )
+
+
+def lane_widths(scanner, card):
+    """Histories/s of one drained engine call on the main path's scene at
+    three lane widths (the engine alone: no chunking, no MCScanner)."""
+    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.transport import production_engine_config, run_projection
+
+    for n_lanes in LANE_WIDTHS:
+        args = projection_args(scanner, production_engine_config(n_lanes=n_lanes))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, extras = run_projection(n_histories=WIDTH_HISTORIES,
+                                   generator=make_generator(DEVICE, 3), return_stats=True,
+                                   **args)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        counts = extras["counts"].cpu().numpy()
+        if counts[5] + counts[6] != WIDTH_HISTORIES:
+            raise AssertionError(f"{n_lanes} lanes: histories started != budget")
+        say(f"lane width {n_lanes}: {WIDTH_HISTORIES} histories in {dt:.3f} s = "
+            f"{WIDTH_HISTORIES / dt:.6e} hist/s, {extras['iterations']} iterations "
+            f"({dt / extras['iterations'] * 1e6:.1f} us each)", card)
+
+
+def stepwise_path(kernels, scanner, card):
+    """The path the phase kernels replaced: the eager loop around the
+    ``flight_step`` and ``gather`` kernels, on the main path's scene at a
+    small history count. Returns its launches of those two kernels."""
+    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.transport import run_projection_stepwise
+
+    cfg = scanner.engine_config
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    image, extras = run_projection_stepwise(
+        n_histories=STEPWISE_HISTORIES, generator=make_generator(DEVICE, 17),
+        return_stats=True, **projection_args(scanner))
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = dict(kernels.launch_counts)
+    it = extras["iterations"]
+    counts = extras["counts"].cpu().numpy()
+    say(f"stepwise path: {STEPWISE_HISTORIES} histories in {dt:.3f} s, {it} iterations "
+        f"({dt / it * 1e3:.2f} ms each), launches {launches}", card)
+    if not torch.isfinite(image).all() or counts[5] + counts[6] != STEPWISE_HISTORIES:
+        raise AssertionError("stepwise path: non-finite image or histories != budget")
+    want = {"flight_step": it * cfg.max_virtual_trips,
+            "gather_probe": it * max(1, cfg.n_resolves) * 2}
+    for name in kernels.KERNELS:
+        if launches[name] != want.get(name, 0) or (name in want and not launches[name]):
+            raise AssertionError(f"stepwise path, {name}: {launches[name]} launches, "
+                                 f"expected {want.get(name, 0)}")
+    return {k: launches[k] for k in want}
+
+
+def single_kernel_inputs(captured):
+    """Inputs of ``flight_step`` and ``gather`` at the main path's shapes,
+    derived from the engine state captured before an iteration: the lanes
+    after that iteration's refill with its flight uniforms, and the knot
+    indices of its first resolve."""
+    from cbctmc_tpu_torch.engine import transport
+    from cbctmc_tpu_torch.engine.rng import uniform_from_bits
+
+    C, st, bits = captured
+    st = st.clone()
+    transport.refill_phase_reference(C, st, bits, C.rows.refill, True)
+    u = uniform_from_bits(bits[C.rows.flight : C.rows.flight + 2])
+    flight_args = (st.lanes, st.cand, u[0].contiguous(), u[1].contiguous(), C.flight,
+                   st.remaining.clone(), torch.zeros((2,), dtype=torch.int32, device=DEVICE))
+    cap = Capture(transport, "gather_reference", 0)
+    transport.flight_resolve_phase_reference(C, st.clone(), bits, 0, gather_fn=cap)
+    cap.restore()
+    return flight_args, cap.args
 
 
 def check_gather(kernels, card, gather_args):
@@ -434,41 +617,227 @@ def check_flight_prototype(kernels, card, scanner):
                 library_ms=None)
 
 
+# ---------------------------------------------------------------------------
+# the phase kernels against their plain versions
+# ---------------------------------------------------------------------------
+PHASE_LANE_SHARE = 1e-4  # lanes that may part from the plain version
+PHASE_FLOAT_TOL = 1e-6  # |kernel - plain| <= tol * (1 + |plain|) on the others
+PHASE_IMAGE_TOL = 1e-5  # relative, image sums
+
+
+def phase_steps(C):
+    """The phases of one outer iteration in the order they run:
+    ``(kernel, label, call(phases, state, bits))``."""
+    R = max(1, C.config.n_resolves)
+    steps = [("refill", "refill + candidates",
+              lambda ph, st, bits: ph.refill(C, st, bits, C.rows.refill, True))]
+    for r in range(R):
+        steps.append(("flight_resolve", f"flight_resolve {r}",
+                      lambda ph, st, bits, r=r: ph.flight_resolve(C, st, bits, r)))
+        if r < R - 1:
+            steps.append(("refill", f"mid refill {r}", lambda ph, st, bits, r=r: ph.refill(
+                C, st, bits, C.rows.mid[r], False)))
+    steps.append(("tally", "tally", lambda ph, st, bits: ph.tally(C, st)))
+    return steps
+
+
+def state_diff(got, want):
+    """(lanes where an integer or flag field of lanes or candidates differs,
+    fields that differ there, max |got - want| over the float fields of the
+    other lanes and the field it occurs in, lanes where a float field is
+    beyond PHASE_FLOAT_TOL * (1 + |want|), float fields that differ at all)."""
+    pairs = list(zip(got.lanes._fields, got.lanes, want.lanes)) + [
+        (f"cand.{k}", x, y) for k, x, y in zip(got.cand._fields, got.cand, want.cand)]
+    bad = torch.zeros_like(got.lanes.alive)
+    bad_fields = []
+    for k, x, y in pairs:
+        if x.dtype != torch.float32 and not torch.equal(x, y):
+            bad |= x != y
+            bad_fields.append(k)
+    err, err_field, off, touched = 0.0, "", torch.zeros_like(bad), []
+    for k, x, y in pairs:
+        if x.dtype == torch.float32 and not torch.equal(x, y):
+            touched.append(f"{k} ({int((x != y).sum())} lanes)")
+            d = torch.where(bad, 0.0, (x - y).abs())
+            off |= d > PHASE_FLOAT_TOL * (1.0 + y.abs())
+            if float(d.max()) > err:
+                err, err_field = float(d.max()), k
+    return bad, bad_fields, err, err_field, off, touched
+
+
+def phase_bound(kernel, before, after, C) -> tuple:
+    """The least bytes and operations of one phase launch on this state
+    (each input read once, each output written once; data-dependent parts
+    counted from the outcome)."""
+    L0, L1 = before.lanes, after.lanes
+    n = C.n_lanes
+    I = C.flight.ints
+    d_counts = (after.counters - before.counters).tolist()
+    n_blocks = before.block_dead.numel()
+    words = 16 + 4 * n_blocks  # control words, per-block dead counts
+    if kernel == "refill":
+        with_cand = bool((after.cand.energy != before.cand.energy).any())
+        started = int((L1.alive & ~L0.alive).sum())
+        n_bytes = n + started * (8 * 6 + 4 * 11 + 2) + C.spec.numel() * 4 + words
+        n_ops = started * 120
+        if with_cand:  # every lane: 6 rows of bits, 8 candidate words, 2 flags
+            n_bytes += n * (8 * 6 + 4 * 8 + 2)
+            n_ops += n * 120
+        else:
+            n_bytes += int((~L0.alive).sum())  # the parked-record flag of dead lanes
+        what = f"{started} histories started" + (", candidates for every lane" * with_cand)
+    elif kernel == "flight_resolve":
+        alive = int(L0.alive.sum())
+        active = int((L0.alive & ~L0.pending).sum())
+        n_c, n_r, n_p, adopted = (d_counts[k] for k in (2, 3, 4, 6))
+        d = I["cheb_d"]
+        state = 16 * 4 + 5  # a lane's words and flags
+        n_bytes = (2 * (n - alive) + alive * 2 * state + active * (16 + 4)
+                   + (n_c + n_r) * (3 * 8 + 2 * 4) + n_c * 3 * 8 + adopted * 32
+                   + (C.flight.coeffs.numel() + C.shells.numel()) * 4 + words)
+        clenshaw = 4 * (d - 1) + 4
+        n_ops = (active * (3 * 2 * I["poly_len"] + 3 * clenshaw + 120)
+                 + (n_c + n_r + n_p) * (2 * clenshaw + 40) + (n_c + n_r) * 80
+                 + n_c * (C.shells.shape[2] * 40 + 60))
+        what = (f"{active} flights, {n_c} Compton, {n_r} Rayleigh, {n_p} photoelectric, "
+                f"{adopted} adoptions")
+    else:
+        parked = int(L0.escaped.sum())
+        stashed = int(L0.stash_valid.sum())
+        records = d_counts[0]
+        kept = int(L1.stash_valid.sum())
+        n_bytes = (3 * n + parked * 32 + stashed * 8 + records * 8 + kept * 8
+                   + (stashed - kept) + words)
+        n_ops = parked * 40
+        what = f"{records} records tallied, {parked} parked, {stashed} stashed"
+    return n_bytes, n_ops, what
+
+
+def check_phases(kernels, card, captured):
+    """Each phase kernel against its plain version on the state captured
+    before an iteration of the main path, phase after phase: both sides get
+    the plain version's output of the phase before."""
+    from cbctmc_tpu_torch.engine import transport
+
+    C, st, bits = captured
+    n = C.n_lanes
+    engine, plain = transport._engine_phases(), transport._plain_phases()
+    results, timed = {}, set()
+    for kernel, label, call in phase_steps(C):
+        got, want = st.clone(), st.clone()
+        call(engine, got, bits)
+        call(plain, want, bits)
+        torch.cuda.synchronize()
+        bad, bad_fields, err, err_field, off, touched = state_diff(got, want)
+        n_bad, n_off = int(bad.sum()), int((off & ~bad).sum())
+        words_equal = (torch.equal(got.ctrl[:2], want.ctrl[:2])
+                       and torch.equal(got.block_dead, want.block_dead)
+                       and torch.equal(got.counters, want.counters))
+        sum_k, sum_p = float(got.image.double().sum()), float(want.image.double().sum())
+        image_rel = abs(sum_k - sum_p) / max(abs(sum_p), 1e-30)
+        e_k, e_p = float(got.energy), float(want.energy)
+        say(f"{label}: {n_bad} lanes differ in an integer or flag field {bad_fields}, "
+            f"{n_off} more beyond {PHASE_FLOAT_TOL:g} * (1 + |value|); max float diff "
+            f"{err:.3e} ({err_field or 'none'}); float fields not bit-equal: "
+            f"{touched or 'none'}; budget, live word, per-block dead counts and counters "
+            f"{'equal' if words_equal else 'DIFFER'}; image sum rel diff {image_rel:.3e}", card)
+        if n_bad + n_off > PHASE_LANE_SHARE * n:
+            raise AssertionError(f"{label}: {n_bad + n_off} lanes part from the plain version")
+        if not words_equal and n_bad == 0:
+            raise AssertionError(f"{label}: control words or counters differ")
+        if image_rel > PHASE_IMAGE_TOL or abs(e_k - e_p) > PHASE_IMAGE_TOL * max(e_p, 1.0):
+            raise AssertionError(f"{label}: image sums differ by {image_rel:.3e}")
+
+        # time the launch (fresh clones: a phase updates its state in place)
+        reps = [st.clone() for _ in range(TIMING_REPS + 1)]
+        ms = kernel_ms([(lambda s=s: call(engine, s, bits)) for s in reps], kernel)
+        reps = [st.clone() for _ in range(5)]
+        plain_calls = [(lambda s=s: call(plain, s, bits)) for s in reps]
+        p_ms = kernel_ms(plain_calls[:3], None)
+        p_run = as_run_ms(plain_calls[2:])
+        n_bytes, n_ops, what = phase_bound(kernel, st, want, C)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        say(f"{label}: {what}; {ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; bound "
+            f"{b_ms:.6f} by {b_by}: {n_bytes} B, {n_ops} ops)", card)
+        if kernel == "flight_resolve" and kernel not in timed:
+            # the same launch without the resolve: what the resolve (the only
+            # part where lanes of a warp part ways for long) adds to the flight
+            reps = [st.clone() for _ in range(TIMING_REPS + 1)]
+            flight_ms = kernel_ms([
+                (lambda s=s: kernels.launch_flight_resolve(C, s, bits, C.rows.flight, -1))
+                for s in reps], kernel)
+            say(f"{label}: the flight alone in this kernel {flight_ms:.5f} ms, so the resolve "
+                f"of {sum((want.counters - st.counters)[2:5].tolist())} pending lanes adds "
+                f"{ms - flight_ms:.5f} ms", card)
+        if kernel not in timed:  # the row is the first launch of its kind in the iteration
+            timed.add(kernel)
+            results[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None)
+        else:
+            results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+        st = want
+    return results
+
+
 def profile_engine(scanner, card):
-    """Device time by kernel over one short engine call on the main path's
-    scene (``PROFILE_HISTORIES``, drained)."""
+    """Two profiled drained engine calls of different length on the main
+    path's scene: device operations per outer iteration from their
+    difference (set-up and drain cancel), busy share and device time by
+    kernel from the longer one."""
     from torch.profiler import ProfilerActivity, profile
 
-    from cbctmc_tpu_torch.engine.ct import build_scan, select_projection
     from cbctmc_tpu_torch.engine.rng import make_generator
     from cbctmc_tpu_torch.engine.transport import run_projection
 
-    source, detector = build_scan(scanner.scan_geometry, [MAIN_ANGLES[0]], device=DEVICE)
-    src, det = select_projection(source, 0), select_projection(detector, 0)
-    geo = scanner.scan_geometry
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        run_projection(scanner.tables, scanner.woodcock, scanner.volume, src, det,
-                       PROFILE_HISTORIES,
-                       make_generator(DEVICE, 99), geo.n_pixels_x, geo.n_pixels_z,
-                       config=scanner.engine_config, device=DEVICE)
+    args = projection_args(scanner)
+    runs = []
+    for n_histories in PROFILE_HISTORIES:
         torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
-    by_name = {}
-    for name, t_us in device_events(prof):
-        tot, cnt = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + t_us, cnt + 1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            _, extras = run_projection(n_histories=n_histories,
+                                       generator=make_generator(DEVICE, 99),
+                                       return_stats=True, **args)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+        by_name = {}
+        for name, t_us in device_events(prof):
+            tot, cnt = by_name.get(name, (0.0, 0))
+            by_name[name] = (tot + t_us, cnt + 1)
+        runs.append((extras["iterations"], sum(c for _, c in by_name.values()), wall_us,
+                     by_name))
+    (it_a, ops_a, _, _), (it_b, ops_b, wall_us, by_name) = runs
+    ops_per_iteration = (ops_b - ops_a) / (it_b - it_a)
     busy = sum(t for t, _ in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    lines = [f"wall {wall_us:.0f} us, device busy {busy:.0f} us ({busy / wall_us:.4f}), "
-             f"{sum(c for _, c in by_name.values())} device ops  [{card}]"]
+    lines = [f"{PROFILE_HISTORIES[1]} histories, {it_b} iterations: wall {wall_us:.0f} us "
+             f"({wall_us / it_b:.1f} us per iteration under the profiler), device busy "
+             f"{busy:.0f} us (busy share {busy / wall_us:.4f}, idle {1 - busy / wall_us:.4f}), "
+             f"{ops_b} device ops; {ops_per_iteration:.2f} device ops per outer iteration "
+             f"(({ops_b} - {ops_a}) ops / ({it_b} - {it_a}) iterations)  [{card}]"]
     lines += [f"{t:12.1f} us {c:7d}x  {name[:110]}" for name, (t, c) in rows]
     OUT.mkdir(exist_ok=True)
     (OUT / "profile_main_path.txt").write_text("\n".join(lines) + "\n")
     say(f"profile: {lines[0]}")
     for line in lines[1:9]:
         say(f"profile: {line}")
+    if ops_per_iteration > 10:
+        raise AssertionError(f"{ops_per_iteration:.2f} device operations per outer iteration")
+
+    # the draw of the iteration's bits, as the engine makes it and as int32
+    cfg = scanner.engine_config
+    from cbctmc_tpu_torch.engine.transport import bits_row_map
+
+    shape = (bits_row_map(cfg).n_rows, cfg.n_lanes)
+    g = make_generator(DEVICE, 1)
+    out64 = torch.empty(shape, dtype=torch.int64, device=DEVICE)
+    out32 = torch.empty(shape, dtype=torch.int32, device=DEVICE)
+    draw64 = [lambda: torch.randint(0, 1 << 32, shape, generator=g, out=out64)] * (TIMING_REPS + 1)
+    draw32 = [lambda: torch.randint(-(1 << 31), 1 << 31, shape, generator=g,
+                                    out=out32)] * (TIMING_REPS + 1)
+    say(f"bits block {shape[0]} x {shape[1]}: randint int64 {kernel_ms(draw64, None):.5f} ms "
+        f"({out64.numel() * 8} B), int32 {kernel_ms(draw32, None):.5f} ms "
+        f"({out32.numel() * 4} B)", card)
 
 
 def main() -> int:
@@ -486,30 +855,39 @@ def main() -> int:
     if kernels.probe_gather(DEVICE) is not True:
         raise AssertionError("probe_gather('cuda') is False")
     say("probe_gather('cuda'): True")
-    golden_slab(card)
-    scanner, info, launches, flight_args, gather_args, setup_s = main_path(kernels, card)
+    scene, slab_cfg = slab_scene()
+    golden_slab(card, scene, slab_cfg)
+    whole_engine(card, scene, slab_cfg)
+    scanner, info, launches, captured, setup_s = main_path(kernels, card)
+    long_rate = long_runs(scanner, info.histories_per_second, card)
+    lane_widths(scanner, card)
+    launches.update(stepwise_path(kernels, scanner, card))
 
+    flight_args, gather_args = single_kernel_inputs(captured)
     results = {
         "gather_probe": check_gather(kernels, card, gather_args),
         "flight_prototype": check_flight_prototype(kernels, card, scanner),
         "flight_step": check_flight_step(kernels, card, flight_args),
+        **check_phases(kernels, card, captured),
     }
     profile_engine(scanner, card)
 
+    pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     meta = {
-        "gather_probe": ("cbctmc_tpu_torch/csrc/gather_probe.cu",
-                         "cbctmc_tpu/engine/pallas_kernels.py:33"),
-        "flight_prototype": ("cbctmc_tpu_torch/csrc/flight_prototype.cu",
-                             "cbctmc_tpu/engine/pallas_kernels.py:63"),
-        "flight_step": ("cbctmc_tpu_torch/csrc/flight_step.cu",
-                        "cbctmc_tpu/engine/pallas_kernels.py:63"),
+        "gather_probe": ("gather_probe.cu", f"{pallas}:33"),
+        "flight_prototype": ("flight_prototype.cu", f"{pallas}:63"),
+        "flight_step": ("flight_step.cu", f"{pallas}:63"),
+        "refill": ("refill.cu", "cbctmc_tpu/engine/transport.py:816"),
+        "flight_resolve": ("flight_resolve.cu", f"{pallas}:63"),
+        "tally": ("tally.cu", "cbctmc_tpu/engine/transport.py:1160"),
     }
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], **results[name]}
+        {"name": name, "route": "cuda", "source": f"cbctmc_tpu_torch/csrc/{meta[name][0]}",
+         "replaces": meta[name][1], "launches": launches[name], **results[name]}
         for name in kernels.KERNELS
     ]}
-    say(f"end to end: {info.histories_per_second:.6e} hist/s, set-up {setup_s:.2f} s, "
+    say(f"end to end: {info.histories_per_second:.6e} hist/s (2 views x {MAIN_HISTORIES}), "
+        f"long runs median {long_rate:.6e} hist/s, set-up {setup_s:.2f} s, "
         f"whole script {time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

@@ -101,3 +101,87 @@ def step_world(n=512, seed=0, density=1.0, grid=16, voxel=0.5, n_mats=3):
 
 def clone_lanes(lanes):
     return type(lanes)(*(t.clone() for t in lanes))
+
+
+# ---------------------------------------------------------------------------
+# the engine's phases: a small scene, a state in mid-run, and the comparison
+# ---------------------------------------------------------------------------
+def slab_engine(device, config, n_pix=32, mono=True, grid=40):
+    """``(tables, woodcock, volume, source, detector, n_pix)`` of the 20 cm
+    air cube with a 5 cm water slab across the beam (the golden slab's
+    scene), or with ``grid=32`` its 32^3 version, under a mono-energetic or
+    the default spectrum."""
+    from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
+    from cbctmc_tpu_torch.engine.tables import build_device_tables, build_woodcock_table
+    from cbctmc_tpu_torch.engine.transport import make_voxel_volume
+    from cbctmc_tpu_torch.physics.materials import default_material_set
+    from cbctmc_tpu_torch.physics.spectrum import Spectrum, default_spectrum
+
+    ts = default_material_set()
+    spectrum = Spectrum("mono60", np.array([59_995.0, 60_005.0], np.float32),
+                        np.array([1.0], np.float32)) if mono else default_spectrum()
+    air, water = ts.material("air"), ts.material("h2o")
+    shape = (grid,) * 3
+    mats = np.full(shape, air.number, np.uint8)
+    dens = np.full(shape, air.density, np.float32)
+    lo, hi = (3 * grid) // 8, (5 * grid) // 8
+    mats[:, lo:hi, :] = water.number
+    dens[:, lo:hi, :] = water.density
+    max_density = np.zeros(ts.n_materials, np.float32)
+    np.maximum.at(max_density, mats.astype(int).reshape(-1) - 1, dens.reshape(-1))
+    voxel = 20.0 / grid
+    tables = build_device_tables(ts, spectrum, device=device)
+    woodcock = build_woodcock_table(ts, max_density, device=device)
+    volume = make_voxel_volume(mats.astype(np.int32) - 1, dens, (voxel,) * 3, device=device)
+    geom = ScanGeometry(
+        n_pixels_x=n_pix, n_pixels_z=n_pix, detector_size_x=20.0, detector_size_z=20.0,
+        sdd=60.0, sad=40.0, aperture_phi1=-1.0, aperture_phi2=-1.0, aperture_theta=-1.0,
+        source_position_0=(10.0, 10.0 - 40.0, 10.0),
+    )
+    source, detector = build_scan(geom, [270.0], device=device)
+    return (tables, woodcock, volume, select_projection(source, 0),
+            select_projection(detector, 0), n_pix)
+
+
+def state_in_mid_run(scene, config, n_histories, seed, iterations=4):
+    """``(consts, state, bits, generator)``: the engine state after
+    ``iterations`` outer iterations through the plain phases, and the bits of
+    the next iteration."""
+    from cbctmc_tpu_torch.engine import transport as T
+    from cbctmc_tpu_torch.engine.rng import make_generator, random_bits
+
+    tables, woodcock, volume, src, det, n_pix = scene
+    dev = volume.packed.device
+    C = T.engine_consts(tables, woodcock, volume, src, det, n_pix, n_pix, config)
+    st = T.EngineState.start(T.LaneState.empty(config.n_lanes, n_pix * n_pix, dev),
+                             n_histories, n_pix * n_pix)
+    g = make_generator(dev, seed)
+    bits = torch.empty((C.rows.n_rows, config.n_lanes), dtype=torch.int64, device=dev)
+    for _ in range(iterations):
+        random_bits(g, bits.shape, dev, out=bits)
+        T.outer_iteration(T._plain_phases(), C, st, bits)
+    random_bits(g, bits.shape, dev, out=bits)
+    return C, st, bits, g
+
+
+def state_diff(a, b):
+    """How two engine states differ: ``(lanes where an integer or flag field
+    of the lanes or candidates differs, the largest |a - b| / (1 + |b|) of a
+    float field on the other lanes, whether ctrl[:2] / block_dead / the
+    integer counters are equal, relative difference of the image sums)``."""
+    pairs = list(zip(a.lanes._fields, a.lanes, b.lanes)) + [
+        (f"cand.{k}", x, y) for k, x, y in zip(a.cand._fields, a.cand, b.cand)]
+    bad = torch.zeros_like(a.lanes.alive)
+    for _, x, y in pairs:
+        if x.dtype != torch.float32:
+            bad |= x != y
+    rel = 0.0
+    for _, x, y in pairs:
+        if x.dtype == torch.float32:
+            d = (x - y).abs()[~bad] / (1.0 + y.abs()[~bad])
+            rel = max(rel, float(d.max()) if d.numel() else 0.0)
+    words_equal = (torch.equal(a.ctrl[:2], b.ctrl[:2])
+                   and torch.equal(a.block_dead, b.block_dead)
+                   and torch.equal(a.counters, b.counters))
+    sa, sb = float(a.image.double().sum()), float(b.image.double().sum())
+    return bad, rel, words_equal, abs(sa - sb) / max(abs(sb), 1e-30)
