@@ -1,9 +1,12 @@
 // engine.cuh: what every kernel of the transport engine shares: the lane
 // state and parameter structs (mirrored field by field by the ctypes
 // structures of cbctmc_tpu_torch/engine/kernels.py), a lane's registers,
-// the map from raw random bits to uniforms, block reductions, and the
-// last-block epilogue that keeps the history budget consistent across the
-// blocks of one launch.
+// block reductions, the control words of an engine call and the last-block
+// epilogue that keeps them consistent across the blocks of one launch: the
+// history budget, the iteration number (the counter word of philox.cuh) and
+// the loop condition, which lives on the device so that a fixed sequence of
+// launches (a CUDA graph) can run past the end of the loop and change
+// nothing.
 //
 // All engine kernels are built without --use_fast_math and with -fmad=false:
 // each product and sum rounds on its own, as the separate PyTorch operations
@@ -14,6 +17,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "philox.cuh"
 
 #define MAX_POLY 16
 #define MAX_SHELLS 32
@@ -60,13 +65,22 @@ struct PhaseParams {
   float e0, ide, icdf_log_lo, icdf_scale;
 };
 
-// the control words (int32) of one engine call
+// the control words (int32) of one engine call (transport.py CTRL_*)
 enum {
-  CTRL_REMAINING = 0,  // history budget
-  CTRL_LIVE = 1,       // after a tally: any lane alive or holding a record
-  CTRL_TICKET = 2,     // blocks of the running launch that have finished
-  CTRL_DECREMENT = 3,  // histories the running launch has started so far
-  CTRL_LIVE_ACC = 4    // the running tally's OR of its blocks' live flags
+  CTRL_REMAINING = 0,   // history budget
+  CTRL_LIVE = 1,        // after a tally: any lane alive or holding a record
+  CTRL_TICKET = 2,      // blocks of the running launch that have finished
+  CTRL_DECREMENT = 3,   // histories the running launch has started so far
+  CTRL_LIVE_ACC = 4,    // the running tally's OR of its blocks' live flags
+  CTRL_ITERATION = 5,   // outer iterations finished: the Philox counter word
+  CTRL_RUN = 6,         // 1 while the next iteration is to run
+  CTRL_DRAIN = 7,       // the call runs until no lane is alive (set by the host)
+  CTRL_MAX_ITERATIONS = 8,  // set by the host
+  CTRL_KEY0 = 9,        // the call's Philox key (set by the host)
+  CTRL_KEY1 = 10,
+  CTRL_LAUNCHES_REFILL = 11,  // launches that did work, counted per kernel
+  CTRL_LAUNCHES_FLIGHT_RESOLVE = 12,
+  CTRL_LAUNCHES_TALLY = 13
 };
 
 // the 10-slot counters (the JAX engine's layout)
@@ -106,15 +120,6 @@ __device__ __forceinline__ void store_lane(const Lanes& L, int i, const LaneRegs
   L.stash_valid[i] = s.stash_valid; L.cand_free[i] = s.cand_free;
 }
 
-// uniform in the open interval (0, 1) from row `row` of the iteration's
-// block of raw draws (int64 in [0, 2^32)): (bits >> 8) * 2^-24 + 2^-25 in
-// float32 arithmetic, as the plain version's uniform_from_bits
-__device__ __forceinline__ float u_open(const long long* __restrict__ bits, int row,
-                                        int n, int i) {
-  const long long b = bits[(size_t)row * (size_t)n + i];
-  return (float)(int)(b >> 8) * (1.0f / 16777216.0f) + (0.5f / 16777216.0f);
-}
-
 // sum of `v` over the block, valid in thread 0 (blockDim.x a multiple of 32,
 // at most 1024; `s_buf` holds 32 words and may be reused after the call)
 template <typename T>
@@ -145,21 +150,67 @@ __device__ __forceinline__ bool last_block_done(int32_t* ctrl) {
   return true;
 }
 
-// The budget as every block of this launch sees it: the value its
-// predecessors left (read before any block can finish).
-__device__ __forceinline__ int read_remaining(const int32_t* ctrl, int* s_word) {
-  if (threadIdx.x == 0) *s_word = *((volatile const int32_t*)(ctrl + CTRL_REMAINING));
+// The control words as every block of this launch sees them: the values
+// its predecessors left (read before any block can finish, and no word read
+// here changes before the last block has finished).
+struct Ctrl {
+  int remaining, run;
+  uint32_t iteration, k0, k1;
+};
+
+__device__ __forceinline__ Ctrl read_ctrl(const int32_t* ctrl, int* s_words) {
+  if (threadIdx.x == 0) {
+    const volatile int32_t* c = ctrl;
+    s_words[0] = c[CTRL_REMAINING];
+    s_words[1] = c[CTRL_RUN];
+    s_words[2] = c[CTRL_ITERATION];
+    s_words[3] = c[CTRL_KEY0];
+    s_words[4] = c[CTRL_KEY1];
+  }
   __syncthreads();
-  return *s_word;
+  Ctrl v;
+  v.remaining = s_words[0];
+  v.run = s_words[1];
+  v.iteration = (uint32_t)s_words[2];
+  v.k0 = (uint32_t)s_words[3];
+  v.k1 = (uint32_t)s_words[4];
+  return v;
 }
 
-// Thread 0: add this block's started histories to the launch's decrement;
-// the last block takes the sum off the budget.
-__device__ __forceinline__ void settle_budget(int32_t* ctrl, int started) {
+// copy a parameter struct from device memory into shared memory (the
+// per-view source and detector change between engine calls while the
+// launches recorded in a graph keep their arguments, so the structs are read
+// through a pointer); the caller synchronises before reading `dst`
+template <typename T>
+__device__ __forceinline__ void stage_struct(T* dst, const T* src) {
+  static_assert(sizeof(T) % 4 == 0, "parameter structs are made of 32-bit words");
+  const uint32_t* from = reinterpret_cast<const uint32_t*>(src);
+  uint32_t* to = reinterpret_cast<uint32_t*>(dst);
+  for (int j = threadIdx.x; j < (int)(sizeof(T) / 4); j += blockDim.x) to[j] = from[j];
+}
+
+// Thread 0 of every block, after its atomics on the launch's accumulators:
+// add this block's started histories to the launch's decrement; the block
+// that finishes last takes the sum off the budget and counts the launch.
+// A launch that carries the tally (`ends_iteration`, with `live` = this
+// block holds a live lane or a record that waits) also settles, in this
+// order after the budget, the live word, the iteration number and whether
+// the next iteration is to run.
+__device__ __forceinline__ void settle_launch(int32_t* ctrl, int started, int launch_word,
+                                              bool ends_iteration, int live) {
   if (started) atomicAdd(ctrl + CTRL_DECREMENT, started);
-  if (last_block_done(ctrl)) {
-    const int total = atomicExch(ctrl + CTRL_DECREMENT, 0);
-    ctrl[CTRL_REMAINING] -= total;
+  if (ends_iteration && live) atomicOr(ctrl + CTRL_LIVE_ACC, 1);
+  if (!last_block_done(ctrl)) return;
+  const int remaining = ctrl[CTRL_REMAINING] - atomicExch(ctrl + CTRL_DECREMENT, 0);
+  ctrl[CTRL_REMAINING] = remaining;
+  ctrl[launch_word] += 1;
+  if (ends_iteration) {
+    const int any_live = atomicExch(ctrl + CTRL_LIVE_ACC, 0);
+    const int iteration = ctrl[CTRL_ITERATION] + 1;
+    ctrl[CTRL_LIVE] = any_live;
+    ctrl[CTRL_ITERATION] = iteration;
+    ctrl[CTRL_RUN] = iteration < ctrl[CTRL_MAX_ITERATIONS] &&
+                     (remaining > 0 || (any_live && ctrl[CTRL_DRAIN]));
   }
 }
 

@@ -4,6 +4,9 @@
 // cbctmc_tpu/engine/pallas_kernels.py::_flight_kernel). Shared by
 // flight_step.cu (one flight per launch, state in device memory between
 // flights) and flight_resolve.cu (flight and event resolve in one launch).
+// Also the per-lane body of the tally (tally_lane on a lane in registers,
+// tally_stored_lane on one still in memory), shared by tally.cu and by the
+// flight_resolve launch that ends an iteration.
 //
 // Per lane: the three majorant tiers (full Woodcock, air, soft) from their
 // conservative log-polynomials, the clearance-bounded tier choice and the
@@ -217,4 +220,83 @@ __device__ __forceinline__ bool flight_lane(LaneRegs& s, const Candidates& C, in
   s.py = py;
   s.pz = pz;
   return adopted;
+}
+
+// The tally of one lane, on its state in registers: the lane's stashed
+// record, or else its parked one (an escape while the stash was taken), goes
+// into the 4-class image by one atomicAdd; a lane holding both tallies the
+// stash and keeps the parked record as its next stash. Returns true when a
+// record was added (`val` then holds its energy) and sets `waits` when a
+// record stays for the next tally. The JAX engine's tally stage
+// (cbctmc_tpu/engine/transport.py run_projection: _tally_pixel, the
+// stash / doubles logic and the scatter-add).
+__device__ __forceinline__ bool tally_lane(LaneRegs& s, float* __restrict__ image,
+                                           const Params& P, float& val, bool& waits) {
+  const int npix = P.npix_x * P.npix_z;
+  int parked_idx = 4 * npix;  // the dropped sentinel
+  float parked_energy = 0.0f;
+  if (s.escaped) {
+    const int pix = detector_pixel(s.px, s.py, s.pz, s.dx, s.dy, s.dz, P);
+    if (pix >= 0) {
+      parked_idx = s.scatter * npix + pix;
+      parked_energy = s.energy;
+    }
+  }
+  int idx = parked_idx;
+  val = parked_energy;
+  waits = false;
+  if (s.stash_valid) {
+    if (s.stash_idx < 4 * npix) {
+      idx = s.stash_idx;
+      val = s.stash_energy;
+      waits = parked_idx < 4 * npix;  // the parked record waits for the next tally
+    }
+    if (waits) {
+      s.stash_idx = parked_idx;
+      s.stash_energy = parked_energy;
+    } else {
+      s.stash_valid = false;
+    }
+  }
+  if (idx >= 4 * npix) return false;
+  atomicAdd(image + (idx < 0 ? 0 : idx), val);
+  return true;
+}
+
+// The tally of a lane whose state is still in device memory (a lane that was
+// dead when the launch began; every lane of the tally kernel). It reads the
+// lane's two record flags and only what its record needs: position,
+// direction, energy and scatter class of a parked record (32 B), the two
+// words of a stashed one (8 B); it writes back only the stash words or the
+// stash flag that changed. Returns and sets what tally_lane does.
+__device__ __forceinline__ bool tally_stored_lane(const Lanes& L, int i,
+                                                  float* __restrict__ image,
+                                                  const Params& P, float& val,
+                                                  bool& waits) {
+  val = 0.0f;
+  waits = false;
+  const bool escaped = L.escaped[i], stashed = L.stash_valid[i];
+  if (!escaped && !stashed) return false;
+  LaneRegs s = {};
+  s.escaped = escaped;
+  s.stash_valid = stashed;
+  if (escaped) {
+    s.px = L.px[i]; s.py = L.py[i]; s.pz = L.pz[i];
+    s.dx = L.dx[i]; s.dy = L.dy[i]; s.dz = L.dz[i];
+    s.energy = L.energy[i]; s.scatter = L.scatter[i];
+  }
+  if (stashed) {
+    s.stash_idx = L.stash_idx[i];
+    s.stash_energy = L.stash_energy[i];
+  }
+  const bool added = tally_lane(s, image, P, val, waits);
+  if (stashed) {
+    if (waits) {
+      L.stash_idx[i] = s.stash_idx;
+      L.stash_energy[i] = s.stash_energy;
+    } else {
+      L.stash_valid[i] = false;
+    }
+  }
+  return added;
 }

@@ -8,35 +8,48 @@
 // _mid_refill), which on the TPU is some hundred whole-batch XLA operations
 // inside the compiled while_loop; it has no Pallas counterpart.
 //
-// Bound on the H100: bytes. A lane reads its alive flag and up to 12 rows of
-// the iteration's random block (8 B each), and writes the 8 candidate words
-// plus, where a history starts, 11 state words: at most ~190 B per lane,
-// 12 MB per launch at 65,536 lanes. The arithmetic (a 7-step binary search,
-// two sin/cos pairs, three divisions per sampled photon) is far below the
-// fp32 peak at that rate.
+// Bound on the H100: bytes. A lane reads its alive flag and writes the 8
+// candidate words plus, where a history starts, 11 state words: at most
+// ~80 B per lane, 5 MB per launch at 65,536 lanes. Its random numbers cost
+// no bytes: they are Philox words made in registers (philox.cuh), two to
+// three calls of ~60 integer instructions per sampled photon; before, 12
+// rows of a block that another operation had written to device memory were
+// the larger part of this kernel's traffic. The arithmetic (a 7-step binary
+// search, two sin/cos pairs, three divisions per sampled photon) is far
+// below the fp32 peak at that rate.
 //
 // Design: one thread per lane. The spectrum table (CDF, bin edges, bin
-// widths: 359 floats) is staged in shared memory. Every block reads the
-// budget as the previous launch left it; while it covers every lane, a dead
+// widths: 359 floats) and the parameter struct are staged in shared memory.
+// Every block reads the control words as the previous launch left them and
+// returns at once when the loop has ended (CTRL_RUN = 0: a launch recorded
+// in a graph beyond the last iteration changes nothing). While the budget
+// covers every lane, a dead
 // lane starts a history without looking at any other lane. When it runs
 // short (once per chunk), lanes start in lane order: each block sums the
 // dead-lane counts its predecessors' blocks left in `block_dead` and scans
 // its own lanes by warp ballot. The histories started are summed per block,
 // added with one atomic, and the block that finishes last takes the total
-// off the budget, so no block sees another's decrement.
+// off the budget, so no block sees another's decrement. A photon pool is 6
+// consecutive rows, so a lane that starts a history and samples its
+// candidate makes three Philox calls (the pools at rows 0 and 6 share the
+// group of rows 4..7).
 
 #include "samplers.cuh"
 
 __global__ void __launch_bounds__(PHASE_THREADS)
-refill_kernel(Lanes L, Candidates C, const long long* __restrict__ bits, int pool,
-              int cand_pool, const float* __restrict__ spec, int32_t* ctrl,
+refill_kernel(Lanes L, Candidates C, int pool, int cand_pool,
+              const float* __restrict__ spec, int spec_len, int32_t* ctrl,
               unsigned long long* counters, const int32_t* __restrict__ block_dead,
-              PhaseParams Q) {
+              const PhaseParams* __restrict__ phase) {
   extern __shared__ float s_spec[];
-  __shared__ int s_word, s_buf[32];
-  const int spec_len = 3 * Q.n_spec_bins - 1;
+  __shared__ PhaseParams s_phase;
+  __shared__ int s_word, s_ctrl[5], s_buf[32];
   for (int j = threadIdx.x; j < spec_len; j += blockDim.x) s_spec[j] = spec[j];
-  const int remaining = read_remaining(ctrl, &s_word);  // also orders s_spec
+  stage_struct(&s_phase, phase);
+  const Ctrl ctrl_in = read_ctrl(ctrl, s_ctrl);  // also orders s_spec and s_phase
+  if (!ctrl_in.run) return;
+  const PhaseParams& Q = s_phase;
+  const int remaining = ctrl_in.remaining;
 
   const int n = Q.n;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -61,9 +74,10 @@ refill_kernel(Lanes L, Candidates C, const long long* __restrict__ bits, int poo
     want = dead && order < remaining;
   }
 
+  Rng rng = rng_for_lane(ctrl_in.k0, ctrl_in.k1, ctrl_in.iteration, (uint32_t)i);
   int started = 0;
   if (want) {
-    const Photon p = sample_photon(bits, pool, n, i, s_spec, Q);
+    const Photon p = sample_photon(rng, pool, s_spec, Q);
     if (p.ok) {
       started = 1;
       L.px[i] = p.px; L.py[i] = p.py; L.pz[i] = p.pz;
@@ -80,7 +94,7 @@ refill_kernel(Lanes L, Candidates C, const long long* __restrict__ bits, int poo
     }
   }
   if (with_candidates && i < n) {
-    const Photon p = sample_photon(bits, cand_pool, n, i, s_spec, Q);
+    const Photon p = sample_photon(rng, cand_pool, s_spec, Q);
     C.px[i] = p.px; C.py[i] = p.py; C.pz[i] = p.pz;
     C.dx[i] = p.dx; C.dy[i] = p.dy; C.dz[i] = p.dz;
     C.energy[i] = p.energy;
@@ -92,20 +106,19 @@ refill_kernel(Lanes L, Candidates C, const long long* __restrict__ bits, int poo
   started = block_sum(started, s_buf);
   if (threadIdx.x == 0) {
     count(counters, with_candidates ? COUNT_REFILLS : COUNT_ADOPTIONS, started);
-    settle_budget(ctrl, started);
+    settle_launch(ctrl, started, CTRL_LAUNCHES_REFILL, false, 0);
   }
 }
 
-extern "C" int refill_launch(const Lanes* lanes, const Candidates* cands,
-                             const long long* bits, int pool, int cand_pool,
-                             const float* spec, int32_t* ctrl,
-                             unsigned long long* counters, const int32_t* block_dead,
-                             const PhaseParams* params, void* stream) {
-  if (params->n > 0) {
-    const int blocks = (params->n + PHASE_THREADS - 1) / PHASE_THREADS;
-    const size_t shared = (3 * params->n_spec_bins - 1) * sizeof(float);
-    refill_kernel<<<blocks, PHASE_THREADS, shared, (cudaStream_t)stream>>>(
-        *lanes, *cands, bits, pool, cand_pool, spec, ctrl, counters, block_dead, *params);
+extern "C" int refill_launch(const Lanes* lanes, const Candidates* cands, int pool,
+                             int cand_pool, const float* spec, int spec_len, int n,
+                             int32_t* ctrl, unsigned long long* counters,
+                             const int32_t* block_dead, const PhaseParams* phase,
+                             void* stream) {
+  if (n > 0) {
+    const int blocks = (n + PHASE_THREADS - 1) / PHASE_THREADS;
+    refill_kernel<<<blocks, PHASE_THREADS, spec_len * sizeof(float), (cudaStream_t)stream>>>(
+        *lanes, *cands, pool, cand_pool, spec, spec_len, ctrl, counters, block_dead, phase);
   }
   return (int)cudaGetLastError();
 }

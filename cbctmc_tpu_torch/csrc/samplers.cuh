@@ -53,13 +53,12 @@ __device__ __forceinline__ float sample_spectrum_energy(float u0, float u1,
 // fan-beam direction by the square-field rejection, SOURCE_DIR_TRIPS trips
 // from rows row .. row + 2 * SOURCE_DIR_TRIPS - 1; false when none accepted
 __device__ __forceinline__ bool sample_source_direction(
-    const long long* __restrict__ bits, int row, int n, int i, const PhaseParams& Q,
-    float& ox, float& oy, float& oz) {
+    Rng& rng, int row, const PhaseParams& Q, float& ox, float& oy, float& oz) {
   float dx = 0.0f, dy = 1.0f, dz = 0.0f;
   bool accepted = false;
   for (int trip = 0; trip < SOURCE_DIR_TRIPS; ++trip) {
-    const float u1 = u_open(bits, row + 2 * trip, n, i);
-    const float u2 = u_open(bits, row + 2 * trip + 1, n, i);
+    const float u1 = u_open(rng, row + 2 * trip);
+    const float u2 = u_open(rng, row + 2 * trip + 1);
     const float w = Q.cos_theta_low + u1 * Q.d_cos_theta;
     const float phi = Q.phi_low + u2 * Q.d_phi;
     const float sin_theta = sqrtf(fmaxf(1.0f - w * w, 0.0f));
@@ -110,15 +109,14 @@ struct Photon {
 };
 
 // one source photon from the pool of PHOTON_ROWS rows starting at `pool`
-__device__ __forceinline__ Photon sample_photon(const long long* __restrict__ bits,
-                                                int pool, int n, int i,
-                                                const float* s_spec,
+__device__ __forceinline__ Photon sample_photon(Rng& rng, int pool, const float* s_spec,
                                                 const PhaseParams& Q) {
   Photon p;
-  p.energy = sample_spectrum_energy(u_open(bits, pool, n, i), u_open(bits, pool + 1, n, i),
-                                    s_spec, Q.n_spec_bins);
+  const float u0 = u_open(rng, pool);
+  const float u1 = u_open(rng, pool + 1);
+  p.energy = sample_spectrum_energy(u0, u1, s_spec, Q.n_spec_bins);
   p.ebin = ebin_of(p.energy, Q);
-  p.ok = sample_source_direction(bits, pool + 2, n, i, Q, p.dx, p.dy, p.dz);
+  p.ok = sample_source_direction(rng, pool + 2, Q, p.dx, p.dy, p.dz);
   p.px = Q.src_pos[0];
   p.py = Q.src_pos[1];
   p.pz = Q.src_pos[2];
@@ -178,10 +176,10 @@ __device__ __forceinline__ float profile_cdf(float pz) {
 // [3][n_mats][s_max] (f, ui, j0) with `plane` = n_mats * s_max. The shell
 // sums run shell by shell, as the plain version's; a lane walks only its
 // own material's shells and leaves the rejection loop when it accepts, so
-// the warp pays for its slowest lane.
+// the warp pays for its slowest lane; it draws (one Philox call per four
+// rows) only the trips it takes.
 __device__ __forceinline__ float compton_shell_energy(
-    float energy, float cdt1, const float* sh, int plane, int s_max,
-    const long long* __restrict__ bits, int row, int n, int i) {
+    float energy, float cdt1, const float* sh, int plane, int s_max, Rng& rng, int row) {
   const float* sh_f = sh;
   const float* sh_ui = sh + plane;
   const float* sh_j0 = sh + 2 * plane;
@@ -212,9 +210,9 @@ __device__ __forceinline__ float compton_shell_energy(
 
   float pzomc = 0.0f;
   for (int trip = 0; trip < COMPTON_SHELL_TRIPS; ++trip) {
-    const float u1 = u_open(bits, row + 3 * trip, n, i);
-    const float u2 = u_open(bits, row + 3 * trip + 1, n, i);
-    const float u3 = u_open(bits, row + 3 * trip + 2, n, i);
+    const float u1 = u_open(rng, row + 3 * trip);
+    const float u2 = u_open(rng, row + 3 * trip + 1);
+    const float u3 = u_open(rng, row + 3 * trip + 2);
     const float target = s_tot * u1;
     // first open shell whose cumulative f*rn exceeds target; default last
     int idx = last_open;

@@ -1,24 +1,31 @@
 """The engine's hand-written CUDA kernels, their plain PyTorch versions, the
 build, and the launch counters.
 
-Six kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
-what it replaces, what bounds it and how its design answers that). Three
-are the phases of the engine's outer iteration, the only device work
+Seven kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
+what it replaces, what bounds it and how its design answers that). Two are
+the phases of the engine's outer iteration, the only device work
 :func:`cbctmc_tpu_torch.engine.transport.run_projection` issues on the card
-besides the draw of the iteration's random bits:
+(their random numbers are Philox words made in registers,
+``csrc/philox.cuh``):
 
 - ``refill``: the history budget, the refill of dead lanes and the
   candidate pool (:func:`launch_refill`);
 - ``flight_resolve``: one Woodcock flight and the in-place resolve of the
   pending events, state in registers in between, the angle inverse-CDF
-  knots read in the sampler's body (:func:`launch_flight_resolve`);
-- ``tally``: the escape records into the image by ``atomicAdd`` and the
-  loop-condition word (:func:`launch_tally`).
+  knots read in the sampler's body; the launch that ends an iteration also
+  scores the escape records into the image by ``atomicAdd`` and settles the
+  loop's control words (:func:`launch_flight_resolve`).
 
 Their plain versions are the ``*_phase_reference`` functions of
-``transport.py``. Three more are the single-purpose kernels the phases grew
-out of, each still checked and timed on its own:
+``transport.py``. Five more are single-purpose kernels, each still checked
+and timed on its own (``transport.run_projection_stepwise`` drives all but
+``flight_prototype``):
 
+- ``tally``: the tally and the loop's control words as a launch of its own
+  (:func:`launch_tally`), what ``flight_resolve`` carries on the main path;
+- ``philox_block``: the iteration's block of random words written to device
+  memory (:func:`philox_block`; plain version ``rng.philox_bits``): the
+  generator of ``csrc/philox.cuh`` held word for word against the plain one;
 - ``gather_probe``: ``out = table[idx]``, the port of the Pallas
   ``_gather_kernel`` / ``probe_vmem_gather``: the first build-and-launch
   check of every later kernel (:func:`probe_gather`), and the engine's
@@ -36,7 +43,15 @@ plain C interface and loaded with ctypes, at first use, into
 source, all together). Every wrapper checks device, dtype, shape and
 contiguity; on a CPU tensor it runs the plain version, on a CUDA tensor it
 launches the kernel or raises - it never falls back. ``launch_counts``
-counts kernel launches only.
+counts kernel launches only: a wrapper that launches through ctypes adds one
+per launch; the phase kernels, whose launches may be replays of a CUDA
+graph that no Python code sees, count themselves on the device (one control
+word per kernel, bumped by the launch's last block when the launch did
+work) and :func:`add_phase_launches` folds those words in.
+``enqueued_counts`` counts the phase kernels where they are handed to the
+card, empty launches past the end of a call's loop included: one per ctypes
+launch outside a graph's recording, and per replay what the graph recorded
+(:func:`add_enqueued`).
 """
 
 from __future__ import annotations
@@ -52,13 +67,17 @@ from typing import NamedTuple
 
 import torch
 
+from cbctmc_tpu_torch.engine.rng import philox4x32_10, philox_bits
 from cbctmc_tpu_torch.physics.constants import EPS_SOURCE, TALLY_MIN_COS_ANGLE
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_resolve",
-           "tally")
+           "tally", "philox_block")
+#: the control word (csrc/engine.cuh CTRL_LAUNCHES_*) in which each phase
+#: kernel counts its launches that did work
+PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13}
 #: lanes per block of the phase kernels (PHASE_THREADS in csrc/engine.cuh)
 PHASE_BLOCK = 256
 # -fmad=false: every product and sum rounds on its own, as the plain
@@ -71,6 +90,9 @@ NVCC_FLAGS = (
 
 #: kernel launches per kernel since the last :func:`reset_launch_counts`
 launch_counts = dict.fromkeys(KERNELS, 0)
+#: launches of the phase kernels handed to the card since then, whether or
+#: not the loop was still running when they ran
+enqueued_counts = dict.fromkeys(PHASE_LAUNCH_WORDS, 0)
 #: nvcc/ptxas output of each library built by this process
 build_logs: dict = {}
 _libs: dict = {}
@@ -84,6 +106,21 @@ MAX_SHELLS = 32  # per-lane shell arrays of csrc/samplers.cuh
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+    for name in enqueued_counts:
+        enqueued_counts[name] = 0
+
+
+def add_phase_launches(ctrl_words) -> None:
+    """Fold the phase kernels' device-side launch words (the control words
+    of an engine call, read back as a list) into ``launch_counts``."""
+    for name, word in PHASE_LAUNCH_WORDS.items():
+        launch_counts[name] += int(ctrl_words[word])
+
+
+def add_enqueued(per_kernel: dict) -> None:
+    """Count the launches of one replay of a recorded graph."""
+    for name, n in per_kernel.items():
+        enqueued_counts[name] += n
 
 
 def _nvcc() -> str:
@@ -196,10 +233,12 @@ def _fill_struct(struct, ints: dict, floats: dict):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LP, _CP = ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC)
 _SIGNATURES = {
-    "refill": [_LP, _CP, _P, _I, _I, _P, _P, _P, _P, ctypes.POINTER(_PhaseParamsC), _P],
-    "flight_resolve": [_LP, _CP, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                       ctypes.POINTER(_ParamsC), ctypes.POINTER(_PhaseParamsC), _P],
-    "tally": [_LP, _P, _P, _P, _P, _P, ctypes.POINTER(_ParamsC), _P],
+    "refill": [_LP, _CP, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    "flight_resolve": [_LP, _CP, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P],
+    "tally": [_LP, _I, _P, _P, _P, _P, _P, _P, _P],
+    "philox_block": [_P, _I, _I, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, _P],
+    "philox_block:philox_words": [_P, _P, _P, _I, _P],
     "gather_probe": [_P, _I, _P, _P, _I, _P],
     "flight_prototype": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P],
     "flight_step": [ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC), _P, _P, _P, _P,
@@ -208,20 +247,33 @@ _SIGNATURES = {
 
 
 def _launcher(name: str):
+    """The launch function ``name`` of the library of its kernel: the
+    kernel's own, or ``"kernel:entry"`` for a second entry point."""
     if name not in _libs:
-        lib = ctypes.CDLL(str(build_kernels((name,))[name]))
-        fn = getattr(lib, f"{name}_launch")
+        kernel, _, entry = name.partition(":")
+        lib = ctypes.CDLL(str(build_kernels((kernel,))[kernel]))
+        fn = getattr(lib, f"{entry or kernel}_launch")
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
         _libs[name] = fn
     return _libs[name]
 
 
+def load_kernels(names=KERNELS) -> None:
+    """Build (where missing) and load the named kernels' libraries now
+    rather than at their first launch."""
+    for name in names:
+        _launcher(name)
+
+
 def _launch(name: str, *args) -> None:
     err = _launcher(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
+    if name in PHASE_LAUNCH_WORDS:  # whether it did work is counted on the device
+        enqueued_counts[name] += 1
+    else:
+        launch_counts[name.partition(":")[0]] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -285,6 +337,46 @@ def probe_gather(device="cuda") -> bool:
     table, idx = probe_inputs(device)
     out = gather(table, idx)
     return bool(torch.allclose(out, table[idx.long()]))
+
+
+# ---------------------------------------------------------------------------
+# philox_block
+# ---------------------------------------------------------------------------
+def philox_block(key, iteration: int, n_rows: int, n_lanes: int, device,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The block ``int64[n_rows, n_lanes]`` of random words of one outer
+    iteration, by the kernels' own generator (``csrc/philox.cuh``); the
+    signature and, bit for bit, the result of its plain version
+    :func:`cbctmc_tpu_torch.engine.rng.philox_bits`."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return philox_bits(key, iteration, n_rows, n_lanes, dev, out=out)
+    if out is None:
+        out = torch.empty((n_rows, n_lanes), dtype=torch.int64, device=dev)
+    _check(out, "out", torch.int64, (n_rows, n_lanes))
+    if out.device.type != "cuda":
+        raise ValueError(f"out: on {out.device}, expected a CUDA device")
+    mask = 0xFFFFFFFF
+    _launch("philox_block", out.data_ptr(), n_rows, n_lanes, int(iteration) & mask,
+            int(key[0]) & mask, int(key[1]) & mask, _stream(out))
+    return out
+
+
+def philox_words(counters: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``philox4x32_10`` of ``csrc/philox.cuh`` on arbitrary pairs:
+    ``counters`` int64[n, 4] and ``keys`` int64[n, 2] of 32-bit words ->
+    int64[n, 4]. Plain version: ``rng.philox4x32_10``."""
+    _check(counters, "counters", torch.int64)
+    n = counters.shape[0]
+    if counters.ndim != 2 or counters.shape[1] != 4:
+        raise ValueError("counters: expected [n, 4]")
+    _check(keys, "keys", torch.int64, (n, 2), counters.device)
+    if counters.device.type == "cpu":
+        return torch.stack(philox4x32_10(counters.unbind(1), keys.unbind(1)), dim=1)
+    out = torch.empty_like(counters)
+    _launch("philox_block:philox_words", counters.data_ptr(), keys.data_ptr(), out.data_ptr(),
+            n, _stream(counters))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +519,7 @@ _INT_LANE_FIELDS = {"ebin", "scatter", "k_air", "k_soft", "vox", "mat_evt", "sta
 _BOOL_LANE_FIELDS = {"alive", "pending", "escaped", "stash_valid", "cand_free"}
 
 
-def _lane_dtype(field: str):
+def lane_dtype(field: str):
     if field in _INT_LANE_FIELDS:
         return torch.int32
     if field in _BOOL_LANE_FIELDS:
@@ -463,6 +555,35 @@ class PhaseParams:
         return _fill_struct(_PhaseParamsC(), self.ints, self.floats)
 
 
+def view_floats(source=None, detector=None) -> dict:
+    """The float32 scalars that change from view to view, under the names
+    they have in the kernels' parameter structs: the source's (``PhaseParams``)
+    and the detector's (``Params``), as Python floats and lists of them (one
+    host read for all)."""
+    groups = []
+    if source is not None:
+        groups += [
+            ("src_pos", source.position), ("rot_fan", source.rot_fan),
+            ("cos_theta_low", source.cos_theta_low), ("d_cos_theta", source.d_cos_theta),
+            ("phi_low", source.phi_low), ("d_phi", source.d_phi),
+            ("max_height", source.max_height_at_y1cm),
+        ]
+    if detector is not None:
+        groups += [
+            ("sdir", detector.source_direction), ("det_center", detector.center),
+            ("rot0", detector.rot_inv[0]), ("rot2", detector.rot_inv[2]),
+            ("corner_x", detector.corner_min[0]), ("corner_z", detector.corner_min[2]),
+            ("inv_pix_x", detector.inv_pixel_size_x), ("inv_pix_z", detector.inv_pixel_size_z),
+        ]
+    tensors = [torch.as_tensor(t, dtype=torch.float32) for _, t in groups]
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().tolist()
+    out, at = {}, 0
+    for (name, _), t in zip(groups, tensors):
+        out[name] = flat[at : at + t.numel()] if t.ndim else flat[at]
+        at += t.numel()
+    return out
+
+
 def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_z: int,
                   n_lanes: int, air_skip: bool = True, soft_skip: bool = True,
                   coeffs: torch.Tensor | None = None) -> FlightConsts:
@@ -482,8 +603,6 @@ def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_
     if poly_len > MAX_POLY or any(p.shape[0] != poly_len for p in polys):
         raise ValueError(f"majorant polynomials must share one length <= {MAX_POLY}")
     bbox = f32(volume.bbox)
-    rot = f32(detector.rot_inv)
-    corner = f32(detector.corner_min)
     nx, ny, nz = (int(s) for s in volume.shape)
     if coeffs is None:
         coeffs = sigma_coeff_table(tables)
@@ -499,11 +618,7 @@ def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_
         voxel_size=flist(volume.voxel_size),
         sigma_log_lo=float(f32(tables.sigma_log_lo)),
         sigma_range=float(f32(tables.sigma_log_hi) - f32(tables.sigma_log_lo)),
-        sdir=flist(detector.source_direction), det_center=flist(detector.center),
-        rot0=flist(rot[0]), rot2=flist(rot[2]),
-        corner_x=float(corner[0]), corner_z=float(corner[2]),
-        inv_pix_x=float(f32(detector.inv_pixel_size_x)),
-        inv_pix_z=float(f32(detector.inv_pixel_size_z)),
+        **view_floats(detector=detector),
     )
     ints = dict(
         n=n_lanes, nx=nx, ny=ny, nz=nz, n_voxels=int(volume.packed.shape[0]),
@@ -701,9 +816,9 @@ def _check_flight_args(lanes: FlightLanes, cand: Candidates, u_step, u_int,
     n = consts.ints["n"]
     dev = lanes.px.device
     for k in FlightLanes._fields:
-        _check(getattr(lanes, k), f"lanes.{k}", _lane_dtype(k), (n,), dev)
+        _check(getattr(lanes, k), f"lanes.{k}", lane_dtype(k), (n,), dev)
     for k in Candidates._fields:
-        _check(getattr(cand, k), f"cand.{k}", _lane_dtype(k), (n,), dev)
+        _check(getattr(cand, k), f"cand.{k}", lane_dtype(k), (n,), dev)
     _check(u_step, "u_step", torch.float32, (n,), dev)
     _check(u_int, "u_int", torch.float32, (n,), dev)
     _check(consts.packed, "packed", torch.int32, (consts.ints["n_voxels"],), dev)
@@ -742,9 +857,12 @@ def flight_step(lanes: FlightLanes, cand: Candidates, u_step, u_int, consts: Fli
 # the phase kernels of the engine's outer iteration
 # ---------------------------------------------------------------------------
 class _PhaseArgs:
-    """The ctypes arguments of one engine call's phase launches, built once:
-    the state tensors are updated in place, so every pointer holds for the
-    whole call."""
+    """The ctypes arguments of an engine state's phase launches, built once:
+    the state tensors are updated in place, so every pointer holds for as
+    long as the state lives (a CUDA graph records them). The two parameter
+    structs are read by the kernels through a pointer into ``params_dev``;
+    :meth:`upload` rewrites them when the view (source, detector) changes,
+    which a recorded launch then sees without being recorded again."""
 
     def __init__(self, C, st):
         n = C.n_lanes
@@ -752,10 +870,12 @@ class _PhaseArgs:
         if dev.type != "cuda":
             raise ValueError(f"the phase kernels launch on a CUDA device, not {dev}")
         for k in FlightLanes._fields:
-            _check(getattr(st.lanes, k), f"lanes.{k}", _lane_dtype(k), (n,), dev)
+            _check(getattr(st.lanes, k), f"lanes.{k}", lane_dtype(k), (n,), dev)
         for k in Candidates._fields:
-            _check(getattr(st.cand, k), f"cand.{k}", _lane_dtype(k), (n,), dev)
+            _check(getattr(st.cand, k), f"cand.{k}", lane_dtype(k), (n,), dev)
         _check(st.ctrl, "ctrl", torch.int32, None, dev)
+        if st.ctrl.numel() <= max(PHASE_LAUNCH_WORDS.values()):
+            raise ValueError("ctrl: too few control words")
         _check(st.block_dead, "block_dead", torch.int32, (-(-n // PHASE_BLOCK),), dev)
         _check(st.image, "image", torch.float32, (4 * C.n_pixels + 1,), dev)
         _check(st.counters, "counters", torch.int64, (10,), dev)
@@ -773,54 +893,77 @@ class _PhaseArgs:
         if Q["s_max"] > MAX_SHELLS:
             raise ValueError(f"at most {MAX_SHELLS} Compton shells per material")
         self.consts = C
+        self.n = n
         self.lanes = _LanesC(*(getattr(st.lanes, k).data_ptr() for k in FlightLanes._fields))
         self.cand = _CandidatesC(*(getattr(st.cand, k).data_ptr() for k in Candidates._fields))
-        self.params = F.params()
-        self.phase = C.phase_params.params()
-        self.stream = _stream(st.lanes.px)
-        self.bits_shape = (C.rows.n_rows, n)
-        self.device = dev
+        self.params_dev = torch.empty(
+            (ctypes.sizeof(_ParamsC) + ctypes.sizeof(_PhaseParamsC),), dtype=torch.uint8,
+            device=dev)
+        self.params_ptr = self.params_dev.data_ptr()
+        self.phase_ptr = self.params_ptr + ctypes.sizeof(_ParamsC)
+        self.view = None
+        self.upload()
+
+    def upload(self) -> None:
+        C = self.consts
+        host = bytes(C.flight.params()) + bytes(C.phase_params.params())
+        self.params_dev.copy_(torch.frombuffer(bytearray(host), dtype=torch.uint8))
+        self.view = C.view
 
 
 def _phase_args(C, st) -> _PhaseArgs:
-    if st.launch_args is None or st.launch_args.consts is not C:
-        st.launch_args = _PhaseArgs(C, st)
-    return st.launch_args
+    a = st.launch_args
+    if a is None or a.consts is not C:
+        a = st.launch_args = _PhaseArgs(C, st)
+    elif a.view != C.view:
+        a.upload()
+    return a
 
 
-def launch_refill(C, st, bits, pool: int, cand_pool: int) -> None:
+def prepare_phase_launches(C, st) -> None:
+    """Build (once per state) the launch arguments of ``st`` and bring the
+    parameter structs on the device up to date with ``C``'s view: what a
+    replay of recorded launches needs done before it."""
+    _phase_args(C, st)
+
+
+def launch_refill(C, st, pool: int, cand_pool: int) -> None:
     """Launch ``refill`` on the engine state of a CUDA device: start a
-    history from the photon pool at row ``pool`` of ``bits`` in every dead
-    lane the budget allows and, when ``cand_pool >= 0`` (the start of an
-    iteration), sample each lane's candidate from that pool. Plain version:
-    ``transport.refill_phase_reference``."""
+    history from the photon pool at row ``pool`` of the iteration's random
+    words in every dead lane the budget allows and, when ``cand_pool >= 0``
+    (the start of an iteration), sample each lane's candidate from that
+    pool. Plain version: ``transport.refill_phase_reference``."""
     a = _phase_args(C, st)
-    _check(bits, "bits", torch.int64, a.bits_shape, a.device)
-    _launch("refill", ctypes.byref(a.lanes), ctypes.byref(a.cand), bits.data_ptr(), pool,
-            cand_pool, C.spec.data_ptr(), st.ctrl.data_ptr(), st.counters.data_ptr(),
-            st.block_dead.data_ptr(), ctypes.byref(a.phase), a.stream)
+    _launch("refill", ctypes.byref(a.lanes), ctypes.byref(a.cand), pool, cand_pool,
+            C.spec.data_ptr(), C.spec.numel(), a.n, st.ctrl.data_ptr(),
+            st.counters.data_ptr(), st.block_dead.data_ptr(), a.phase_ptr,
+            _stream(st.ctrl))
 
 
-def launch_flight_resolve(C, st, bits, flight_row: int, resolve_row: int) -> None:
+def launch_flight_resolve(C, st, flight_row: int, resolve_row: int,
+                          with_tally: bool = False) -> None:
     """Launch ``flight_resolve``: one flight of every active lane on rows
-    ``flight_row, flight_row + 1`` of ``bits`` and, when ``resolve_row >= 0``,
-    the resolve of every pending event on the rows from ``resolve_row``.
-    Plain version: ``transport.flight_resolve_phase_reference``."""
+    ``flight_row, flight_row + 1`` of the iteration's random words and, when
+    ``resolve_row >= 0``, the resolve of every pending event on the rows from
+    ``resolve_row``; ``with_tally`` (the launch that ends an iteration) also
+    scores every lane's escape record into ``st.image`` and settles the
+    loop's control words. Plain version:
+    ``transport.flight_resolve_phase_reference``."""
     a = _phase_args(C, st)
-    _check(bits, "bits", torch.int64, a.bits_shape, a.device)
     F = C.flight
-    _launch("flight_resolve", ctypes.byref(a.lanes), ctypes.byref(a.cand), bits.data_ptr(),
-            flight_row, resolve_row, F.packed.data_ptr(), F.coeffs.data_ptr(),
-            F.coeffs.numel(), C.icdf.data_ptr(), C.shells.data_ptr(), st.ctrl.data_ptr(),
-            st.counters.data_ptr(), st.block_dead.data_ptr(), ctypes.byref(a.params),
-            ctypes.byref(a.phase), a.stream)
+    _launch("flight_resolve", ctypes.byref(a.lanes), ctypes.byref(a.cand), flight_row,
+            resolve_row, int(with_tally), F.packed.data_ptr(), F.coeffs.data_ptr(),
+            F.coeffs.numel(), C.icdf.data_ptr(), C.shells.data_ptr(), C.shells.numel(), a.n,
+            st.image.data_ptr(), st.ctrl.data_ptr(), st.counters.data_ptr(),
+            st.energy.data_ptr(), st.block_dead.data_ptr(), a.params_ptr, a.phase_ptr,
+            _stream(st.ctrl))
 
 
 def launch_tally(C, st) -> None:
     """Launch ``tally``: every lane's escape record into ``st.image`` and the
-    loop-condition word into ``st.ctrl``. Plain version:
-    ``transport.tally_phase_reference``."""
+    loop's control words (live, iteration, run) into ``st.ctrl``. Plain
+    version: ``transport.tally_phase_reference``."""
     a = _phase_args(C, st)
-    _launch("tally", ctypes.byref(a.lanes), st.image.data_ptr(), st.ctrl.data_ptr(),
+    _launch("tally", ctypes.byref(a.lanes), a.n, st.image.data_ptr(), st.ctrl.data_ptr(),
             st.counters.data_ptr(), st.energy.data_ptr(), st.block_dead.data_ptr(),
-            ctypes.byref(a.params), a.stream)
+            a.params_ptr, _stream(st.ctrl))

@@ -7,7 +7,7 @@ package's ``engine/simulate.py``:
 - splits history budgets into int32-safe chunks, sized after a pilot so one
   engine call takes about ``TARGET_SECONDS_PER_CALL``; intermediate chunks
   hand their surviving photons to the next chunk of the same projection,
-- seeds one generator per (seed, projection, chunk),
+- derives one Philox key per (seed, projection, chunk),
 - accumulates per-chunk tallies on the device and transfers each
   projection once to a float64 host image, normalised to eV/cm^2/history,
 - converts the MCGeometry voxel convention into the engine frame (rot90
@@ -32,11 +32,11 @@ from cbctmc_tpu_torch.engine.ct import (
     select_projection,
 )
 from cbctmc_tpu_torch.engine.device import resolve_device
-from cbctmc_tpu_torch.engine.rng import make_generator
+from cbctmc_tpu_torch.engine.rng import make_key
 from cbctmc_tpu_torch.engine.tables import DeviceTables, build_device_tables
 from cbctmc_tpu_torch.engine.transport import (
     EngineConfig,
-    LaneState,
+    EngineWorkspace,
     make_scene,
     run_projection,
 )
@@ -80,8 +80,7 @@ class SimulationRunInfo:
     n_histories: int
     wall_time_s: float
     # outer engine iterations summed over every chunk and projection (each
-    # is one draw of random bits and the refill, flight_resolve and tally
-    # launches of engine/transport.py)
+    # is the refill and flight_resolve launches of engine/transport.py)
     iterations: int = 0
     # the engine's 10-slot counters summed over the run (run_projection)
     counts: np.ndarray | None = None
@@ -169,6 +168,12 @@ class MCScanner:
             source_position_0=source_position_cm,
             source_direction_0=p.source_direction_cosines,
         )
+        # constants, state buffers and the recorded graph of the engine
+        # calls, shared by every chunk of every projection
+        self.workspace = EngineWorkspace(
+            self.tables, self.woodcock, self.volume, p.n_detector_pixels[0],
+            p.n_detector_pixels[1], self.engine_config, self.device,
+        )
 
     def projection_angles(self) -> np.ndarray:
         p = self.parameters
@@ -216,17 +221,17 @@ class MCScanner:
             done = 0
             chunk_idx = 0
             acc = torch.zeros((4, npz, npx), dtype=torch.float32, device=dev)
-            carry = LaneState.empty(cfg.n_lanes, npx * npz, dev)
+            carry = None  # cold lanes
             while done < n_histories:
                 chunk = min(chunk_size, MAX_CHUNK, n_histories - done)
                 last = done + chunk >= n_histories
                 t_chunk = time.monotonic()
                 img, extras = run_projection(
                     self.tables, self.woodcock, self.volume, src_i, det_i, chunk,
-                    make_generator(dev, seed, i, chunk_idx),
+                    make_key(seed, i, chunk_idx),
                     n_pixels_x=npx, n_pixels_z=npz, config=cfg,
                     return_stats=True, carry_in=carry, return_carry=not last,
-                    device=dev,
+                    device=dev, workspace=self.workspace,
                 )
                 if not last:
                     carry = extras["carry"]
@@ -235,8 +240,8 @@ class MCScanner:
                 iterations += extras["iterations"]
                 done += chunk
                 chunk_idx += 1
-                # the engine's host loop synchronises every iteration, so the
-                # host clock times the chunk; the second chunk is clean
+                # an engine call ends with a host read of its control words, so
+                # the host clock times the chunk; the second chunk is clean
                 if not calibrated and chunk_idx == 2 and done < n_histories:
                     elapsed = time.monotonic() - t_chunk
                     if elapsed > 0.05:

@@ -4,9 +4,10 @@ The port of the JAX package's ``engine/transport.py`` production path
 (``resolve_inplace=True``, ``sigma_mode="cheb"``, ``spectrum_mode="cdf"``,
 ``rayleigh_mode="icdf"``). A fixed batch of photon lanes is stepped in
 lockstep; dead lanes are refilled from the fan-beam source until the
-history budget is spent. Each outer iteration draws ONE block of random
-bits (:func:`bits_row_map` says which rows each consumer reads) and runs
-its phases in order:
+history budget is spent. The random numbers of an outer iteration are one
+block of Philox words addressed by (row, lane) (:func:`bits_row_map` says
+which rows each consumer reads; :mod:`rng` defines the stream), and its
+phases run in order:
 
 1. ``refill``: dead lanes start a history (exclusive-cumsum budget ordering,
    so the last ``< n_lanes`` histories never overdraw the budget) and every
@@ -17,17 +18,24 @@ its phases in order:
    place (Compton / Rayleigh from the tabulated angle inverse CDFs,
    photoelectric absorption); between sub-phases another ``refill`` of the
    lanes that died;
-3. ``tally``: each lane's stash or parked record into the 4-class detector
-   image once (a ``4 * npix + 1`` buffer whose last slot is the dropped
-   sentinel), and the loop condition.
+3. the tally, carried by the last ``flight_resolve`` of the iteration: each
+   lane's stash or parked record into the 4-class detector image once (a
+   ``4 * npix + 1`` buffer whose last slot is the dropped sentinel), and the
+   loop's control words: the iteration number and whether the next
+   iteration is to run.
 
 Each phase is one hand-written CUDA kernel on the card
 (:mod:`cbctmc_tpu_torch.engine.kernels`, ``csrc/refill.cu``,
-``csrc/flight_resolve.cu``, ``csrc/tally.cu``) and a plain PyTorch function
-here (``*_phase_reference``), which the CPU runs and the kernels are held
-against. The outer loop is a host loop: one generator call, the phase
-launches and one host read of two control words per iteration. All state
-lives in an :class:`EngineState` and is updated in place.
+``csrc/flight_resolve.cu``), which makes its random words in registers, and
+a plain PyTorch function here (``*_phase_reference``), which reads them from
+the block :func:`rng.philox_bits` returns; the CPU runs the plain versions
+and the kernels are held against them. The loop condition lives on the
+device: every phase returns at once when ``ctrl[CTRL_RUN]`` is 0, so the
+host enqueues ``k`` iterations at a time (on the card a CUDA graph of the
+``k`` x 4 launches, recorded once per :class:`EngineWorkspace`) and reads the
+control words once per ``k``; iterations enqueued past the end of the loop
+change nothing. All state lives in an :class:`EngineState` and is updated in
+place.
 
 Detector images accumulate energy in eV (float32) per (primary, Compton,
 Rayleigh, multi-scatter); the caller normalises to eV/cm^2/history.
@@ -36,13 +44,12 @@ Rayleigh, multi-scatter); the caller normalises to eV/cm^2/history.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from cbctmc_tpu_torch.engine import samplers
+from cbctmc_tpu_torch.engine import kernels, samplers
 from cbctmc_tpu_torch.engine.ct import DetectorGeom
 from cbctmc_tpu_torch.engine.device import resolve_device
 from cbctmc_tpu_torch.engine.kernels import (
@@ -56,11 +63,14 @@ from cbctmc_tpu_torch.engine.kernels import (
     flight_step_reference,
     gather,
     gather_reference,
+    lane_dtype,
     launch_flight_resolve,
     launch_refill,
     launch_tally,
+    philox_block,
+    view_floats,
 )
-from cbctmc_tpu_torch.engine.rng import random_bits, uniform_from_bits
+from cbctmc_tpu_torch.engine.rng import philox_bits, uniform_from_bits
 from cbctmc_tpu_torch.engine.samplers import FanBeamSource
 from cbctmc_tpu_torch.engine.tables import (
     DeviceTables,
@@ -411,6 +421,14 @@ _LANE_STATE_FIELDS = (
 )
 
 
+def _cold_lane(n_pixels: int) -> dict:
+    """The value of every field of a dead lane that never flew."""
+    cold = dict.fromkeys(_LANE_STATE_FIELDS, 0)
+    # parked-record sentinel: one past the 4-class image
+    cold.update(dy=1.0, energy=1.0e4, stash_idx=4 * n_pixels)
+    return cold
+
+
 class LaneState(NamedTuple):
     """Per-lane photon state surviving a budget-exhausted engine call; pass
     it as the next chunk's ``carry_in`` (same projection)."""
@@ -420,23 +438,11 @@ class LaneState(NamedTuple):
         """Cold lane state (all lanes dead), identical to the engine's own
         init."""
         dev = resolve_device(device)
-
-        def full(v, dtype):
-            return torch.full((n_lanes,), v, dtype=dtype, device=dev)
-
-        f, i, b = torch.float32, torch.int32, torch.bool
-        return cls(
-            px=full(0.0, f), py=full(0.0, f), pz=full(0.0, f),
-            dx=full(0.0, f), dy=full(1.0, f), dz=full(0.0, f),
-            energy=full(1.0e4, f),
-            ebin=full(0, i), scatter=full(0, i), alive=full(False, b),
-            pending=full(False, b), k_air=full(0, i), k_soft=full(0, i),
-            vox=full(0, i), mat_evt=full(0, i), xi=full(0.0, f),
-            # parked-record sentinel: one past the 4-class image
-            stash_idx=full(4 * n_pixels, i),
-            stash_energy=full(0.0, f),
-            stash_valid=full(False, b),
-        )
+        cold = _cold_lane(n_pixels)
+        return cls(**{
+            k: torch.full((n_lanes,), cold[k], dtype=lane_dtype(k), device=dev)
+            for k in _LANE_STATE_FIELDS
+        })
 
     px: torch.Tensor
     py: torch.Tensor
@@ -470,7 +476,7 @@ def _exclusive_budget(dead: torch.Tensor, remaining: torch.Tensor, n: int) -> to
 
 
 # ---------------------------------------------------------------------------
-# the per-iteration block of random bits
+# the per-iteration block of random words
 # ---------------------------------------------------------------------------
 #: rows of one sampled photon: 2 spectrum rows, then the direction trips
 PHOTON_ROWS = 2 + 2 * samplers.SOURCE_DIR_TRIPS
@@ -481,7 +487,11 @@ RESOLVE_ROWS = 2 + 3 * samplers.COMPTON_SHELL_TRIPS + 1
 class BitsRows(NamedTuple):
     """Which rows of the per-iteration block ``bits[n_rows, n_lanes]`` each
     consumer reads (first row of each group; both engine paths and the CUDA
-    kernels address the block through this one map).
+    kernels address the block through this one map). A row names a Philox
+    counter, not memory: the word of row ``r`` and lane ``i`` is word
+    ``r % 4`` of the call for counter ``(i, r // 4, iteration, 0)``; the
+    plain versions read it from the block ``rng.philox_bits`` builds, the
+    kernels compute it in registers.
 
     A photon pool is ``PHOTON_ROWS`` rows: ``+0, +1`` the spectrum energy,
     ``+2 ...`` the ``2 * SOURCE_DIR_TRIPS`` direction uniforms. Flight ``i``
@@ -526,17 +536,26 @@ def bits_row_map(config: EngineConfig) -> BitsRows:
 # ---------------------------------------------------------------------------
 # engine constants and state
 # ---------------------------------------------------------------------------
-# EngineState.ctrl slots (int32, as in csrc/engine.cuh): the two words the
-# host reads; the words after them are scratch of the kernels' epilogues
+# EngineState.ctrl slots (int32, as in csrc/engine.cuh). The host writes
+# REMAINING, RUN, DRAIN, MAX_ITERATIONS and the key at the start of a call
+# and reads the words back once every k iterations; TICKET, DECREMENT and
+# LIVE_ACC are scratch of the kernels' last-block epilogues.
 CTRL_REMAINING, CTRL_LIVE = 0, 1
-CTRL_WORDS = 8
+CTRL_ITERATION, CTRL_RUN, CTRL_DRAIN, CTRL_MAX_ITERATIONS = 5, 6, 7, 8
+CTRL_KEY0, CTRL_KEY1 = 9, 10
+CTRL_WORDS = 16  # 11..13 count launches (kernels.PHASE_LAUNCH_WORDS)
+
+#: outer iterations enqueued per host read of the control words on the card
+ITERATIONS_PER_READ = 16
 
 
 @dataclasses.dataclass
 class EngineConsts:
     """Everything an outer iteration reads besides the lane state and the
-    bits: the configuration and its row map, the flight's constants, and the
-    sampler tables laid out as both engine paths read them."""
+    random words: the configuration and its row map, the flight's constants,
+    and the sampler tables laid out as both engine paths read them. The
+    tensors belong to the scene; the source and detector of the view are
+    replaced by :meth:`set_view`."""
 
     config: EngineConfig
     rows: BitsRows
@@ -553,6 +572,7 @@ class EngineConsts:
     n_pixels_x: int
     n_pixels_z: int
     phase_params: PhaseParams
+    view: int = 0  # bumped by set_view: the kernels' parameter structs follow
 
     @property
     def n_lanes(self) -> int:
@@ -562,12 +582,22 @@ class EngineConsts:
     def n_pixels(self) -> int:
         return self.n_pixels_x * self.n_pixels_z
 
+    def set_view(self, source: FanBeamSource, detector: DetectorGeom) -> None:
+        """Point the constants at another projection of the same scene (one
+        host read of the view's scalars)."""
+        for name, value in view_floats(source, detector).items():
+            floats = (self.phase_params.floats if name in self.phase_params.floats
+                      else self.flight.floats)
+            floats[name] = value
+        self.source, self.detector = source, detector
+        self.view += 1
+
 
 def engine_consts(tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVolume,
                   source: FanBeamSource, detector: DetectorGeom, n_pixels_x: int,
                   n_pixels_z: int, config: EngineConfig) -> EngineConsts:
-    """Gather the constants of one engine call (one host read of the small
-    scalars; derived values are computed in float32 as the plain path
+    """Gather the constants of a scene under one view (host reads of the
+    small scalars; derived values are computed in float32 as the plain path
     derives them)."""
     coeffs = sigma_coeff_table(tables)
     flight = flight_consts(
@@ -595,11 +625,7 @@ def engine_consts(tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVo
                   n_icdf_rows=int(tables.compton_icdf.shape[0]), n_mats=tables.n_mats,
                   s_max=tables.max_shells),
         floats=dict(
-            src_pos=flist(source.position), rot_fan=flist(source.rot_fan),
-            cos_theta_low=float(f32(source.cos_theta_low)),
-            d_cos_theta=float(f32(source.d_cos_theta)),
-            phi_low=float(f32(source.phi_low)), d_phi=float(f32(source.d_phi)),
-            max_height=float(f32(source.max_height_at_y1cm)),
+            **view_floats(source=source),
             bbox=flist(volume.bbox), e0=float(f32(tables.e0)), ide=float(f32(tables.ide)),
             icdf_log_lo=float(f32(tables.icdf_log_lo)),
             icdf_scale=float((n_ie - 1.0) / (f32(tables.icdf_log_hi) - f32(tables.icdf_log_lo))),
@@ -624,18 +650,26 @@ def _block_dead(dead: torch.Tensor) -> torch.Tensor:
     return d.view(n_blocks, PHASE_BLOCK).sum(dim=1, dtype=torch.int32)
 
 
+def _as_int32(word: int) -> int:
+    """A 32-bit word as the int32 that holds its bits."""
+    word &= 0xFFFFFFFF
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
 @dataclasses.dataclass
 class EngineState:
     """What one engine call carries from phase to phase, all on the device
     and updated in place: the lanes (``LaneState`` plus the per-iteration
     ``escaped`` / ``cand_free`` flags), the adoption candidates, the control
-    words (``ctrl[CTRL_REMAINING]`` the history budget, ``ctrl[CTRL_LIVE]``
-    whether any lane is alive or holds a stashed record after the last
-    tally; the other words are scratch of the kernels' last-block
-    epilogues), the dead lanes per block as the last phase left them (the
-    refill's ordered budget tail sums them), the ``4 * npix + 1`` image, and
-    the counters of ``extras["counts"]`` (integers, and the tallied energy
-    in float64)."""
+    words (``CTRL_*``: the history budget, whether any lane is alive or
+    holds a waiting record after the last tally, the iteration number,
+    whether the next iteration is to run, the call's Philox key; see
+    ``csrc/engine.cuh``), the dead lanes per block as the last phase left
+    them (the refill's ordered budget tail sums them), the ``4 * npix + 1``
+    image, and the counters of ``extras["counts"]`` (integers, and the
+    tallied energy in float64). The buffers are allocated once
+    (:meth:`allocate`) and reset per call (:meth:`reset`), so their
+    addresses hold across calls."""
 
     lanes: FlightLanes
     cand: Candidates
@@ -644,32 +678,73 @@ class EngineState:
     image: torch.Tensor  # f32[4 * npix + 1]
     counters: torch.Tensor  # i64[10]
     energy: torch.Tensor  # f64[1]
+    key: Tuple[int, int] = (0, 0)  # the Philox key, as in ctrl[CTRL_KEY0:]
+    # the plain versions' block of random words and the iteration it is of
+    bits: torch.Tensor | None = dataclasses.field(default=None, repr=False, compare=False)
+    bits_iteration: int = -1
     # the ctypes arguments of this state's kernel launches, built at the
     # first launch (kernels._phase_args); not carried over by clone()
     launch_args: object = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
-    def start(cls, carry_in: LaneState, n_histories: int, n_pixels: int) -> "EngineState":
-        """The state of a call that starts from ``carry_in`` (cloned: the
-        phases update lanes in place)."""
-        n = carry_in.px.shape[0]
-        dev = carry_in.px.device
-        fields = {k: getattr(carry_in, k).clone() for k in _LANE_STATE_FIELDS}
-        fields["escaped"] = torch.zeros((n,), dtype=torch.bool, device=dev)
-        fields["cand_free"] = torch.zeros((n,), dtype=torch.bool, device=dev)
-        cand = Candidates(*(
-            torch.zeros((n,), dtype=torch.int32 if k == "ebin" else torch.float32, device=dev)
-            for k in Candidates._fields
-        ))
-        ctrl = torch.zeros((CTRL_WORDS,), dtype=torch.int32, device=dev)
-        ctrl[CTRL_REMAINING] = int(n_histories)
+    def allocate(cls, n_lanes: int, n_pixels: int, device) -> "EngineState":
+        dev = torch.device(device)
+
+        def lanes_of(fields):
+            return (torch.zeros((n_lanes,), dtype=lane_dtype(k), device=dev) for k in fields)
+
         return cls(
-            lanes=FlightLanes(**fields), cand=cand, ctrl=ctrl,
-            block_dead=_block_dead(~fields["alive"]),
+            lanes=FlightLanes(*lanes_of(FlightLanes._fields)),
+            cand=Candidates(*lanes_of(Candidates._fields)),
+            ctrl=torch.zeros((CTRL_WORDS,), dtype=torch.int32, device=dev),
+            block_dead=torch.zeros((-(-n_lanes // PHASE_BLOCK),), dtype=torch.int32, device=dev),
             image=torch.zeros((4 * n_pixels + 1,), dtype=torch.float32, device=dev),
             counters=torch.zeros((10,), dtype=torch.int64, device=dev),
             energy=torch.zeros((1,), dtype=torch.float64, device=dev),
         )
+
+    def reset(self, carry_in: LaneState | None, n_histories: int, key=(0, 0),
+              drain: bool = True, max_iterations: int = 1 << 30) -> None:
+        """Make this the state a call starts from: the lanes of ``carry_in``
+        (copied; cold lanes when None), a zero image and zero counters, and
+        the control words of a call of ``n_histories`` under ``key`` that
+        drains its lanes at the end or not."""
+        L = self.lanes
+        if carry_in is None:
+            for k, v in _cold_lane((self.image.numel() - 1) // 4).items():
+                getattr(L, k).fill_(v)
+        else:
+            for k in _LANE_STATE_FIELDS:
+                dst, src = getattr(L, k), getattr(carry_in, k)
+                if dst.data_ptr() != src.data_ptr():  # a carry of this very state
+                    dst.copy_(src)
+        L.escaped.zero_()
+        L.cand_free.zero_()
+        self.image.zero_()
+        self.counters.zero_()
+        self.energy.zero_()
+        self.block_dead.copy_(_block_dead(~L.alive))
+        words = [0] * CTRL_WORDS
+        words[CTRL_REMAINING] = int(n_histories)
+        words[CTRL_DRAIN] = int(drain)
+        words[CTRL_MAX_ITERATIONS] = min(int(max_iterations), (1 << 31) - 1)
+        words[CTRL_KEY0], words[CTRL_KEY1] = _as_int32(key[0]), _as_int32(key[1])
+        words[CTRL_RUN] = int(n_histories > 0 and max_iterations > 0)
+        self.ctrl.copy_(torch.tensor(words, dtype=torch.int32))
+        if n_histories <= 0 and drain and max_iterations > 0:
+            # nothing to start: the call only runs if a survivor is left
+            self.ctrl[CTRL_RUN] = (L.alive.any() | L.stash_valid.any()).to(torch.int32)
+        self.key = (int(key[0]), int(key[1]))
+        self.bits_iteration = -1
+
+    @classmethod
+    def start(cls, carry_in: LaneState, n_histories: int, n_pixels: int, key=(0, 0),
+              drain: bool = True, max_iterations: int = 1 << 30) -> "EngineState":
+        """A newly allocated state of a call that starts from ``carry_in``
+        (copied: the phases update lanes in place)."""
+        st = cls.allocate(carry_in.px.shape[0], n_pixels, carry_in.px.device)
+        st.reset(carry_in, n_histories, key, drain, max_iterations)
+        return st
 
     @property
     def remaining(self) -> torch.Tensor:
@@ -682,7 +757,7 @@ class EngineState:
             cand=Candidates(*(t.clone() for t in self.cand)),
             ctrl=self.ctrl.clone(), block_dead=self.block_dead.clone(),
             image=self.image.clone(), counters=self.counters.clone(),
-            energy=self.energy.clone(),
+            energy=self.energy.clone(), key=self.key,
         )
 
     def carry(self) -> LaneState:
@@ -693,6 +768,18 @@ class EngineState:
         out = self.counters.to(torch.float64)
         out[8] = self.energy[0]
         return out
+
+
+def iteration_bits(C: EngineConsts, st: EngineState, block=None) -> torch.Tensor:
+    """The block of random words of the iteration ``st`` is in, for the plain
+    versions (made once per iteration by ``block``: ``rng.philox_bits``
+    unless given, as the ``philox_block`` kernel's wrapper is)."""
+    iteration = int(st.ctrl[CTRL_ITERATION])
+    if st.bits is None or st.bits_iteration != iteration:
+        st.bits = (block or philox_bits)(st.key, iteration, C.rows.n_rows, C.n_lanes, st.ctrl.device,
+                        out=st.bits)
+        st.bits_iteration = iteration
+    return st.bits
 
 
 # ---------------------------------------------------------------------------
@@ -706,6 +793,11 @@ def _ebin_of(energy: torch.Tensor, C: EngineConsts) -> torch.Tensor:
 
 def _set(dst: torch.Tensor, mask: torch.Tensor, value) -> None:
     dst.copy_(torch.where(mask, value, dst))
+
+
+def _running(st: EngineState) -> bool:
+    """Whether the loop still runs: every phase does nothing once it ended."""
+    return bool(st.ctrl[CTRL_RUN])
 
 
 def sample_photons(C: EngineConsts, bits: torch.Tensor, pool: int):
@@ -728,6 +820,8 @@ def refill_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
     (``with_candidates``) also sample every lane's adoption candidate and
     reset the per-iteration flags; between sub-phases lanes that parked an
     escape record keep it (they are not refilled)."""
+    if not _running(st):
+        return
     L, n = st.lanes, C.n_lanes
     dead = ~L.alive if with_candidates else ~L.alive & ~L.escaped
     want = _exclusive_budget(dead, st.remaining, n)
@@ -805,30 +899,17 @@ def _resolve_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, row
     st.counters[4] += took_photo.sum()
 
 
-def flight_resolve_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
-                                   r: int, flight=flight_step_reference,
-                                   gather_fn=gather_reference) -> None:
-    """Plain version of the ``flight_resolve`` kernel: the flights of
-    sub-phase ``r`` (each reads the budget its predecessor left), then the
-    in-place resolve of the pending events. ``flight`` / ``gather_fn`` let
-    :func:`run_projection_stepwise` put the single-purpose kernels in."""
-    t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
-    for i in range(r * t_sub, (r + 1) * t_sub):
-        u = uniform_from_bits(bits[C.rows.flight + 2 * i : C.rows.flight + 2 * i + 2])
-        counts = torch.zeros((2,), dtype=torch.int32, device=bits.device)
-        flight(st.lanes, st.cand, u[0].contiguous(), u[1].contiguous(), C.flight,
-               st.remaining, counts)
-        st.counters[6:8] += counts
-    _resolve_reference(C, st, bits, C.rows.resolve[r], gather_fn)
-    st.block_dead.copy_(_block_dead(~st.lanes.alive & ~st.lanes.escaped))
-
-
 def tally_phase_reference(C: EngineConsts, st: EngineState) -> None:
-    """Plain version of the ``tally`` kernel: each lane's stashed or parked
-    escape record goes into the 4-class image once (a lane holding both
-    tallies the stash and keeps the parked record as its next stash), and
-    ``ctrl[CTRL_LIVE]`` says whether any lane is alive or still holds a
-    record."""
+    """Plain version of the ``tally`` kernel, and of the tally a
+    ``flight_resolve`` launch carries at the end of an iteration: each lane's
+    stashed or parked escape record goes into the 4-class image once (a lane
+    holding both tallies the stash and keeps the parked record as its next
+    stash); then the loop's control words: ``ctrl[CTRL_LIVE]`` whether any
+    lane is alive or still holds a record, the iteration number, and
+    ``ctrl[CTRL_RUN]`` whether the next iteration is to run (budget left, or
+    a draining call with something live, below the iteration limit)."""
+    if not _running(st):
+        return
     L, npix = st.lanes, C.n_pixels
     pix, hit = _tally_pixel(L.px, L.py, L.pz, L.dx, L.dy, L.dz, C.detector,
                             C.n_pixels_x, C.n_pixels_z)
@@ -847,79 +928,193 @@ def tally_phase_reference(C: EngineConsts, st: EngineState) -> None:
     tallied = primary_idx < 4 * npix
     st.counters[0] += tallied.sum()
     st.energy += torch.where(tallied, primary_val, 0.0).sum(dtype=torch.float64)
-    st.ctrl[CTRL_LIVE] = (L.alive.any() | doubles.any()).to(torch.int32)
     st.block_dead.copy_(_block_dead(~L.alive))
+    ctrl = st.ctrl
+    live = L.alive.any() | doubles.any()
+    iteration = ctrl[CTRL_ITERATION] + 1
+    ctrl[CTRL_LIVE] = live.to(torch.int32)
+    ctrl[CTRL_ITERATION] = iteration
+    ctrl[CTRL_RUN] = ((iteration < ctrl[CTRL_MAX_ITERATIONS])
+                      & ((ctrl[CTRL_REMAINING] > 0) | (live & (ctrl[CTRL_DRAIN] != 0)))
+                      ).to(torch.int32)
+
+
+def flight_resolve_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
+                                   r: int, with_tally: bool = False,
+                                   flight=flight_step_reference, gather_fn=gather_reference,
+                                   tally=tally_phase_reference) -> None:
+    """Plain version of the ``flight_resolve`` kernel: the flights of
+    sub-phase ``r`` (each reads the budget its predecessor left), then the
+    in-place resolve of the pending events and, ``with_tally`` (the last
+    sub-phase of an iteration), the tally. ``flight`` / ``gather_fn`` /
+    ``tally`` let :func:`run_projection_stepwise` put the single-purpose
+    kernels in."""
+    if not _running(st):
+        return
+    t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
+    for i in range(r * t_sub, (r + 1) * t_sub):
+        u = uniform_from_bits(bits[C.rows.flight + 2 * i : C.rows.flight + 2 * i + 2])
+        counts = torch.zeros((2,), dtype=torch.int32, device=bits.device)
+        flight(st.lanes, st.cand, u[0].contiguous(), u[1].contiguous(), C.flight,
+               st.remaining, counts)
+        st.counters[6:8] += counts
+    _resolve_reference(C, st, bits, C.rows.resolve[r], gather_fn)
+    st.block_dead.copy_(_block_dead(~st.lanes.alive & ~st.lanes.escaped))
+    if with_tally:
+        tally(C, st)
 
 
 # ---------------------------------------------------------------------------
 # the phases as the engine calls them: the kernel on the card
 # ---------------------------------------------------------------------------
-def refill_phase(C: EngineConsts, st: EngineState, bits: torch.Tensor, pool: int,
-                 with_candidates: bool) -> None:
-    if bits.device.type == "cpu":
-        refill_phase_reference(C, st, bits, pool, with_candidates)
+def refill_phase(C: EngineConsts, st: EngineState, pool: int, with_candidates: bool) -> None:
+    if st.ctrl.device.type == "cpu":
+        refill_phase_reference(C, st, iteration_bits(C, st), pool, with_candidates)
     else:
-        launch_refill(C, st, bits, pool, C.rows.cand if with_candidates else -1)
+        launch_refill(C, st, pool, C.rows.cand if with_candidates else -1)
 
 
-def flight_resolve_phase(C: EngineConsts, st: EngineState, bits: torch.Tensor, r: int) -> None:
+def flight_resolve_phase(C: EngineConsts, st: EngineState, r: int, with_tally: bool) -> None:
     """One launch per flight of sub-phase ``r`` (the adoption guard of a
     flight reads the budget as the previous flight of the whole grid left
     it, and a kernel boundary is what orders the grid); the last carries the
-    resolve. The production configuration flies once per sub-phase."""
-    if bits.device.type == "cpu":
-        flight_resolve_phase_reference(C, st, bits, r)
+    resolve and, ``with_tally``, the tally. The production configuration
+    flies once per sub-phase."""
+    if st.ctrl.device.type == "cpu":
+        flight_resolve_phase_reference(C, st, iteration_bits(C, st), r, with_tally)
         return
     t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
     for i in range(r * t_sub, (r + 1) * t_sub):
         last = i == (r + 1) * t_sub - 1
-        launch_flight_resolve(C, st, bits, C.rows.flight + 2 * i,
-                              C.rows.resolve[r] if last else -1)
+        launch_flight_resolve(C, st, C.rows.flight + 2 * i,
+                              C.rows.resolve[r] if last else -1, with_tally and last)
 
 
 def tally_phase(C: EngineConsts, st: EngineState) -> None:
-    if st.image.device.type == "cpu":
+    """The tally as a phase of its own (the stepwise path)."""
+    if st.ctrl.device.type == "cpu":
         tally_phase_reference(C, st)
     else:
         launch_tally(C, st)
 
 
 class Phases(NamedTuple):
-    refill: Callable
-    flight_resolve: Callable
-    tally: Callable
+    refill: Callable  # (C, st, pool, with_candidates)
+    flight_resolve: Callable  # (C, st, r, with_tally)
+    # launches only, no host read: a CUDA graph can record the iteration
+    recordable: bool
 
 
 def _engine_phases() -> Phases:
-    # looked up at call time, so a caller can wrap a phase of this module
-    return Phases(refill_phase, flight_resolve_phase, tally_phase)
+    return Phases(refill_phase, flight_resolve_phase, True)
 
 
-def _plain_phases() -> Phases:
-    return Phases(refill_phase_reference, flight_resolve_phase_reference,
-                  tally_phase_reference)
+def _plain_phases(block=None, **swap) -> Phases:
+    """The plain versions on the block of random words ``block`` makes;
+    ``swap`` replaces ``flight`` / ``gather_fn`` / ``tally``."""
+
+    def refill(C, st, pool, with_candidates):
+        refill_phase_reference(C, st, iteration_bits(C, st, block), pool, with_candidates)
+
+    def flight_resolve(C, st, r, with_tally):
+        flight_resolve_phase_reference(C, st, iteration_bits(C, st, block), r, with_tally,
+                                       **swap)
+
+    return Phases(refill, flight_resolve, False)
 
 
 def _stepwise_phases() -> Phases:
-    return Phases(
-        refill_phase_reference,
-        functools.partial(flight_resolve_phase_reference, flight=flight_step, gather_fn=gather),
-        tally_phase_reference,
-    )
+    return _plain_phases(block=philox_block, flight=flight_step, gather_fn=gather,
+                         tally=tally_phase)
 
 
-def outer_iteration(phases: Phases, C: EngineConsts, st: EngineState,
-                    bits: torch.Tensor) -> None:
-    """One outer iteration on the rows of ``bits``: refill + candidate pool,
-    then per sub-phase the flights, the resolve and (between sub-phases) the
-    refill of lanes that died, then the tally."""
+def outer_iteration(phases: Phases, C: EngineConsts, st: EngineState) -> None:
+    """One outer iteration: refill + candidate pool, then per sub-phase the
+    flights, the resolve and (between sub-phases) the refill of lanes that
+    died; the last sub-phase carries the tally."""
     R = max(1, C.config.n_resolves)
-    phases.refill(C, st, bits, C.rows.refill, True)
+    phases.refill(C, st, C.rows.refill, True)
     for r in range(R):
-        phases.flight_resolve(C, st, bits, r)
+        phases.flight_resolve(C, st, r, r == R - 1)
         if r < R - 1:
-            phases.refill(C, st, bits, C.rows.mid[r], False)
-    phases.tally(C, st)
+            phases.refill(C, st, C.rows.mid[r], False)
+
+
+# ---------------------------------------------------------------------------
+# the engine's workspace and loop
+# ---------------------------------------------------------------------------
+class EngineWorkspace:
+    """What the engine calls on one scene, detector size and configuration
+    share, so that a call allocates nothing and reads the scene's constants
+    from the device once per view instead of once per call: the constants
+    (:class:`EngineConsts`), one :class:`EngineState` whose buffers every
+    call resets in place, and on the card the CUDA graph of ``k`` recorded
+    outer iterations (the buffers' addresses are what it recorded; what
+    changes between calls, the view's parameter structs, the key and the
+    budget, lives in device memory the host rewrites).
+
+    The image and the carry a call returns are views of the workspace's
+    buffers: use or copy them before the next call with the same
+    workspace."""
+
+    def __init__(self, tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVolume,
+                 n_pixels_x: int, n_pixels_z: int, config: EngineConfig, device=None):
+        _check_supported(config)
+        validate_volume(volume)
+        self.device = resolve_device(device)
+        for what, on in (("volume", volume.packed.device), ("tables", tables.e0.device)):
+            if on.type != self.device.type:
+                raise ValueError(f"{what} on {on}, engine on {self.device}")
+        self.scene = (tables, woodcock, volume)
+        self.pixels = (n_pixels_x, n_pixels_z)
+        self.config = config
+        self.state = EngineState.allocate(config.n_lanes, n_pixels_x * n_pixels_z, self.device)
+        self.consts: EngineConsts | None = None
+        # iterations per replay -> (torch.cuda.CUDAGraph, its launches per kernel)
+        self.graphs: dict = {}
+
+    def check(self, tables, woodcock, volume, n_pixels_x, n_pixels_z, config, device) -> None:
+        same = (tables is self.scene[0] and woodcock is self.scene[1]
+                and volume is self.scene[2] and (n_pixels_x, n_pixels_z) == self.pixels
+                and config == self.config and device.type == self.device.type)
+        if not same:
+            raise ValueError("the workspace was built for another scene, detector size, "
+                             "configuration or device")
+
+    def set_view(self, source: FanBeamSource, detector: DetectorGeom) -> EngineConsts:
+        C = self.consts
+        if C is None:
+            C = self.consts = engine_consts(*self.scene, source, detector, *self.pixels,
+                                            self.config)
+        elif source is not C.source or detector is not C.detector:
+            C.set_view(source, detector)
+        return C
+
+    def advance(self, phases: Phases, k: int) -> None:
+        """Enqueue ``k`` outer iterations: a replay of their recorded
+        launches where the phases are launches only and ``k > 1``, else the
+        phases one by one."""
+        C, st = self.consts, self.state
+        if not (phases.recordable and self.device.type == "cuda" and k > 1):
+            for _ in range(k):
+                outer_iteration(phases, C, st)
+            return
+        # a replay runs no Python: bring the view's parameter structs on the
+        # device up to date here
+        kernels.prepare_phase_launches(C, st)
+        if k not in self.graphs:
+            kernels.load_kernels(("refill", "flight_resolve"))  # no build inside a capture
+            graph = torch.cuda.CUDAGraph()
+            before = dict(kernels.enqueued_counts)
+            with torch.cuda.graph(graph):
+                for _ in range(k):
+                    outer_iteration(phases, C, st)
+            recorded = {name: n - before[name] for name, n in kernels.enqueued_counts.items()}
+            kernels.enqueued_counts.update(before)  # the recording ran nothing
+            self.graphs[k] = (graph, recorded)
+        graph, recorded = self.graphs[k]
+        graph.replay()
+        kernels.add_enqueued(recorded)
 
 
 def run_projection(
@@ -929,7 +1124,7 @@ def run_projection(
     source: FanBeamSource,
     detector: DetectorGeom,
     n_histories: int,
-    generator: torch.Generator,
+    key: Tuple[int, int],
     n_pixels_x: int,
     n_pixels_z: int,
     config: EngineConfig = EngineConfig(),
@@ -937,10 +1132,15 @@ def run_projection(
     carry_in: LaneState | None = None,
     return_carry: bool = False,
     device: str | torch.device | None = None,
+    workspace: EngineWorkspace | None = None,
+    iterations_per_read: int | None = None,
 ):
     """Simulate one projection; returns the detector image
     f32[4, n_pixels_z, n_pixels_x] of deposited energy [eV] per (primary,
     Compton, Rayleigh, multi-scatter).
+
+    ``key`` is the call's Philox key (two 32-bit words, :func:`rng.make_key`);
+    the same key gives the same stream on the CPU and on the card.
 
     With ``return_stats`` or ``return_carry`` returns ``(image, extras)``:
     ``iterations`` / ``remaining`` / ``counts`` (the JAX engine's 10-slot
@@ -952,84 +1152,79 @@ def run_projection(
     and returns the surviving photons in ``extras["carry"]``; feed it to the
     next chunk of the same projection as ``carry_in``. The last chunk runs
     without ``return_carry`` and drains every survivor. The engine runs on
-    ``device`` (``cuda`` unless the caller passes ``"cpu"``); the scene,
-    tables and ``generator`` must live there. On the card every phase of an
-    iteration is one hand-written kernel; on the CPU its plain version."""
+    ``device`` (``cuda`` unless the caller passes ``"cpu"``); the scene and
+    tables must live there. On the card every phase of an iteration is one
+    hand-written kernel; on the CPU its plain version.
+
+    ``workspace`` (an :class:`EngineWorkspace` of this scene, detector size
+    and configuration) lets successive calls share constants, buffers and
+    the recorded graph; the returned image and carry are then views of its
+    buffers, valid until the next call with it. Without one the call builds
+    its own. The host reads the loop's control words once per
+    ``iterations_per_read`` outer iterations (default
+    ``ITERATIONS_PER_READ`` on the card, where more than one means a CUDA
+    graph of that many iterations is recorded once and replayed; 1 on the
+    CPU). The result does not depend on it: iterations enqueued past the
+    end of the loop do nothing."""
     return _run_projection(
-        _engine_phases(), tables, woodcock, volume, source, detector, n_histories,
-        generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in, return_carry,
-        device,
+        _engine_phases(), tables, woodcock, volume, source, detector, n_histories, key,
+        n_pixels_x, n_pixels_z, config, return_stats, carry_in, return_carry, device,
+        workspace, iterations_per_read,
     )
 
 
-def run_projection_reference(
-    tables, woodcock, volume, source, detector, n_histories, generator, n_pixels_x,
-    n_pixels_z, config: EngineConfig = EngineConfig(), return_stats: bool = False,
-    carry_in: LaneState | None = None, return_carry: bool = False, device=None,
-):
-    """:func:`run_projection` through the plain PyTorch versions of the
-    phases on whatever device the tensors lie (what the kernels are held
-    against; the same generator seed gives the same bits to both)."""
-    return _run_projection(
-        _plain_phases(), tables, woodcock, volume, source, detector, n_histories,
-        generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in, return_carry,
-        device,
-    )
+def run_projection_reference(*args, **kwargs):
+    """:func:`run_projection` (same arguments) through the plain PyTorch
+    versions of the phases on whatever device the tensors lie: what the
+    kernels are held against; the same key gives the same random words to
+    both."""
+    return _run_projection(_plain_phases(), *args, **kwargs)
 
 
-def run_projection_stepwise(
-    tables, woodcock, volume, source, detector, n_histories, generator, n_pixels_x,
-    n_pixels_z, config: EngineConfig = EngineConfig(), return_stats: bool = False,
-    carry_in: LaneState | None = None, return_carry: bool = False, device=None,
-):
-    """:func:`run_projection` as an eager loop of plain PyTorch around the
-    two single-purpose kernels: every flight is one ``flight_step`` launch
-    and the angle inverse-CDF knots of every resolve are two ``gather``
-    launches (on the CPU their plain versions). This is the path the phase
-    kernels replaced; it stays as the path on which those two kernels are
-    driven and timed."""
-    return _run_projection(
-        _stepwise_phases(), tables, woodcock, volume, source, detector, n_histories,
-        generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in, return_carry,
-        device,
-    )
+def run_projection_stepwise(*args, **kwargs):
+    """:func:`run_projection` (same arguments) as an eager loop of plain
+    PyTorch around the single-purpose kernels: the iteration's random words
+    are one ``philox_block`` launch, every flight is one ``flight_step``
+    launch, the angle inverse-CDF knots of every resolve are two ``gather``
+    launches and the tally is one ``tally`` launch (on the CPU their plain
+    versions). This is the path the phase kernels replaced; it stays as the
+    path on which those kernels are driven and timed."""
+    return _run_projection(_stepwise_phases(), *args, **kwargs)
 
 
-def _run_projection(phases, tables, woodcock, volume, source, detector, n_histories,
-                    generator, n_pixels_x, n_pixels_z, config, return_stats, carry_in,
-                    return_carry, device):
-    _check_supported(config)
-    validate_volume(volume)
+def _run_projection(phases, tables, woodcock, volume, source, detector, n_histories, key,
+                    n_pixels_x, n_pixels_z, config=EngineConfig(), return_stats=False,
+                    carry_in=None, return_carry=False, device=None, workspace=None,
+                    iterations_per_read=None):
     dev = resolve_device(device)
-    for what, on in (("volume", volume.packed.device), ("tables", tables.e0.device),
-                     ("generator", generator.device)):
-        if on.type != dev.type:
-            raise ValueError(f"{what} on {on}, engine on {dev}")
-    n = config.n_lanes
+    ws = workspace
+    if ws is None:
+        ws = EngineWorkspace(tables, woodcock, volume, n_pixels_x, n_pixels_z, config, dev)
+    else:
+        ws.check(tables, woodcock, volume, n_pixels_x, n_pixels_z, config, dev)
+    ws.set_view(source, detector)
+    st = ws.state
+    st.reset(carry_in, n_histories, key, drain=not return_carry,
+             max_iterations=config.max_outer_iterations)
+    k = iterations_per_read
+    if k is None:
+        k = ITERATIONS_PER_READ if phases.recordable and dev.type == "cuda" else 1
+
+    # the loop condition is ctrl[CTRL_RUN], settled on the device at the end
+    # of every iteration: one host read per k iterations
+    while True:
+        ws.advance(phases, k)
+        words = st.ctrl.tolist()
+        if not words[CTRL_RUN]:
+            break
+    kernels.add_phase_launches(words)
+
     npix = n_pixels_x * n_pixels_z
-    C = engine_consts(tables, woodcock, volume, source, detector, n_pixels_x, n_pixels_z,
-                      config)
-    if carry_in is None:
-        carry_in = LaneState.empty(n, npix, dev)
-    st = EngineState.start(carry_in, n_histories, npix)
-    bits = torch.empty((C.rows.n_rows, n), dtype=torch.int64, device=dev)
-
-    # the loop condition: budget left or, when draining, a lane alive or a
-    # record stashed; one host read per iteration of the two control words
-    remaining = int(n_histories)
-    live = not return_carry and bool(st.lanes.alive.any() | st.lanes.stash_valid.any())
-    it = 0
-    while it < config.max_outer_iterations and (remaining > 0 or live):
-        random_bits(generator, bits.shape, dev, out=bits)
-        outer_iteration(phases, C, st, bits)
-        remaining, live = st.ctrl[: CTRL_LIVE + 1].tolist()
-        live = bool(live) and not return_carry
-        it += 1
-
     image = st.image[: 4 * npix].reshape(4, n_pixels_z, n_pixels_x)
     extras = {}
     if return_stats:
-        extras.update(iterations=it, remaining=st.remaining.clone(), counts=st.counts())
+        extras.update(iterations=words[CTRL_ITERATION], remaining=st.remaining.clone(),
+                      counts=st.counts())
     if return_carry:
         extras["carry"] = st.carry()
     if extras:

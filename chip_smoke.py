@@ -4,41 +4,55 @@ NVIDIA card and hold every hand-written kernel against its plain version.
 
 Phases (each raises on failure; nothing lets the run exit 0 after one):
 
-1. print the card (``nvidia-smi`` name, power limit); build the six kernels
+1. print the card (``nvidia-smi`` name, power limit); build the seven kernels
    from ``cbctmc_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-2. ``probe_gather("cuda")`` must be True;
+2. ``probe_gather("cuda")`` must be True; Philox in a kernel
+   (``csrc/philox.cuh``) against the plain version: Random123's three
+   known-answer vectors, 2^20 random (counter, key) pairs and the production
+   block of an iteration, every word equal;
 3. the golden slab on the card: the JAX package's recorded slab channel sums
    (``tests/golden_slab_values.json``) against the mean of 4 port seeds,
    within 4 combined standard errors (the CPU test's statistical bound);
-4. the whole engine on the slab's scene, 1e6 histories, one seed: the card's
-   path (phase kernels) against the plain version on the card, from the same
-   generator seed: iterations and integer counters equal, channel sums
-   within 1e-4 relative;
+4. the whole engine on the slab's scene, 1e6 histories, one key, four ways:
+   the recorded graph (the main path's way), the eager loop with one host
+   read per iteration, the plain version on the card and the plain version
+   on the CPU: iterations equal, integer counters equal on the card (within
+   2 or 1e-5 relative of the CPU's, whose transcendentals round
+   differently), channel sums within 1e-4 relative;
 5. the main path: ``MCScanner`` on the 500^3 CatPhan604 at 1 mm with the
    1848x768 detector and ``production_engine_config()``, ``simulate`` of
    two projections (270 and 90 deg) at 2e7 histories each; launch counters
-   are zeroed just before and read just after (``refill``,
-   ``flight_resolve`` and ``tally`` must match ``info.iterations`` and the
-   config); the engine state and bits before the 5th iteration are captured;
+   are zeroed just before and read just after (``refill`` and
+   ``flight_resolve``, counted on the device, must match ``info.iterations``
+   and the config: 4 launches per iteration; ``tally`` 0; the launches
+   enqueued, counted where they are launched or replayed, must be those of
+   16 iterations per host read; ``torch.randint`` not called; fewer host
+   reads of the control words than iterations);
 6. the same scene for three repeats of a run sized to last at least 10 s
-   (median and spread of histories/s), and the engine alone at three lane
-   widths;
-7. the stepwise path (the eager loop around ``flight_step`` and ``gather``,
-   which the phase kernels replaced) on the same scene at a small history
-   count, its launch counters zeroed before and read after;
-8. each phase kernel against its plain version on the captured state, phase
-   after phase of that iteration, and each single-purpose kernel against
-   its plain version at the main path's shapes (``flight_step`` and
-   ``gather`` on inputs derived from the captured state,
-   ``flight_prototype`` at 1,048,576 lanes x 4 flights over the CatPhan's
-   material and density), with device times, bounds and library times;
-9. two profiled engine calls of different length on the same scene: device
-   operations per outer iteration, busy share, device time by kernel
-   (written to ``smoke_out/profile_main_path.txt``);
+   (median and spread of histories/s), the engine alone at 1 (the eager
+   loop) and 16 (the default) iterations per host read, with
+   ``--read-every-sweep`` also at 4, 8, 32 and 64, and at three lane widths;
+7. the stepwise path (the eager loop around ``philox_block``,
+   ``flight_step``, ``gather`` and ``tally``, which the phase kernels
+   replaced) on the same scene at a small history count, its launch counters
+   zeroed before and read after;
+8. each phase kernel against its plain version on an engine state taken
+   after 4 iterations on the main path's scene, phase after phase of the
+   5th, the stand-alone ``tally`` on the state before that iteration's
+   tally, and each single-purpose kernel against its plain version at the
+   main path's shapes (``flight_step`` and ``gather`` on inputs derived from
+   that state, ``flight_prototype`` at 1,048,576 lanes x 4 flights over the
+   CatPhan's material and density), with device times, bounds and library
+   times;
+9. profiled engine calls on the same scene: two eager ones of different
+   length (device operations per outer iteration, device time by kernel)
+   and one through the graph (busy share of the main path's way), written
+   to ``smoke_out/profile_main_path.txt``;
 10. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
-Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
-with one CUDA card (the kernels build into ``cbctmc_tpu_torch/_build/``).
+Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
+root, on a machine with one CUDA card (the kernels build into
+``cbctmc_tpu_torch/_build/``).
 Exits non-zero without a card.
 """
 
@@ -66,18 +80,21 @@ PHANTOM_SHAPE, PHANTOM_SPACING_MM = (500, 500, 500), 1.0
 MAIN_ANGLES = (270.0, 90.0)
 MAIN_HISTORIES = 20_000_000
 ENGINE_OVERRIDES: dict = {}  # production_engine_config() as it is
-CAPTURE_ITERATION = 4  # the engine state before the main path's 5th iteration
-PHASE_KERNELS = ("refill", "flight_resolve", "tally")
+CAPTURE_ITERATION = 4  # the phase kernels are checked on the state before the 5th iteration
+CAPTURE_HISTORIES = 2_000_000  # the budget of a chunk of the main path
 WHOLE_ENGINE_HISTORIES = 1_000_000
 STEPWISE_HISTORIES = 200_000
 LONG_WINDOW_S = 10.0  # the long run's timed window lasts at least this
 LONG_REPEATS = 3
-LANE_WIDTHS = (65_536, 262_144, 1_048_576)
+LANE_WIDTHS = (262_144, 1_048_576)  # beside the production width
 WIDTH_HISTORIES = 200_000_000
+READ_EVERY = (1, 16)  # iterations per host read: the eager loop and the engine's default
+READ_EVERY_SWEEP = (1, 4, 8, 16, 32, 64)  # with --read-every-sweep: how the default was chosen
 PROTO_LANES = 1 << 20
 PROTO_FLIGHTS = 4
 TIMING_REPS = 20
 PROFILE_HISTORIES = (1_000_000, 3_000_000)
+PHILOX_PAIRS = 1 << 20
 
 
 def card_line() -> str:
@@ -163,8 +180,10 @@ def build(kernels, card):
     say(f"built {len(paths)} kernels in {dt:.1f} s: {', '.join(sorted(paths))}")
 
 
-def slab_scene():
-    """The golden slab's scene and engine configuration on the card."""
+def slab_scene(device=None):
+    """The golden slab's scene and engine configuration (on the card unless
+    another device is named)."""
+    device = device or DEVICE
     from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
     from cbctmc_tpu_torch.engine.tables import build_device_tables, build_woodcock_table
     from cbctmc_tpu_torch.engine.transport import EngineConfig, make_voxel_volume
@@ -181,15 +200,15 @@ def slab_scene():
     dens[:, 15:25, :] = water.density
     max_density = np.zeros(ts.n_materials, np.float32)
     np.maximum.at(max_density, mats.astype(int).reshape(-1) - 1, dens.reshape(-1))
-    tables = build_device_tables(ts, mono, device=DEVICE)
-    woodcock = build_woodcock_table(ts, max_density, device=DEVICE)
-    volume = make_voxel_volume(mats.astype(np.int32) - 1, dens, (0.5,) * 3, device=DEVICE)
+    tables = build_device_tables(ts, mono, device=device)
+    woodcock = build_woodcock_table(ts, max_density, device=device)
+    volume = make_voxel_volume(mats.astype(np.int32) - 1, dens, (0.5,) * 3, device=device)
     geom = ScanGeometry(
         n_pixels_x=32, n_pixels_z=32, detector_size_x=20.0, detector_size_z=20.0,
         sdd=60.0, sad=40.0, aperture_phi1=-1.0, aperture_phi2=-1.0, aperture_theta=-1.0,
         source_position_0=(10.0, 10.0 - 40.0, 10.0),
     )
-    source, detector = build_scan(geom, [270.0], device=DEVICE)
+    source, detector = build_scan(geom, [270.0], device=device)
     src, det = select_projection(source, 0), select_projection(detector, 0)
     cfg = EngineConfig(n_lanes=1 << 14, max_virtual_trips=8)
     return (tables, woodcock, volume, src, det), cfg
@@ -197,12 +216,12 @@ def slab_scene():
 
 def golden_slab(card, scene, cfg):
     """The JAX engine's golden slab channel sums on the card (statistical)."""
-    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.rng import make_key
     from cbctmc_tpu_torch.engine.transport import run_projection
 
     golden = json.loads((ROOT / "tests" / "golden_slab_values.json").read_text())
     sums = np.array([
-        run_projection(*scene, 120_000, make_generator(DEVICE, 1234 + k), 32, 32, config=cfg,
+        run_projection(*scene, 120_000, make_key(1234 + k), 32, 32, config=cfg,
                        device=DEVICE).double().cpu().numpy().sum(axis=(1, 2))
         for k in range(4)
     ])
@@ -219,30 +238,45 @@ INT_COUNTERS = (0, 2, 3, 4, 5, 6, 7)  # slot 8 is the tallied energy (float)
 
 
 def whole_engine(card, scene, cfg):
-    """The card's path against the plain version on the card, same seed: the
-    two draw the same bits, so they run the same iterations and count the
-    same events; the images differ by the order of their float adds."""
-    from cbctmc_tpu_torch.engine.rng import make_generator
+    """One key, four ways: the recorded graph, the eager loop with a host
+    read per iteration and the plain version, all on the card, and the plain
+    version on the CPU. The generator is exact, so all use the same random
+    words: they run the same iterations and, on the card, count the same
+    events (the images differ by the order of their float adds); the CPU's
+    transcendentals round differently from the card's, which may move a
+    handful of events across a threshold."""
+    from cbctmc_tpu_torch.engine.rng import make_key
     from cbctmc_tpu_torch.engine.transport import run_projection, run_projection_reference
 
-    out = []
-    for run in (run_projection, run_projection_reference):
-        image, extras = run(*scene, WHOLE_ENGINE_HISTORIES, make_generator(DEVICE, 5), 32, 32,
-                            config=cfg, return_stats=True, device=DEVICE)
-        out.append((image.double().sum(dim=(1, 2)).cpu().numpy(), extras["iterations"],
-                    extras["counts"].cpu().numpy()))
-    (sums_k, it_k, counts_k), (sums_p, it_p, counts_p) = out
-    rel = np.abs(sums_k - sums_p) / np.abs(sums_p)
+    cpu_scene, _ = slab_scene("cpu")
+    ways = (("graph", run_projection, scene, DEVICE, None),
+            ("eager", run_projection, scene, DEVICE, 1),
+            ("plain", run_projection_reference, scene, DEVICE, None),
+            ("plain on the CPU", run_projection_reference, cpu_scene, "cpu", None))
+    out = {}
+    for name, run, sc, dev, k in ways:
+        image, extras = run(*sc, WHOLE_ENGINE_HISTORIES, make_key(5), 32, 32, config=cfg,
+                            return_stats=True, device=dev, iterations_per_read=k)
+        out[name] = (image.double().sum(dim=(1, 2)).cpu().numpy(), extras["iterations"],
+                     extras["counts"].cpu().numpy())
     ints = list(INT_COUNTERS)
-    say(f"whole engine, {WHOLE_ENGINE_HISTORIES} histories on the slab: iterations "
-        f"{it_k} (plain {it_p}), integer counters {counts_k[ints].tolist()} (plain "
-        f"{counts_p[ints].tolist()}), channel sums rel diff {rel.tolist()}", card)
-    if it_k != it_p or not np.array_equal(counts_k[ints], counts_p[ints]):
-        raise AssertionError("whole engine: iterations or integer counters differ")
-    if counts_k[5] + counts_k[6] != WHOLE_ENGINE_HISTORIES:
-        raise AssertionError("whole engine: histories started != budget")
-    if not (rel <= 1e-4).all() or abs(counts_k[8] - counts_p[8]) > 1e-6 * counts_p[8]:
-        raise AssertionError("whole engine: channel sums beyond 1e-4 relative")
+    sums_p, it_p, counts_p = out["plain"]
+    for name, (sums, it, counts) in out.items():
+        rel = np.abs(sums - sums_p) / np.abs(sums_p)
+        d_counts = np.abs(counts[ints] - counts_p[ints])
+        say(f"whole engine, {WHOLE_ENGINE_HISTORIES} histories on the slab, {name}: iterations "
+            f"{it}, integer counters {counts[ints].tolist()}, |diff| to the plain version on "
+            f"the card {d_counts.tolist()}, channel sums rel diff {rel.tolist()}", card)
+        if it != it_p:
+            raise AssertionError(f"whole engine, {name}: {it} iterations, plain {it_p}")
+        on_cpu = name.endswith("CPU")
+        if not (d_counts <= (np.maximum(2, 1e-5 * counts_p[ints]) if on_cpu else 0)).all():
+            raise AssertionError(f"whole engine, {name}: integer counters differ")
+        if counts[5] + counts[6] != WHOLE_ENGINE_HISTORIES:
+            raise AssertionError(f"whole engine, {name}: histories started != budget")
+        energy_tol = 1e-4 if on_cpu else 1e-6
+        if not (rel <= 1e-4).all() or abs(counts[8] - counts_p[8]) > energy_tol * counts_p[8]:
+            raise AssertionError(f"whole engine, {name}: channel sums beyond 1e-4 relative")
 
 
 class Capture:
@@ -272,12 +306,35 @@ class Capture:
 
 
 def expected_phase_launches(iterations: int, cfg) -> dict:
-    """Launches of the phase kernels over ``iterations`` outer iterations:
-    one refill at the start and one after every sub-phase but the last, one
-    flight_resolve per flight, one tally."""
+    """Launches of the phase kernels that do work over ``iterations`` outer
+    iterations of the main path: one refill at the start and one after every
+    sub-phase but the last, one flight_resolve per flight (the last of an
+    iteration carries the tally, so ``tally`` itself is not launched)."""
     R = max(1, cfg.n_resolves)
     return {"refill": iterations * R, "flight_resolve": iterations * cfg.max_virtual_trips,
-            "tally": iterations}
+            "tally": 0}
+
+
+class Counted:
+    """Wraps an attribute of ``owner`` and counts its calls; ``forbid`` makes
+    a call an error."""
+
+    def __init__(self, owner, name, forbid=False):
+        self.owner, self.name, self.forbid = owner, name, forbid
+        self.fn = getattr(owner, name)
+        self.calls = 0
+        wrapper = self
+
+        def counted(*args, **kwargs):
+            wrapper.calls += 1
+            if wrapper.forbid:
+                raise AssertionError(f"{name} called on the main path")
+            return wrapper.fn(*args, **kwargs)
+
+        setattr(owner, name, counted)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.fn)
 
 
 def check_images(images, info, scanner, n_histories):
@@ -301,9 +358,6 @@ def main_path(kernels, card):
     from cbctmc_tpu_torch.geometry.phantoms import CatPhan604Geometry
 
     cfg = production_engine_config(**ENGINE_OVERRIDES)
-    # the first refill of the 5th iteration sees the state before it
-    capture = Capture(transport, "refill_phase", CAPTURE_ITERATION * max(1, cfg.n_resolves))
-    kernels.reset_launch_counts()
     t0 = time.monotonic()
     phantom = CatPhan604Geometry(shape=PHANTOM_SHAPE, image_spacing=(PHANTOM_SPACING_MM,) * 3)
     t_phantom = time.monotonic() - t0
@@ -311,28 +365,44 @@ def main_path(kernels, card):
                         engine_config=cfg, device=DEVICE)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
+    # every enqueue of k iterations is followed by one host read of the
+    # control words; the engine must not draw from torch's generator
+    reads = Counted(transport.EngineWorkspace, "advance")
+    randint = Counted(torch, "randint", forbid=True)
+    kernels.reset_launch_counts()
     images, info = scanner.simulate(angles_deg=list(MAIN_ANGLES),
                                     n_histories=MAIN_HISTORIES, seed=0, progress=False)
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
-    capture.restore()
+    launches, enqueued = dict(kernels.launch_counts), dict(kernels.enqueued_counts)
+    reads.restore()
+    randint.restore()
 
     say(f"main path set-up: {setup_s:.2f} s (CatPhan {PHANTOM_SHAPE[0]}^3 voxelisation "
         f"{t_phantom:.2f} s, scene + tables {setup_s - t_phantom:.2f} s)")
     say(f"main path: {info.n_histories} histories in {info.wall_time_s:.3f} s = "
         f"{info.histories_per_second:.6e} hist/s, {info.iterations} iterations "
         f"({info.wall_time_s / info.iterations * 1e6:.1f} us each, chunk set-up included), "
-        f"launches {launches}", card)
+        f"{reads.calls} host reads of the control words "
+        f"({transport.ITERATIONS_PER_READ} iterations enqueued per read); launches that did "
+        f"work, counted on the device {launches}; launches enqueued, counted where they are "
+        f"launched or replayed (the empty ones past the end of a call's loop included) "
+        f"{enqueued}", card)
     sums = check_images(images, info, scanner, MAIN_HISTORIES)
     say(f"channel sums [eV/cm^2/history] (primary, Compton, Rayleigh, multi): {sums.tolist()}")
     want = expected_phase_launches(info.iterations, cfg)
     for name in kernels.KERNELS:
         n = want.get(name, 0)
-        if launches[name] != n or (name in want and n == 0):
+        if launches[name] != n or (name in ("refill", "flight_resolve") and n == 0):
             raise AssertionError(f"{name}: {launches[name]} launches, expected {n}")
-    if capture.args is None:
-        raise AssertionError("no engine state captured from the main path")
-    return scanner, info, launches, capture.args[:3], setup_s
+    # every read follows one replay of k iterations, empty or not
+    k_enqueued = expected_phase_launches(reads.calls * transport.ITERATIONS_PER_READ, cfg)
+    if enqueued != {name: k_enqueued[name] for name in enqueued}:
+        raise AssertionError(f"launches enqueued {enqueued}, expected {k_enqueued} from "
+                             f"{reads.calls} replays")
+    if not (0 < reads.calls * 2 <= info.iterations) or len(scanner.workspace.graphs) != 1:
+        raise AssertionError(f"{reads.calls} host reads for {info.iterations} iterations, "
+                             f"{len(scanner.workspace.graphs)} graphs")
+    return scanner, info, launches, setup_s
 
 
 def long_runs(scanner, rate, card):
@@ -373,34 +443,56 @@ def projection_args(scanner, config=None):
     )
 
 
-def lane_widths(scanner, card):
-    """Histories/s of one drained engine call on the main path's scene at
-    three lane widths (the engine alone: no chunking, no MCScanner)."""
-    from cbctmc_tpu_torch.engine.rng import make_generator
-    from cbctmc_tpu_torch.engine.transport import production_engine_config, run_projection
+def engine_alone(scanner, card, read_every=READ_EVERY):
+    """Histories/s of one drained engine call on the main path's scene (the
+    engine alone: no chunking, no MCScanner): at the production width for
+    every number of iterations per host read (1 is the eager loop, more a
+    replayed graph of that many), then at the wider lane counts. Each call
+    follows a short one that records its graph, so the timed call replays."""
+    from cbctmc_tpu_torch.engine.rng import make_key
+    from cbctmc_tpu_torch.engine.transport import (
+        ITERATIONS_PER_READ,
+        EngineWorkspace,
+        production_engine_config,
+        run_projection,
+    )
 
-    for n_lanes in LANE_WIDTHS:
-        args = projection_args(scanner, production_engine_config(n_lanes=n_lanes))
+    production = production_engine_config(**ENGINE_OVERRIDES)
+    cases = [(production.n_lanes, k) for k in read_every]
+    cases += [(n_lanes, ITERATIONS_PER_READ) for n_lanes in LANE_WIDTHS]
+    spaces = {}
+    for n_lanes, k in cases:
+        cfg = production_engine_config(**{**ENGINE_OVERRIDES, "n_lanes": n_lanes})
+        args = projection_args(scanner, cfg)
+        if n_lanes not in spaces:
+            spaces[n_lanes] = EngineWorkspace(args["tables"], args["woodcock"], args["volume"],
+                                              args["n_pixels_x"], args["n_pixels_z"], cfg,
+                                              DEVICE)
+        ws = spaces[n_lanes]
+        run_projection(n_histories=10 * n_lanes, key=make_key(2), workspace=ws,
+                       iterations_per_read=k, **args)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        _, extras = run_projection(n_histories=WIDTH_HISTORIES,
-                                   generator=make_generator(DEVICE, 3), return_stats=True,
+        _, extras = run_projection(n_histories=WIDTH_HISTORIES, key=make_key(3),
+                                   return_stats=True, workspace=ws, iterations_per_read=k,
                                    **args)
         torch.cuda.synchronize()
         dt = time.monotonic() - t0
         counts = extras["counts"].cpu().numpy()
         if counts[5] + counts[6] != WIDTH_HISTORIES:
             raise AssertionError(f"{n_lanes} lanes: histories started != budget")
-        say(f"lane width {n_lanes}: {WIDTH_HISTORIES} histories in {dt:.3f} s = "
-            f"{WIDTH_HISTORIES / dt:.6e} hist/s, {extras['iterations']} iterations "
-            f"({dt / extras['iterations'] * 1e6:.1f} us each)", card)
+        say(f"engine alone, {n_lanes} lanes, {k} iterations per host read"
+            f"{' (eager loop)' if k == 1 else ' (graph)'}: {WIDTH_HISTORIES} histories in "
+            f"{dt:.3f} s = {WIDTH_HISTORIES / dt:.6e} hist/s, {extras['iterations']} "
+            f"iterations ({dt / extras['iterations'] * 1e6:.1f} us each)", card)
 
 
 def stepwise_path(kernels, scanner, card):
-    """The path the phase kernels replaced: the eager loop around the
-    ``flight_step`` and ``gather`` kernels, on the main path's scene at a
-    small history count. Returns its launches of those two kernels."""
-    from cbctmc_tpu_torch.engine.rng import make_generator
+    """The path the phase kernels replaced: the eager loop of plain PyTorch
+    around the ``philox_block``, ``flight_step``, ``gather`` and ``tally``
+    kernels, on the main path's scene at a small history count. Returns its
+    launches of those kernels."""
+    from cbctmc_tpu_torch.engine.rng import make_key
     from cbctmc_tpu_torch.engine.transport import run_projection_stepwise
 
     cfg = scanner.engine_config
@@ -408,8 +500,8 @@ def stepwise_path(kernels, scanner, card):
     torch.cuda.synchronize()
     t0 = time.monotonic()
     image, extras = run_projection_stepwise(
-        n_histories=STEPWISE_HISTORIES, generator=make_generator(DEVICE, 17),
-        return_stats=True, **projection_args(scanner))
+        n_histories=STEPWISE_HISTORIES, key=make_key(17), return_stats=True,
+        **projection_args(scanner))
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     launches = dict(kernels.launch_counts)
@@ -419,8 +511,8 @@ def stepwise_path(kernels, scanner, card):
         f"({dt / it * 1e3:.2f} ms each), launches {launches}", card)
     if not torch.isfinite(image).all() or counts[5] + counts[6] != STEPWISE_HISTORIES:
         raise AssertionError("stepwise path: non-finite image or histories != budget")
-    want = {"flight_step": it * cfg.max_virtual_trips,
-            "gather_probe": it * max(1, cfg.n_resolves) * 2}
+    want = {"philox_block": it, "flight_step": it * cfg.max_virtual_trips,
+            "gather_probe": it * max(1, cfg.n_resolves) * 2, "tally": it}
     for name in kernels.KERNELS:
         if launches[name] != want.get(name, 0) or (name in want and not launches[name]):
             raise AssertionError(f"stepwise path, {name}: {launches[name]} launches, "
@@ -428,16 +520,40 @@ def stepwise_path(kernels, scanner, card):
     return {k: launches[k] for k in want}
 
 
+def state_before_an_iteration(scanner):
+    """``(consts, state)`` of an engine call on the main path's scene after
+    CAPTURE_ITERATION outer iterations (through the phase kernels), ready to
+    run the next one."""
+    import dataclasses
+
+    from cbctmc_tpu_torch.engine import transport
+    from cbctmc_tpu_torch.engine.rng import make_key
+
+    cfg = dataclasses.replace(scanner.engine_config, max_outer_iterations=CAPTURE_ITERATION)
+    args = projection_args(scanner, cfg)
+    ws = transport.EngineWorkspace(args["tables"], args["woodcock"], args["volume"],
+                                   args["n_pixels_x"], args["n_pixels_z"], cfg, DEVICE)
+    transport.run_projection(n_histories=CAPTURE_HISTORIES, key=make_key(0, 0, 0),
+                             workspace=ws, iterations_per_read=1, **args)
+    st = ws.state.clone()
+    if int(st.ctrl[transport.CTRL_ITERATION]) != CAPTURE_ITERATION:
+        raise AssertionError("the captured call did not stop at the iteration limit")
+    st.ctrl[transport.CTRL_MAX_ITERATIONS] = 1 << 30
+    st.ctrl[transport.CTRL_RUN] = 1
+    return ws.consts, st
+
+
 def single_kernel_inputs(captured):
     """Inputs of ``flight_step`` and ``gather`` at the main path's shapes,
-    derived from the engine state captured before an iteration: the lanes
-    after that iteration's refill with its flight uniforms, and the knot
-    indices of its first resolve."""
+    derived from the engine state before an iteration: the lanes after that
+    iteration's refill with its flight uniforms, and the knot indices of its
+    first resolve."""
     from cbctmc_tpu_torch.engine import transport
     from cbctmc_tpu_torch.engine.rng import uniform_from_bits
 
-    C, st, bits = captured
+    C, st = captured
     st = st.clone()
+    bits = transport.iteration_bits(C, st)
     transport.refill_phase_reference(C, st, bits, C.rows.refill, True)
     u = uniform_from_bits(bits[C.rows.flight : C.rows.flight + 2])
     flight_args = (st.lanes, st.cand, u[0].contiguous(), u[1].contiguous(), C.flight,
@@ -446,6 +562,56 @@ def single_kernel_inputs(captured):
     transport.flight_resolve_phase_reference(C, st.clone(), bits, 0, gather_fn=cap)
     cap.restore()
     return flight_args, cap.args
+
+
+def check_philox(kernels, card, cfg):
+    """Philox4x32-10 in a kernel against the plain version: the three
+    known-answer vectors, PHILOX_PAIRS random (counter, key) pairs, and the
+    block of one iteration of the production configuration (every word
+    equal; the generator is integer arithmetic). The block's time stands
+    beside ``torch.randint`` of the same shape, which filled it before."""
+    from cbctmc_tpu_torch.engine.rng import make_key, philox4x32_10, philox_bits
+    from cbctmc_tpu_torch.engine.transport import bits_row_map
+
+    vectors = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+         (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    counters = torch.tensor([v[0] for v in vectors], dtype=torch.int64, device=DEVICE)
+    keys = torch.tensor([v[1] for v in vectors], dtype=torch.int64, device=DEVICE)
+    if kernels.philox_words(counters, keys).tolist() != [list(v[2]) for v in vectors]:
+        raise AssertionError("philox: a known-answer vector differs")
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    counters = torch.randint(0, 1 << 32, (PHILOX_PAIRS, 4), generator=g, device=DEVICE)
+    keys = torch.randint(0, 1 << 32, (PHILOX_PAIRS, 2), generator=g, device=DEVICE)
+    want = torch.stack(philox4x32_10(counters.unbind(1), keys.unbind(1)), dim=1)
+    n_off = int((kernels.philox_words(counters, keys) != want).sum())
+    n_rows, n, key = bits_row_map(cfg).n_rows, cfg.n_lanes, make_key(0, 0, 0)
+    out = torch.empty((n_rows, n), dtype=torch.int64, device=DEVICE)
+    kernels.philox_block(key, 4, n_rows, n, DEVICE, out=out)
+    n_off += int((out != philox_bits(key, 4, n_rows, n, DEVICE)).sum())
+    n_off += int((out.cpu() != philox_bits(key, 4, n_rows, n, "cpu")).sum())
+    if n_off:
+        raise AssertionError(f"philox: {n_off} words differ from the plain version")
+    ms = kernel_ms([lambda: kernels.philox_block(key, 4, n_rows, n, DEVICE, out=out)]
+                   * (TIMING_REPS + 1), "philox_block")
+    plain = [lambda: philox_bits(key, 4, n_rows, n, DEVICE, out=out)] * 6
+    p_ms, p_run = kernel_ms(plain, None), as_run_ms(plain)
+    lib_ms = kernel_ms([lambda: torch.randint(0, 1 << 32, (n_rows, n), generator=g, out=out)]
+                       * (TIMING_REPS + 1), None)
+    # nothing read, every word written once; one Philox call (10 rounds of 2
+    # wide products, 4 xors, 2 adds) per 4 words, counted at the fp32 rate
+    n_bytes = out.numel() * 8
+    b_ms, b_by = bound(n_bytes, out.numel() / 4 * 10 * 10)
+    say(f"philox: 3 known-answer vectors, {PHILOX_PAIRS} random (counter, key) pairs and the "
+        f"{n_rows} x {n} block (card and CPU plain versions): every word equal; philox_block "
+        f"{ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; torch.randint of the same block "
+        f"{lib_ms:.5f}; bound {b_ms:.6f} by {b_by}: {n_bytes} B)", card)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def check_gather(kernels, card, gather_args):
@@ -627,17 +793,18 @@ PHASE_IMAGE_TOL = 1e-5  # relative, image sums
 
 def phase_steps(C):
     """The phases of one outer iteration in the order they run:
-    ``(kernel, label, call(phases, state, bits))``."""
+    ``(kernel, label, call(phases, state))``; the last flight_resolve
+    carries the tally."""
     R = max(1, C.config.n_resolves)
     steps = [("refill", "refill + candidates",
-              lambda ph, st, bits: ph.refill(C, st, bits, C.rows.refill, True))]
+              lambda ph, st: ph.refill(C, st, C.rows.refill, True))]
     for r in range(R):
-        steps.append(("flight_resolve", f"flight_resolve {r}",
-                      lambda ph, st, bits, r=r: ph.flight_resolve(C, st, bits, r)))
-        if r < R - 1:
-            steps.append(("refill", f"mid refill {r}", lambda ph, st, bits, r=r: ph.refill(
-                C, st, bits, C.rows.mid[r], False)))
-    steps.append(("tally", "tally", lambda ph, st, bits: ph.tally(C, st)))
+        last = r == R - 1
+        steps.append(("flight_resolve", f"flight_resolve {r}" + " + tally" * last,
+                      lambda ph, st, r=r, last=last: ph.flight_resolve(C, st, r, last)))
+        if not last:
+            steps.append(("refill", f"mid refill {r}",
+                          lambda ph, st, r=r: ph.refill(C, st, C.rows.mid[r], False)))
     return steps
 
 
@@ -665,24 +832,44 @@ def state_diff(got, want):
     return bad, bad_fields, err, err_field, off, touched
 
 
+PHILOX_OPS = 100  # one call: 10 rounds of 2 wide products, 4 xors, 2 adds
+
+
 def phase_bound(kernel, before, after, C) -> tuple:
     """The least bytes and operations of one phase launch on this state
     (each input read once, each output written once; data-dependent parts
-    counted from the outcome)."""
+    counted from the outcome). Random numbers cost no bytes: they are Philox
+    calls, counted as operations."""
     L0, L1 = before.lanes, after.lanes
     n = C.n_lanes
     I = C.flight.ints
     d_counts = (after.counters - before.counters).tolist()
     n_blocks = before.block_dead.numel()
-    words = 16 + 4 * n_blocks  # control words, per-block dead counts
+    # control words, per-block dead counts, the two parameter structs
+    words = 16 * 4 + 4 * n_blocks + 512
+    state = 16 * 4 + 5  # a lane's words and flags
+
+    def tally_bytes(alive_before):
+        """What scoring the records adds. A lane whose state the launch has
+        not read yet (dead at its start; for the tally kernel every lane):
+        its stash flag, 32 B of a parked record (position, direction,
+        energy, scatter class), 8 B of a stashed one, 8 B where a stash is
+        left and the flag where it is cleared. Every record: 8 B of image."""
+        unread = ~alive_before
+        parked = int((unread & L0.escaped).sum())
+        stashed = int((unread & L0.stash_valid).sum())
+        kept = int((unread & L1.stash_valid).sum())
+        return (int(unread.sum()) + parked * 32 + stashed * 8 + kept * 8 + (stashed - kept)
+                + d_counts[0] * 8)
+
     if kernel == "refill":
         with_cand = bool((after.cand.energy != before.cand.energy).any())
         started = int((L1.alive & ~L0.alive).sum())
-        n_bytes = n + started * (8 * 6 + 4 * 11 + 2) + C.spec.numel() * 4 + words
-        n_ops = started * 120
-        if with_cand:  # every lane: 6 rows of bits, 8 candidate words, 2 flags
-            n_bytes += n * (8 * 6 + 4 * 8 + 2)
-            n_ops += n * 120
+        n_bytes = n + started * (4 * 11 + 2) + C.spec.numel() * 4 + words
+        n_ops = started * (120 + 2 * PHILOX_OPS)
+        if with_cand:  # every lane: 8 candidate words, 2 flags
+            n_bytes += n * (4 * 8 + 2)
+            n_ops += n * (120 + 2 * PHILOX_OPS)
         else:
             n_bytes += int((~L0.alive).sum())  # the parked-record flag of dead lanes
         what = f"{started} histories started" + (", candidates for every lane" * with_cand)
@@ -690,89 +877,120 @@ def phase_bound(kernel, before, after, C) -> tuple:
         alive = int(L0.alive.sum())
         active = int((L0.alive & ~L0.pending).sum())
         n_c, n_r, n_p, adopted = (d_counts[k] for k in (2, 3, 4, 6))
+        with_tally = int(after.ctrl[5]) != int(before.ctrl[5])  # the iteration word moved
         d = I["cheb_d"]
-        state = 16 * 4 + 5  # a lane's words and flags
-        n_bytes = (2 * (n - alive) + alive * 2 * state + active * (16 + 4)
-                   + (n_c + n_r) * (3 * 8 + 2 * 4) + n_c * 3 * 8 + adopted * 32
+        n_bytes = (2 * (n - alive) + alive * 2 * state + active * 4
+                   + (n_c + n_r) * 2 * 4 + adopted * 32
                    + (C.flight.coeffs.numel() + C.shells.numel()) * 4 + words)
         clenshaw = 4 * (d - 1) + 4
-        n_ops = (active * (3 * 2 * I["poly_len"] + 3 * clenshaw + 120)
-                 + (n_c + n_r + n_p) * (2 * clenshaw + 40) + (n_c + n_r) * 80
-                 + n_c * (C.shells.shape[2] * 40 + 60))
+        n_ops = (active * (3 * 2 * I["poly_len"] + 3 * clenshaw + 120 + PHILOX_OPS)
+                 + (n_c + n_r + n_p) * (2 * clenshaw + 40) + (n_c + n_r) * (80 + 2 * PHILOX_OPS)
+                 + n_c * (C.shells.shape[2] * 40 + 60 + PHILOX_OPS))
         what = (f"{active} flights, {n_c} Compton, {n_r} Rayleigh, {n_p} photoelectric, "
                 f"{adopted} adoptions")
+        if with_tally:
+            n_bytes += tally_bytes(L0.alive)
+            n_ops += int(L1.escaped.sum()) * 40
+            what += f", {d_counts[0]} records tallied"
     else:
-        parked = int(L0.escaped.sum())
-        stashed = int(L0.stash_valid.sum())
-        records = d_counts[0]
-        kept = int(L1.stash_valid.sum())
-        n_bytes = (3 * n + parked * 32 + stashed * 8 + records * 8 + kept * 8
-                   + (stashed - kept) + words)
-        n_ops = parked * 40
-        what = f"{records} records tallied, {parked} parked, {stashed} stashed"
+        n_bytes = 2 * n + tally_bytes(torch.zeros_like(L0.alive)) + words
+        n_ops = int(L0.escaped.sum()) * 40
+        what = (f"{d_counts[0]} records tallied, {int(L0.escaped.sum())} parked, "
+                f"{int(L0.stash_valid.sum())} stashed")
     return n_bytes, n_ops, what
 
 
+def compare_phase(card, label, call, engine, plain, st, n):
+    """Run one phase through the kernel and through the plain version on
+    clones of ``st``; returns ``(plain outcome, max float diff)``."""
+    got, want = st.clone(), st.clone()
+    call(engine, got)
+    call(plain, want)
+    torch.cuda.synchronize()
+    bad, bad_fields, err, err_field, off, touched = state_diff(got, want)
+    n_bad, n_off = int(bad.sum()), int((off & ~bad).sum())
+    host_words = [0, 1, 5, 6]  # budget, live, iteration, run
+    words_equal = (torch.equal(got.ctrl[host_words], want.ctrl[host_words])
+                   and torch.equal(got.block_dead, want.block_dead)
+                   and torch.equal(got.counters, want.counters))
+    sum_k, sum_p = float(got.image.double().sum()), float(want.image.double().sum())
+    image_rel = abs(sum_k - sum_p) / max(abs(sum_p), 1e-30)
+    e_k, e_p = float(got.energy), float(want.energy)
+    say(f"{label}: {n_bad} lanes differ in an integer or flag field {bad_fields}, "
+        f"{n_off} more beyond {PHASE_FLOAT_TOL:g} * (1 + |value|); max float diff "
+        f"{err:.3e} ({err_field or 'none'}); float fields not bit-equal: "
+        f"{touched or 'none'}; budget, live, iteration and run words, per-block dead counts "
+        f"and counters {'equal' if words_equal else 'DIFFER'}; image sum rel diff "
+        f"{image_rel:.3e}", card)
+    if n_bad + n_off > PHASE_LANE_SHARE * n:
+        raise AssertionError(f"{label}: {n_bad + n_off} lanes part from the plain version")
+    if not words_equal and n_bad == 0:
+        raise AssertionError(f"{label}: control words or counters differ")
+    if image_rel > PHASE_IMAGE_TOL or abs(e_k - e_p) > PHASE_IMAGE_TOL * max(e_p, 1.0):
+        raise AssertionError(f"{label}: image sums differ by {image_rel:.3e}")
+    return want, err
+
+
+def time_phase(card, kernel, label, call, engine, plain, st, want, C):
+    """Device time of one phase launch (fresh clones: a phase updates its
+    state in place) beside its plain version and its bound."""
+    reps = [st.clone() for _ in range(TIMING_REPS + 1)]
+    ms = kernel_ms([(lambda s=s: call(engine, s)) for s in reps], kernel)
+    reps = [st.clone() for _ in range(5)]
+    plain_calls = [(lambda s=s: call(plain, s)) for s in reps]
+    p_ms = kernel_ms(plain_calls[:3], None)
+    p_run = as_run_ms(plain_calls[2:])
+    n_bytes, n_ops, what = phase_bound(kernel, st, want, C)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    say(f"{label}: {what}; {ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; bound "
+        f"{b_ms:.6f} by {b_by}: {n_bytes} B, {n_ops} ops)", card)
+    return dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def check_phases(kernels, card, captured):
-    """Each phase kernel against its plain version on the state captured
-    before an iteration of the main path, phase after phase: both sides get
-    the plain version's output of the phase before."""
+    """Each phase kernel against its plain version on the state before an
+    iteration, phase after phase: both sides get the plain version's output
+    of the phase before. The stand-alone tally runs on the state the last
+    flight_resolve leaves when it does not carry the tally."""
     from cbctmc_tpu_torch.engine import transport
 
-    C, st, bits = captured
+    C, st = captured
     n = C.n_lanes
     engine, plain = transport._engine_phases(), transport._plain_phases()
-    results, timed = {}, set()
-    for kernel, label, call in phase_steps(C):
-        got, want = st.clone(), st.clone()
-        call(engine, got, bits)
-        call(plain, want, bits)
-        torch.cuda.synchronize()
-        bad, bad_fields, err, err_field, off, touched = state_diff(got, want)
-        n_bad, n_off = int(bad.sum()), int((off & ~bad).sum())
-        words_equal = (torch.equal(got.ctrl[:2], want.ctrl[:2])
-                       and torch.equal(got.block_dead, want.block_dead)
-                       and torch.equal(got.counters, want.counters))
-        sum_k, sum_p = float(got.image.double().sum()), float(want.image.double().sum())
-        image_rel = abs(sum_k - sum_p) / max(abs(sum_p), 1e-30)
-        e_k, e_p = float(got.energy), float(want.energy)
-        say(f"{label}: {n_bad} lanes differ in an integer or flag field {bad_fields}, "
-            f"{n_off} more beyond {PHASE_FLOAT_TOL:g} * (1 + |value|); max float diff "
-            f"{err:.3e} ({err_field or 'none'}); float fields not bit-equal: "
-            f"{touched or 'none'}; budget, live word, per-block dead counts and counters "
-            f"{'equal' if words_equal else 'DIFFER'}; image sum rel diff {image_rel:.3e}", card)
-        if n_bad + n_off > PHASE_LANE_SHARE * n:
-            raise AssertionError(f"{label}: {n_bad + n_off} lanes part from the plain version")
-        if not words_equal and n_bad == 0:
-            raise AssertionError(f"{label}: control words or counters differ")
-        if image_rel > PHASE_IMAGE_TOL or abs(e_k - e_p) > PHASE_IMAGE_TOL * max(e_p, 1.0):
-            raise AssertionError(f"{label}: image sums differ by {image_rel:.3e}")
-
-        # time the launch (fresh clones: a phase updates its state in place)
-        reps = [st.clone() for _ in range(TIMING_REPS + 1)]
-        ms = kernel_ms([(lambda s=s: call(engine, s, bits)) for s in reps], kernel)
-        reps = [st.clone() for _ in range(5)]
-        plain_calls = [(lambda s=s: call(plain, s, bits)) for s in reps]
-        p_ms = kernel_ms(plain_calls[:3], None)
-        p_run = as_run_ms(plain_calls[2:])
-        n_bytes, n_ops, what = phase_bound(kernel, st, want, C)
-        b_ms, b_by = bound(n_bytes, n_ops)
-        say(f"{label}: {what}; {ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; bound "
-            f"{b_ms:.6f} by {b_by}: {n_bytes} B, {n_ops} ops)", card)
-        if kernel == "flight_resolve" and kernel not in timed:
+    results = {}
+    steps = phase_steps(C)
+    for kernel, label, call in steps:
+        want, err = compare_phase(card, label, call, engine, plain, st, n)
+        timing = time_phase(card, kernel, label, call, engine, plain, st, want, C)
+        if kernel == "flight_resolve" and kernel not in results:
             # the same launch without the resolve: what the resolve (the only
             # part where lanes of a warp part ways for long) adds to the flight
             reps = [st.clone() for _ in range(TIMING_REPS + 1)]
             flight_ms = kernel_ms([
-                (lambda s=s: kernels.launch_flight_resolve(C, s, bits, C.rows.flight, -1))
+                (lambda s=s: kernels.launch_flight_resolve(C, s, C.rows.flight, -1))
                 for s in reps], kernel)
             say(f"{label}: the flight alone in this kernel {flight_ms:.5f} ms, so the resolve "
                 f"of {sum((want.counters - st.counters)[2:5].tolist())} pending lanes adds "
-                f"{ms - flight_ms:.5f} ms", card)
-        if kernel not in timed:  # the row is the first launch of its kind in the iteration
-            timed.add(kernel)
-            results[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
-                                   bound_by=b_by, library_ms=None)
+                f"{timing['ms'] - flight_ms:.5f} ms", card)
+        if label == steps[-1][1]:
+            # the tally as a launch of its own, and what folding it saves
+            R = max(1, C.config.n_resolves)
+            no_tally = lambda ph, s: ph.flight_resolve(C, s, R - 1, False)
+            before_tally, _ = compare_phase(card, f"flight_resolve {R - 1} without the tally",
+                                            no_tally, engine, plain, st, n)
+            bare = time_phase(card, kernel, f"flight_resolve {R - 1} without the tally",
+                              no_tally, engine, plain, st, before_tally, C)
+            alone = lambda ph, s: (transport.tally_phase if ph is engine
+                                   else transport.tally_phase_reference)(C, s)
+            after_tally, t_err = compare_phase(card, "tally", alone, engine, plain,
+                                               before_tally, n)
+            results["tally"] = dict(max_abs_err=t_err, **time_phase(
+                card, "tally", "tally", alone, engine, plain, before_tally, after_tally, C))
+            say(f"the tally folded into flight_resolve adds {timing['ms'] - bare['ms']:.5f} ms "
+                f"to that launch; as a launch of its own it takes "
+                f"{results['tally']['ms']:.5f} ms", card)
+        if kernel not in results:  # the row is the first launch of its kind in the iteration
+            results[kernel] = dict(max_abs_err=err, **timing)
         else:
             results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
         st = want
@@ -780,64 +998,70 @@ def check_phases(kernels, card, captured):
 
 
 def profile_engine(scanner, card):
-    """Two profiled drained engine calls of different length on the main
-    path's scene: device operations per outer iteration from their
-    difference (set-up and drain cancel), busy share and device time by
-    kernel from the longer one."""
+    """Profiled drained engine calls on the main path's scene. Two eager
+    ones (one host read per iteration) of different length: device
+    operations per outer iteration from their difference (set-up and drain
+    cancel) and device time by kernel from the longer one. Then the longer
+    one through the recorded graph, the main path's way: the busy share of
+    the device there, if the profiler sees the kernels of a replay."""
     from torch.profiler import ProfilerActivity, profile
 
-    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.rng import make_key
     from cbctmc_tpu_torch.engine.transport import run_projection
 
     args = projection_args(scanner)
-    runs = []
-    for n_histories in PROFILE_HISTORIES:
+    ws = scanner.workspace
+
+    def profiled(n_histories, k):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            _, extras = run_projection(n_histories=n_histories,
-                                       generator=make_generator(DEVICE, 99),
-                                       return_stats=True, **args)
+            _, extras = run_projection(n_histories=n_histories, key=make_key(99),
+                                       return_stats=True, workspace=ws,
+                                       iterations_per_read=k, **args)
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
         by_name = {}
         for name, t_us in device_events(prof):
             tot, cnt = by_name.get(name, (0.0, 0))
             by_name[name] = (tot + t_us, cnt + 1)
-        runs.append((extras["iterations"], sum(c for _, c in by_name.values()), wall_us,
-                     by_name))
-    (it_a, ops_a, _, _), (it_b, ops_b, wall_us, by_name) = runs
+        return extras["iterations"], sum(c for _, c in by_name.values()), wall_us, by_name
+
+    (it_a, ops_a, _, _), (it_b, ops_b, wall_us, by_name) = (
+        profiled(n, 1) for n in PROFILE_HISTORIES)
     ops_per_iteration = (ops_b - ops_a) / (it_b - it_a)
     busy = sum(t for t, _ in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    lines = [f"{PROFILE_HISTORIES[1]} histories, {it_b} iterations: wall {wall_us:.0f} us "
-             f"({wall_us / it_b:.1f} us per iteration under the profiler), device busy "
-             f"{busy:.0f} us (busy share {busy / wall_us:.4f}, idle {1 - busy / wall_us:.4f}), "
-             f"{ops_b} device ops; {ops_per_iteration:.2f} device ops per outer iteration "
+    lines = [f"eager loop, {PROFILE_HISTORIES[1]} histories, {it_b} iterations: wall "
+             f"{wall_us:.0f} us ({wall_us / it_b:.1f} us per iteration under the profiler), "
+             f"device busy {busy:.0f} us ({busy / it_b:.1f} us per iteration; busy share "
+             f"{busy / wall_us:.4f}, idle {1 - busy / wall_us:.4f}), {ops_b} device ops; "
+             f"{ops_per_iteration:.2f} device ops per outer iteration "
              f"(({ops_b} - {ops_a}) ops / ({it_b} - {it_a}) iterations)  [{card}]"]
     lines += [f"{t:12.1f} us {c:7d}x  {name[:110]}" for name, (t, c) in rows]
+
+    it_g, ops_g, wall_g, by_name_g = profiled(PROFILE_HISTORIES[1], None)
+    busy_g = sum(t for t, _ in by_name_g.values())
+    if it_g != it_b:
+        raise AssertionError(f"graph {it_g} iterations, eager loop {it_b}")
+    lines.append(
+        f"graph, {PROFILE_HISTORIES[1]} histories, {it_g} iterations: wall {wall_g:.0f} us "
+        f"({wall_g / it_g:.1f} us per iteration under the profiler), device busy "
+        f"{busy_g:.0f} us in {ops_g} device ops the profiler saw"
+        + (f" (busy share {busy_g / wall_g:.4f}, idle {1 - busy_g / wall_g:.4f})" if ops_g
+           else " (the profiler does not see a replay's kernels)") + f"  [{card}]")
+    lines += [f"{t:12.1f} us {c:7d}x  {name[:110]}"
+              for name, (t, c) in sorted(by_name_g.items(), key=lambda kv: -kv[1][0])]
     OUT.mkdir(exist_ok=True)
     (OUT / "profile_main_path.txt").write_text("\n".join(lines) + "\n")
     say(f"profile: {lines[0]}")
-    for line in lines[1:9]:
+    for line in lines[1:7]:
         say(f"profile: {line}")
-    if ops_per_iteration > 10:
+    say(f"profile: {lines[len(rows) + 1]}")
+    # 4 launches and the 64-byte read of the control words
+    if ops_per_iteration > 6:
         raise AssertionError(f"{ops_per_iteration:.2f} device operations per outer iteration")
-
-    # the draw of the iteration's bits, as the engine makes it and as int32
-    cfg = scanner.engine_config
-    from cbctmc_tpu_torch.engine.transport import bits_row_map
-
-    shape = (bits_row_map(cfg).n_rows, cfg.n_lanes)
-    g = make_generator(DEVICE, 1)
-    out64 = torch.empty(shape, dtype=torch.int64, device=DEVICE)
-    out32 = torch.empty(shape, dtype=torch.int32, device=DEVICE)
-    draw64 = [lambda: torch.randint(0, 1 << 32, shape, generator=g, out=out64)] * (TIMING_REPS + 1)
-    draw32 = [lambda: torch.randint(-(1 << 31), 1 << 31, shape, generator=g,
-                                    out=out32)] * (TIMING_REPS + 1)
-    say(f"bits block {shape[0]} x {shape[1]}: randint int64 {kernel_ms(draw64, None):.5f} ms "
-        f"({out64.numel() * 8} B), int32 {kernel_ms(draw32, None):.5f} ms "
-        f"({out32.numel() * 4} B)", card)
+    return busy / it_b
 
 
 def main() -> int:
@@ -846,6 +1070,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from cbctmc_tpu_torch.engine import kernels
+    from cbctmc_tpu_torch.engine.transport import production_engine_config
 
     t_start = time.monotonic()
     card = card_line()
@@ -855,31 +1080,37 @@ def main() -> int:
     if kernels.probe_gather(DEVICE) is not True:
         raise AssertionError("probe_gather('cuda') is False")
     say("probe_gather('cuda'): True")
+    philox = check_philox(kernels, card, production_engine_config(**ENGINE_OVERRIDES))
     scene, slab_cfg = slab_scene()
     golden_slab(card, scene, slab_cfg)
     whole_engine(card, scene, slab_cfg)
-    scanner, info, launches, captured, setup_s = main_path(kernels, card)
+    scanner, info, launches, setup_s = main_path(kernels, card)
     long_rate = long_runs(scanner, info.histories_per_second, card)
-    lane_widths(scanner, card)
+    sweep = "--read-every-sweep" in sys.argv[1:]
+    engine_alone(scanner, card, READ_EVERY_SWEEP if sweep else READ_EVERY)
     launches.update(stepwise_path(kernels, scanner, card))
 
+    captured = state_before_an_iteration(scanner)
     flight_args, gather_args = single_kernel_inputs(captured)
     results = {
         "gather_probe": check_gather(kernels, card, gather_args),
         "flight_prototype": check_flight_prototype(kernels, card, scanner),
         "flight_step": check_flight_step(kernels, card, flight_args),
+        "philox_block": philox,
         **check_phases(kernels, card, captured),
     }
-    profile_engine(scanner, card)
+    busy_us = profile_engine(scanner, card)
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
+    jax_engine = "cbctmc_tpu/engine/transport.py"
     meta = {
         "gather_probe": ("gather_probe.cu", f"{pallas}:33"),
         "flight_prototype": ("flight_prototype.cu", f"{pallas}:63"),
         "flight_step": ("flight_step.cu", f"{pallas}:63"),
-        "refill": ("refill.cu", "cbctmc_tpu/engine/transport.py:816"),
+        "refill": ("refill.cu", f"{jax_engine}:816"),
         "flight_resolve": ("flight_resolve.cu", f"{pallas}:63"),
-        "tally": ("tally.cu", "cbctmc_tpu/engine/transport.py:1160"),
+        "tally": ("tally.cu", f"{jax_engine}:1160"),
+        "philox_block": ("philox_block.cu", f"{jax_engine}:794"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"cbctmc_tpu_torch/csrc/{meta[name][0]}",
@@ -887,8 +1118,9 @@ def main() -> int:
         for name in kernels.KERNELS
     ]}
     say(f"end to end: {info.histories_per_second:.6e} hist/s (2 views x {MAIN_HISTORIES}), "
-        f"long runs median {long_rate:.6e} hist/s, set-up {setup_s:.2f} s, "
-        f"whole script {time.monotonic() - t_start:.1f} s", card)
+        f"long runs median {long_rate:.6e} hist/s, device busy {busy_us:.1f} us per outer "
+        f"iteration, set-up {setup_s:.2f} s, whole script {time.monotonic() - t_start:.1f} s",
+        card)
     print(json.dumps(line))
     print(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

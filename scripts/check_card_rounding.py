@@ -10,7 +10,15 @@ Prints, on one CUDA card:
    PyTorch computes there for ``tensor / python_scalar``;
 2. ``expf`` / ``logf`` compiled by ``nvcc`` with ``-fmad=false`` and with
    ``-fmad=true`` against ``torch.exp`` / ``torch.log``, and a product-sum
-   ``1 - e * 3`` that contraction does change.
+   ``1 - e * 3`` that contraction does change;
+3. the kernels' map from a Philox word to a uniform
+   (``csrc/philox.cuh`` ``uniform_from_word``) against
+   ``rng.uniform_from_bits`` on 2^20 words: the one float step between the
+   exact integer generator and the samplers;
+4. ``torch.sin`` / ``cos`` / ``log`` / ``exp`` / ``expm1`` on the card
+   against the same on the CPU, on 2^20 inputs in the ranges the engine
+   feeds them: where they differ, the plain version on the CPU may take
+   another branch than the card on a lane that sits on a threshold.
 
 Usage: ``python3 scripts/check_card_rounding.py`` (needs ``nvcc``).
 """
@@ -25,6 +33,15 @@ import torch
 
 SOURCE = r"""
 #include <cuda_runtime.h>
+#include "philox.cuh"
+__global__ void u(const long long* w, float* out, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = uniform_from_word((uint32_t)w[i]);
+}
+extern "C" int run_u(const long long* w, float* out, int n) {
+  u<<<(n + 255) / 256, 256>>>(w, out, n);
+  return (int)cudaDeviceSynchronize();
+}
 __global__ void k(const float* x, float* e, float* l, float* s, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) { e[i] = expf(x[i]); l[i] = logf(-x[i] + 1e-3f); s[i] = 1.0f - e[i] * 3.0f; }
@@ -40,7 +57,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from cbctmc_tpu_torch.engine.kernels import _nvcc
+    from cbctmc_tpu_torch.engine.kernels import CSRC, _nvcc
+    from cbctmc_tpu_torch.engine.rng import uniform_from_bits
 
     n = 1 << 20
     g = torch.Generator().manual_seed(0)
@@ -60,7 +78,7 @@ def main() -> int:
             lib_path = Path(tmp) / f"round_{fmad}.so"
             subprocess.run(
                 [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", f"-fmad={fmad}",
-                 "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)],
+                 "-I", str(CSRC), "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)],
                 check=True, timeout=300)
             lib = ctypes.CDLL(str(lib_path))
             lib.run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
@@ -70,8 +88,28 @@ def main() -> int:
             if err:
                 raise RuntimeError(f"CUDA error {err}")
             diffs = [int((u != v).sum()) for u, v in zip(got, want)]
+            if fmad == "false":  # the kernels' build
+                g = torch.Generator(device="cuda").manual_seed(1)
+                words = torch.randint(0, 1 << 32, (n,), generator=g, device="cuda")
+                words[:4] = torch.tensor([0, 255, (1 << 32) - 256, (1 << 32) - 1])
+                uniforms = torch.empty(n, device="cuda")
+                lib.run_u.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                lib.run_u.restype = ctypes.c_int
+                err = lib.run_u(words.data_ptr(), uniforms.data_ptr(), n)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
+                plain = uniform_from_bits(words)
+                print(f"uniform_from_word differs from rng.uniform_from_bits on "
+                      f"{int((uniforms != plain).sum())} of {n} words (on the CPU's on "
+                      f"{int((uniforms.cpu() != uniform_from_bits(words.cpu())).sum())})")
             print(f"-fmad={fmad}: expf differs from torch.exp on {diffs[0]}, logf from "
                   f"torch.log on {diffs[1]}, 1 - e * 3 from torch's on {diffs[2]} of {n}")
+    angle = torch.rand(n, generator=torch.Generator().manual_seed(2)) * 6.2831855
+    ranges = (("sin", torch.sin, angle), ("cos", torch.cos, angle),
+              ("log", torch.log, -x.cpu() + 1e-3), ("exp", torch.exp, x.cpu()),
+              ("expm1", torch.expm1, x.cpu() / 12.0))
+    differ = [f"{name} {int((fn(t.cuda()).cpu() != fn(t)).sum())}" for name, fn, t in ranges]
+    print(f"torch on the card differs from torch on the CPU on: {', '.join(differ)} of {n}")
     print(torch.cuda.get_device_name(0))
     return 0
 

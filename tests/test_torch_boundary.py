@@ -102,7 +102,7 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
 
 def test_run_projection_defaults_to_cuda(monkeypatch):
     from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
-    from cbctmc_tpu_torch.engine.rng import make_generator
+    from cbctmc_tpu_torch.engine.rng import make_key
     from cbctmc_tpu_torch.engine.tables import build_device_tables
     from cbctmc_tpu_torch.engine.transport import EngineConfig, make_scene, run_projection
     from cbctmc_tpu_torch.physics.materials import default_material_set
@@ -120,7 +120,7 @@ def test_run_projection_defaults_to_cuda(monkeypatch):
     )
     src, det = build_scan(geom, [270.0], device="cpu")
     args = (tables, woodcock, volume, select_projection(src, 0), select_projection(det, 0),
-            100, make_generator("cpu", 0), 4, 4)
+            100, make_key(0), 4, 4)
     cfg = EngineConfig(n_lanes=64, max_virtual_trips=2)
     image = run_projection(*args, config=cfg, device="cpu")
     assert image.shape == (4, 4, 4)

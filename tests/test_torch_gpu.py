@@ -12,7 +12,7 @@ import torch
 from cbctmc_tpu_torch.engine import kernels
 from cbctmc_tpu_torch.engine.kernels import FlightLanes
 from cbctmc_tpu_torch.engine import transport
-from cbctmc_tpu_torch.engine.rng import make_generator
+from cbctmc_tpu_torch.engine.rng import make_key, philox4x32_10, philox_bits
 from torch_kernel_inputs import (
     clone_lanes,
     prototype_inputs,
@@ -75,6 +75,36 @@ def test_flight_step_kernel_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Philox in a kernel: exact, so every word must equal the plain version's
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_philox_kernel_on_card(cuda):
+    vectors = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+         (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    counters = torch.tensor([v[0] for v in vectors], dtype=torch.int64, device=cuda)
+    keys = torch.tensor([v[1] for v in vectors], dtype=torch.int64, device=cuda)
+    assert kernels.philox_words(counters, keys).tolist() == [list(v[2]) for v in vectors]
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    counters = torch.from_numpy(rng.integers(0, 1 << 32, (n, 4), dtype=np.int64)).to(cuda)
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, (n, 2), dtype=np.int64)).to(cuda)
+    want = torch.stack(philox4x32_10(counters.unbind(1), keys.unbind(1)), dim=1)
+    assert torch.equal(kernels.philox_words(counters, keys), want)
+    # the block of an iteration, as the stepwise path draws it
+    before = kernels.launch_counts["philox_block"]
+    key = make_key(3, 1, 4)
+    got = kernels.philox_block(key, 12_345, 76, 10_007, cuda)
+    assert kernels.launch_counts["philox_block"] == before + 1
+    assert torch.equal(got, philox_bits(key, 12_345, 76, 10_007, cuda))
+    assert torch.equal(got.cpu(), philox_bits(key, 12_345, 76, 10_007, "cpu"))
+
+
+# ---------------------------------------------------------------------------
 # the phase kernels of the outer iteration, each against its plain version on
 # a state captured before the 5th iteration (the limits of chip_smoke.py:
 # every integer and flag field equal and floats within 1e-6 * (1 + |value|)
@@ -89,43 +119,51 @@ PHASE_CONFIGS = {
 
 def _phase_steps(C):
     """The phases of one outer iteration in the order they run, as
-    ``(kernel name, call(phases, state, bits))``."""
+    ``(kernel name, call(phases, state))``; the last flight_resolve carries
+    the tally."""
     R = max(1, C.config.n_resolves)
-    steps = [("refill", lambda ph, st, bits: ph.refill(C, st, bits, C.rows.refill, True))]
+    steps = [("refill", lambda ph, st: ph.refill(C, st, C.rows.refill, True))]
     for r in range(R):
         steps.append(("flight_resolve",
-                      lambda ph, st, bits, r=r: ph.flight_resolve(C, st, bits, r)))
+                      lambda ph, st, r=r: ph.flight_resolve(C, st, r, r == R - 1)))
         if r < R - 1:
-            steps.append(("refill", lambda ph, st, bits, r=r: ph.refill(
-                C, st, bits, C.rows.mid[r], False)))
-    steps.append(("tally", lambda ph, st, bits: ph.tally(C, st)))
+            steps.append(("refill", lambda ph, st, r=r: ph.refill(C, st, C.rows.mid[r], False)))
     return steps
+
+
+def _launches(st, kernel):
+    return int(st.ctrl[kernels.PHASE_LAUNCH_WORDS[kernel]])
+
+
+def _assert_phase_matches(got, want, n, name):
+    bad, rel, words_equal, image_rel = state_diff(got, want)
+    assert int(bad.sum()) <= n // 10_000, (name, int(bad.sum()))
+    assert rel <= 1e-6, (name, rel)
+    assert words_equal or int(bad.sum()) > 0, name
+    assert image_rel <= 1e-5, (name, image_rel)
 
 
 def _check_phase(cuda, kernel, config_name, remaining=None):
     config = PHASE_CONFIGS[config_name]
     scene = slab_engine(cuda, config, mono=config_name == "slab")
-    C, st, bits, _ = state_in_mid_run(scene, config, 10_000_000, seed=11)
+    C, st, _ = state_in_mid_run(scene, config, 10_000_000, seed=11)
     n = config.n_lanes
     if remaining is not None:
         st.ctrl[transport.CTRL_REMAINING] = remaining
     seen = 0
     for name, call in _phase_steps(C):
         got, want = st.clone(), st.clone()
-        before = kernels.launch_counts[name]
-        call(transport._engine_phases(), got, bits)
-        call(transport._plain_phases(), want, bits)
+        call(transport._engine_phases(), got)
+        call(transport._plain_phases(), want)
         torch.cuda.synchronize()
         if name == kernel:
             seen += 1
-            assert kernels.launch_counts[name] > before
-            bad, rel, words_equal, image_rel = state_diff(got, want)
-            assert int(bad.sum()) <= n // 10_000, (name, int(bad.sum()))
-            assert rel <= 1e-6, (name, rel)
-            assert words_equal or int(bad.sum()) > 0, name
-            assert image_rel <= 1e-5, (name, image_rel)
+            # the launches that did work count themselves on the device
+            assert _launches(got, name) > _launches(st, name)
+            _assert_phase_matches(got, want, n, name)
         st = want
     assert seen > 0
+    assert int(st.ctrl[transport.CTRL_ITERATION]) == 5  # the tally rode on the last launch
 
 
 @pytest.mark.gpu
@@ -149,28 +187,62 @@ def test_flight_resolve_kernel_on_card(cuda, config_name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("config_name", ["production", "slab"])
 def test_tally_kernel_on_card(cuda, config_name):
-    _check_phase(cuda, "tally", config_name)
+    """The tally as a launch of its own, on the state the last flight_resolve
+    of an iteration leaves when it does not carry the tally."""
+    config = PHASE_CONFIGS[config_name]
+    scene = slab_engine(cuda, config, mono=config_name == "slab")
+    C, st, _ = state_in_mid_run(scene, config, 10_000_000, seed=11)
+    plain = transport._plain_phases()
+    for name, call in _phase_steps(C)[:-1]:
+        call(plain, st)
+    plain.flight_resolve(C, st, max(1, config.n_resolves) - 1, False)
+    got, want = st.clone(), st.clone()
+    transport.tally_phase(C, got)
+    transport.tally_phase_reference(C, want)
+    torch.cuda.synchronize()
+    assert _launches(got, "tally") == _launches(st, "tally") + 1
+    _assert_phase_matches(got, want, config.n_lanes, "tally")
+    assert float(want.image.sum()) > float(st.image.sum())
+
+
+@pytest.mark.gpu
+def test_phases_do_nothing_once_the_loop_has_ended_on_card(cuda):
+    config = PHASE_CONFIGS["production"]
+    C, st, _ = state_in_mid_run(slab_engine(cuda, config, mono=False), config, 10_000_000, 11)
+    st.ctrl[transport.CTRL_RUN] = 0
+    got = st.clone()
+    transport.outer_iteration(transport._engine_phases(), C, got)
+    transport.tally_phase(C, got)
+    torch.cuda.synchronize()
+    bad, rel, words_equal, image_rel = state_diff(got, st)
+    assert int(bad.sum()) == 0 and rel == 0.0 and words_equal and image_rel == 0.0
+    assert torch.equal(got.ctrl, st.ctrl)  # not even a launch counted
 
 
 def _run_both(cuda, scene, config, n_histories, seed, **kwargs):
-    """run_projection (the phase kernels) and run_projection_reference (their
-    plain versions) on the card, from the same generator seed."""
+    """run_projection (the recorded graph of the phase kernels) and
+    run_projection_reference (their plain versions) on the card, from the
+    same key."""
     tables, woodcock, volume, src, det, n_pix = scene
     return [
-        run(tables, woodcock, volume, src, det, n_histories, make_generator(cuda, seed),
+        run(tables, woodcock, volume, src, det, n_histories, make_key(seed),
             n_pix, n_pix, config=config, return_stats=True, device=cuda, **kwargs)
         for run in (transport.run_projection, transport.run_projection_reference)
     ]
 
 
-def _assert_same_run(kernel_run, plain_run, n_histories):
+def _assert_same_run(kernel_run, plain_run, n_histories, count_slack=0.0):
+    """Iterations equal; integer counters equal, or within ``count_slack``
+    relative (at least 2) where the two sides' transcendentals round
+    differently; tallied energy and channel sums within 1e-6 / 1e-4."""
     (image_k, ex_k), (image_p, ex_p) = kernel_run, plain_run
     assert ex_k["iterations"] == ex_p["iterations"]
     counts_k, counts_p = ex_k["counts"].cpu().numpy(), ex_p["counts"].cpu().numpy()
     ints = [0, 2, 3, 4, 5, 6, 7]
-    np.testing.assert_array_equal(counts_k[ints], counts_p[ints])
+    slack = np.maximum(2, count_slack * counts_p[ints]) if count_slack else 0
+    assert (np.abs(counts_k[ints] - counts_p[ints]) <= slack).all(), (counts_k, counts_p)
     assert counts_k[5] + counts_k[6] == n_histories
-    np.testing.assert_allclose(counts_k[8], counts_p[8], rtol=1e-6)
+    np.testing.assert_allclose(counts_k[8], counts_p[8], rtol=1e-4 if count_slack else 1e-6)
     sums_k = image_k.double().sum(dim=(1, 2)).cpu().numpy()
     sums_p = image_p.double().sum(dim=(1, 2)).cpu().numpy()
     np.testing.assert_allclose(sums_k, sums_p, rtol=1e-4)
@@ -180,7 +252,7 @@ def _assert_same_run(kernel_run, plain_run, n_histories):
 @pytest.mark.parametrize("name", ["slab", "odd_width"])
 def test_whole_engine_on_card_matches_plain_version(cuda, name):
     """1e6 histories, one seed: the card's path and the plain version on the
-    card draw the same bits, so the iteration count and every integer
+    card use the same random words, so the iteration count and every integer
     counter agree and the channel sums agree to 1e-4 (the golden slab's
     scene and configuration; the production configuration at a lane count
     that fills no whole block, under the default spectrum)."""
@@ -203,9 +275,75 @@ def test_chunked_carry_on_card_matches_plain_version(cuda):
         assert torch.equal(a, b), name
     tables, woodcock, volume, src, det, n_pix = scene
     second = [
-        run(tables, woodcock, volume, src, det, 200_000, make_generator(cuda, 7), n_pix, n_pix,
+        run(tables, woodcock, volume, src, det, 200_000, make_key(7), n_pix, n_pix,
             config=config, return_stats=True, carry_in=carry, device=cuda)
         for run, carry in ((transport.run_projection, carry_k),
                            (transport.run_projection_reference, carry_p))
     ]
     _assert_same_run(*second, 200_000)
+
+
+@pytest.mark.gpu
+def test_graph_eager_and_cpu_paths_agree_on_card(cuda):
+    """One key, three ways: the recorded graph (k = 16), the eager loop with
+    a host read per iteration (k = 1), both on the card, and the plain
+    versions on the CPU. The generator is exact, so all three use the same
+    random words. The graph and the eager path run the same kernels and
+    differ only by the order of the image's atomic adds: every integer
+    counter is equal. The CPU's sin / log / exp round differently from the
+    card's, which may move a handful of events across a threshold: its
+    counters agree within 2 or 1e-5 relative, the channel sums to 1e-4.
+
+    Launches are counted twice: on the device those that did work (two per
+    kernel and iteration, however they were enqueued), and where they are
+    launched or replayed those handed to the card (the graph's last replay
+    runs past the end of the loop, so it enqueues more than did work)."""
+    config = transport.production_engine_config(n_lanes=1 << 14)
+    n = 300_000
+    runs, did_work, enqueued = [], [], []
+    for dev, k in ((cuda, None), (cuda, 1), ("cpu", None)):
+        tables, woodcock, volume, src, det, n_pix = slab_engine(dev, config, mono=False)
+        kernels.reset_launch_counts()
+        runs.append(transport.run_projection(
+            tables, woodcock, volume, src, det, n, make_key(21), n_pix, n_pix, config=config,
+            return_stats=True, device=dev, iterations_per_read=k))
+        did_work.append(dict(kernels.launch_counts))
+        enqueued.append(dict(kernels.enqueued_counts))
+    iterations, per_read = runs[0][1]["iterations"], transport.ITERATIONS_PER_READ
+    replayed = -(-iterations // per_read) * per_read
+    for name in ("refill", "flight_resolve"):
+        assert did_work[0][name] == did_work[1][name] == 2 * iterations
+        assert enqueued[0][name] == 2 * replayed and enqueued[1][name] == 2 * iterations
+    assert sum(did_work[2].values()) == 0 and sum(enqueued[2].values()) == 0
+    _assert_same_run(runs[0], runs[1], n)
+    _assert_same_run(runs[0], runs[2], n, count_slack=1e-5)
+    assert runs[0][1]["iterations"] % transport.ITERATIONS_PER_READ  # ran past the end
+
+
+@pytest.mark.gpu
+def test_workspace_and_graph_across_views_and_chunks_on_card(cuda):
+    """One workspace (one recorded graph) over two views of two chunks each
+    equals calls that build their own workspace and loop eagerly."""
+    config = transport.production_engine_config(n_lanes=1 << 14)
+    views = [slab_engine(cuda, config, mono=False, angle=a) for a in (270.0, 200.0)]
+    tables, woodcock, volume = views[0][:3]
+    n_pix = views[0][5]
+    shared = transport.EngineWorkspace(tables, woodcock, volume, n_pix, n_pix, config, cuda)
+    for v, (_, _, _, src, det, _) in enumerate(views):
+        carries = [None, None]
+        for chunk, n in enumerate((200_000, 150_000)):
+            last = chunk == 1
+            out = []
+            for j, (ws, k) in enumerate(((shared, None), (None, 1))):
+                image, extras = transport.run_projection(
+                    tables, woodcock, volume, src, det, n, make_key(50, v, chunk), n_pix,
+                    n_pix, config=config, return_stats=True, carry_in=carries[j],
+                    return_carry=not last, device=cuda, workspace=ws, iterations_per_read=k)
+                if not last:
+                    carries[j] = transport.LaneState(*(t.clone() for t in extras["carry"]))
+                out.append((image.clone(), extras))
+            _assert_same_run(*out, n)
+            if not last:
+                for name, a, b in zip(carries[0]._fields, *carries):
+                    assert torch.equal(a, b), name
+    assert len(shared.graphs) == 1

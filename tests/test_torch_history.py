@@ -1,8 +1,9 @@
-"""The outer iteration of the port's engine on the CPU: one block of random
-bits per iteration addressed through one row map, samplers that take their
-uniforms from it, and one plain function per phase (the plain versions of
-the ``refill`` / ``flight_resolve`` / ``tally`` kernels, which are held
-against these on the card in tests/test_torch_gpu.py).
+"""The outer iteration of the port's engine on the CPU: one block of Philox
+words per iteration addressed through one row map, samplers that take their
+uniforms from it, one plain function per phase (the plain versions of the
+``refill`` / ``flight_resolve`` / ``tally`` kernels, which are held against
+these on the card in tests/test_torch_gpu.py), and the loop whose condition
+is a control word of the state.
 
 Small sizes: 4,096 lanes, the 32^3 and the 40^3 slab scenes."""
 
@@ -19,20 +20,25 @@ from cbctmc_tpu_torch.engine import kernels, samplers, transport
 from cbctmc_tpu_torch.engine.kernels import gather_reference
 from cbctmc_tpu_torch.engine.rng import (
     make_generator,
-    random_bits,
+    make_key,
+    philox_bits,
     uniform_from_bits,
     uniform_open,
 )
 from cbctmc_tpu_torch.engine.transport import (
+    CTRL_ITERATION,
+    CTRL_REMAINING,
+    CTRL_RUN,
     PHOTON_ROWS,
     RESOLVE_ROWS,
     EngineConfig,
     EngineState,
+    EngineWorkspace,
     LaneState,
     bits_row_map,
     production_engine_config,
 )
-from torch_kernel_inputs import slab_engine
+from torch_kernel_inputs import slab_engine, state_in_mid_run
 
 torch.set_num_threads(2)
 
@@ -185,26 +191,26 @@ def _scene_for(name):
 
 
 def _compose(scene, cfg, n_histories, seed, carry_in=None, return_carry=False):
-    """run_projection written out: one bits block per iteration, the plain
-    phases in the order they run, the loop condition from the control words."""
+    """run_projection written out: one block of Philox words per iteration,
+    the plain phases in the order they run (the last flight_resolve carries
+    the tally), the loop condition from the control words."""
     tables, woodcock, volume, src, det, n_pix = scene
     C = transport.engine_consts(tables, woodcock, volume, src, det, n_pix, n_pix, cfg)
     if carry_in is None:
         carry_in = LaneState.empty(cfg.n_lanes, n_pix * n_pix, "cpu")
-    st = EngineState.start(carry_in, n_histories, n_pix * n_pix)
-    g = make_generator("cpu", seed)
+    key = make_key(seed)
+    st = EngineState.start(carry_in, n_histories, n_pix * n_pix, key=key,
+                           drain=not return_carry)
     R = max(1, cfg.n_resolves)
-    remaining, live, it = n_histories, False, 0
-    while remaining > 0 or live:
-        bits = random_bits(g, (C.rows.n_rows, cfg.n_lanes), "cpu")
+    it = 0
+    while int(st.ctrl[CTRL_RUN]):
+        assert int(st.ctrl[CTRL_ITERATION]) == it
+        bits = philox_bits(key, it, C.rows.n_rows, cfg.n_lanes, "cpu")
         transport.refill_phase_reference(C, st, bits, C.rows.refill, True)
         for r in range(R):
-            transport.flight_resolve_phase_reference(C, st, bits, r)
+            transport.flight_resolve_phase_reference(C, st, bits, r, with_tally=r == R - 1)
             if r < R - 1:
                 transport.refill_phase_reference(C, st, bits, C.rows.mid[r], False)
-        transport.tally_phase_reference(C, st)
-        remaining = int(st.ctrl[transport.CTRL_REMAINING])
-        live = bool(st.ctrl[transport.CTRL_LIVE]) and not return_carry
         it += 1
     return st, it
 
@@ -216,7 +222,7 @@ def test_phases_composed_equal_run_projection(name):
     tables, woodcock, volume, src, det, n_pix = scene
     n = 30_000
     image, extras = transport.run_projection(
-        tables, woodcock, volume, src, det, n, make_generator("cpu", 12), n_pix, n_pix,
+        tables, woodcock, volume, src, det, n, make_key(12), n_pix, n_pix,
         config=cfg, return_stats=True, device="cpu")
     st, it = _compose(scene, cfg, n, 12)
     assert it == extras["iterations"] > 3
@@ -237,30 +243,37 @@ def test_other_paths_equal_run_projection_on_cpu(run):
     other = {"reference": transport.run_projection_reference,
              "stepwise": transport.run_projection_stepwise}[run]
     kernels.reset_launch_counts()
-    out = [fn(tables, woodcock, volume, src, det, 20_000, make_generator("cpu", 2), n_pix,
+    out = [fn(tables, woodcock, volume, src, det, 20_000, make_key(2), n_pix,
               n_pix, config=cfg, return_stats=True, device="cpu")
            for fn in (transport.run_projection, other)]
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1]["counts"], out[1][1]["counts"])
     assert sum(kernels.launch_counts.values()) == 0
+    assert sum(kernels.enqueued_counts.values()) == 0
 
 
 def test_one_generator_call_per_iteration(monkeypatch):
+    """The plain path builds the block of Philox words once per outer
+    iteration, for that iteration's counter word; torch.randint is gone from
+    the engine."""
     cfg = CONFIGS["production"]
     tables, woodcock, volume, src, det, n_pix = _scene_for("production")
     calls = []
-    randint = torch.randint
 
-    def counted(*args, **kwargs):
-        calls.append(tuple(args[2]))
-        return randint(*args, **kwargs)
+    def counted(key, iteration, n_rows, n_lanes, device, out=None):
+        calls.append((key, iteration, n_rows, n_lanes))
+        return philox_bits(key, iteration, n_rows, n_lanes, device, out=out)
 
-    monkeypatch.setattr(torch, "randint", counted)
+    def no_randint(*args, **kwargs):
+        raise AssertionError("the engine must not call torch.randint")
+
+    monkeypatch.setattr(transport, "philox_bits", counted)
+    monkeypatch.setattr(torch, "randint", no_randint)
     _, extras = transport.run_projection(
-        tables, woodcock, volume, src, det, 20_000, make_generator("cpu", 4), n_pix, n_pix,
+        tables, woodcock, volume, src, det, 20_000, make_key(4), n_pix, n_pix,
         config=cfg, return_stats=True, device="cpu")
-    assert len(calls) == extras["iterations"]
-    assert set(calls) == {(bits_row_map(cfg).n_rows, N_LANES)}
+    n_rows = bits_row_map(cfg).n_rows
+    assert calls == [(make_key(4), it, n_rows, N_LANES) for it in range(extras["iterations"])]
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +290,7 @@ def test_chunked_runs_start_every_history_once_and_carry_round_trips():
         last = k == len(chunks) - 1
         carry_before = LaneState(*(t.clone() for t in carry))
         _, extras = transport.run_projection(
-            tables, woodcock, volume, src, det, n, make_generator("cpu", 30, k), n_pix, n_pix,
+            tables, woodcock, volume, src, det, n, make_key(30, k), n_pix, n_pix,
             config=cfg, return_stats=True, carry_in=carry, return_carry=not last,
             device="cpu")
         # the engine works on its own copy of the carry
@@ -299,3 +312,125 @@ def test_chunked_runs_start_every_history_once_and_carry_round_trips():
     # the last chunk drained every lane and every stashed record
     st, _ = _compose(scene, cfg, chunks[-1], seed=31, carry_in=carry)
     assert not st.lanes.alive.any() and not st.lanes.stash_valid.any()
+
+
+# ---------------------------------------------------------------------------
+# the tally folded into the last flight_resolve; the loop condition as a
+# control word; the workspace
+# ---------------------------------------------------------------------------
+def _states_equal(a, b):
+    for name, x, y in zip(a.lanes._fields, a.lanes, b.lanes):
+        assert torch.equal(x, y), name
+    for name, x, y in zip(a.cand._fields, a.cand, b.cand):
+        assert torch.equal(x, y), f"cand.{name}"
+    for name in ("ctrl", "block_dead", "image", "counters", "energy"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("name", ["production", "resolves1"])
+def test_flight_resolve_with_tally_equals_flight_resolve_then_tally(name):
+    """The launch that ends an iteration, written as one phase, leaves every
+    field of the state as the flight_resolve phase followed by the tally
+    phase does."""
+    cfg = CONFIGS[name]
+    C, st, bits = state_in_mid_run(_scene_for(name), cfg, 1_000_000, seed=3)
+    R = max(1, cfg.n_resolves)
+    transport.refill_phase_reference(C, st, bits, C.rows.refill, True)
+    for r in range(R - 1):
+        transport.flight_resolve_phase_reference(C, st, bits, r)
+        transport.refill_phase_reference(C, st, bits, C.rows.mid[r], False)
+    folded, apart = st.clone(), st.clone()
+    transport.flight_resolve_phase_reference(C, folded, bits, R - 1, with_tally=True)
+    transport.flight_resolve_phase_reference(C, apart, bits, R - 1)
+    assert int(apart.ctrl[CTRL_ITERATION]) == int(st.ctrl[CTRL_ITERATION])
+    transport.tally_phase_reference(C, apart)
+    _states_equal(folded, apart)
+    assert int(folded.ctrl[CTRL_ITERATION]) == int(st.ctrl[CTRL_ITERATION]) + 1
+    assert float(folded.image.sum()) > float(st.image.sum())
+    assert int(folded.counters[0]) > int(st.counters[0])
+
+
+@pytest.mark.parametrize("return_carry", [False, True])
+def test_iterations_enqueued_past_the_end_change_nothing(return_carry):
+    """The host reads the control words once per k iterations; the plain
+    phases, like the kernels, do nothing once ctrl[CTRL_RUN] is 0, so a call
+    with k = 7 (up to 6 iterations enqueued after the loop ended) returns
+    what the exact loop (k = 1) returns: image, counters, iterations, carry
+    and every word of the state."""
+    cfg = CONFIGS["production"]
+    tables, woodcock, volume, src, det, n_pix = _scene_for("production")
+    runs = []
+    for k in (1, 7):
+        ws = EngineWorkspace(tables, woodcock, volume, n_pix, n_pix, cfg, "cpu")
+        image, extras = transport.run_projection(
+            tables, woodcock, volume, src, det, 25_000, make_key(41), n_pix, n_pix,
+            config=cfg, return_stats=True, return_carry=return_carry, device="cpu",
+            workspace=ws, iterations_per_read=k)
+        runs.append((image, extras, ws.state))
+    (image_1, extras_1, st_1), (image_k, extras_k, st_k) = runs
+    assert extras_1["iterations"] == extras_k["iterations"] > 3
+    assert extras_1["iterations"] % 7  # the k = 7 call did run past the end
+    assert torch.equal(image_1, image_k)
+    assert torch.equal(extras_1["counts"], extras_k["counts"])
+    _states_equal(st_1, st_k)
+    assert int(st_k.ctrl[CTRL_RUN]) == 0 and int(st_k.ctrl[CTRL_REMAINING]) == 0
+    if return_carry:
+        assert int(extras_k["carry"].alive.sum()) > 100
+    else:
+        assert not st_k.lanes.alive.any() and not st_k.lanes.stash_valid.any()
+
+
+def test_a_phase_does_nothing_once_the_loop_has_ended():
+    cfg = CONFIGS["production"]
+    C, st, bits = state_in_mid_run(_scene_for("production"), cfg, 1_000_000, seed=8)
+    st.ctrl[CTRL_RUN] = 0
+    before = st.clone()
+    transport.outer_iteration(transport._plain_phases(), C, st)
+    transport.tally_phase_reference(C, st)
+    _states_equal(st, before)
+
+
+def test_max_outer_iterations_ends_the_loop_on_the_device_words():
+    cfg = production_engine_config(n_lanes=N_LANES, max_outer_iterations=3)
+    tables, woodcock, volume, src, det, n_pix = _scene_for("production")
+    _, extras = transport.run_projection(
+        tables, woodcock, volume, src, det, 10_000_000, make_key(1), n_pix, n_pix, config=cfg,
+        return_stats=True, device="cpu", iterations_per_read=2)
+    assert extras["iterations"] == 3 and int(extras["remaining"]) > 0
+
+
+def test_workspace_reuse_equals_fresh_workspaces():
+    """Two views of two chunks each through ONE workspace (its buffers reset
+    in place, its constants re-pointed at the second view) give what calls
+    that build their own workspace give."""
+    cfg = CONFIGS["production"]
+    views = [slab_engine("cpu", cfg, mono=False, grid=32, angle=a) for a in (270.0, 200.0)]
+    tables, woodcock, volume = views[0][:3]
+    n_pix = views[0][5]
+    shared = EngineWorkspace(tables, woodcock, volume, n_pix, n_pix, cfg, "cpu")
+    sums = []
+    for v, (_, _, _, src, det, _) in enumerate(views):
+        carries = [None, None]
+        for chunk, n in enumerate((12_000, 9_000)):
+            last = chunk == 1
+            out = []
+            for j, ws in enumerate((shared, None)):
+                image, extras = transport.run_projection(
+                    tables, woodcock, volume, src, det, n, make_key(50, v, chunk), n_pix,
+                    n_pix, config=cfg, return_stats=True, carry_in=carries[j],
+                    return_carry=not last, device="cpu", workspace=ws)
+                if not last:
+                    carries[j] = LaneState(*(t.clone() for t in extras["carry"]))
+                out.append((image.clone(), extras))
+            (image_s, extras_s), (image_f, extras_f) = out
+            assert torch.equal(image_s, image_f)
+            assert torch.equal(extras_s["counts"], extras_f["counts"])
+            assert extras_s["iterations"] == extras_f["iterations"]
+            if not last:
+                assert all(torch.equal(a, b) for a, b in zip(*carries))
+        sums.append(image_s.sum(dim=(1, 2)))
+    assert not torch.equal(sums[0], sums[1])  # the second view is another view
+    with pytest.raises(ValueError, match="workspace was built for another"):
+        transport.run_projection(
+            tables, woodcock, volume, *views[0][3:5], 10, make_key(0), n_pix, n_pix,
+            config=CONFIGS["resolves1"], device="cpu", workspace=shared)

@@ -15,7 +15,7 @@ from cbctmc_tpu.physics.materials import default_material_set as jax_material_se
 from cbctmc_tpu_torch import interop
 from cbctmc_tpu_torch.engine import transport as ttransport
 from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
-from cbctmc_tpu_torch.engine.rng import make_generator
+from cbctmc_tpu_torch.engine.rng import make_key
 from cbctmc_tpu_torch.engine.tables import build_device_tables
 from cbctmc_tpu_torch.geometry.phantoms import CatPhan604Geometry
 from cbctmc_tpu_torch.physics.materials import default_material_set
@@ -129,7 +129,7 @@ def test_primary_only_volume_rejected(table_set):
     cfg = ttransport.EngineConfig(n_lanes=256, max_virtual_trips=2)
     with pytest.raises(ValueError, match="primary-only"):
         ttransport.run_projection(
-            tables, woodcock, volume, src, det, 1000, make_generator("cpu", 0),
+            tables, woodcock, volume, src, det, 1000, make_key(0),
             8, 8, config=cfg, device="cpu",
         )
 

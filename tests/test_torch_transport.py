@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
-from cbctmc_tpu_torch.engine.rng import make_generator
+from cbctmc_tpu_torch.engine.rng import make_key
 from cbctmc_tpu_torch.engine.tables import build_device_tables, build_woodcock_table
 from cbctmc_tpu_torch.engine.transport import (
     EngineConfig,
@@ -85,7 +85,7 @@ def _make_run(table_set, tables, mats, dens, theta=-1.0, phi=(-1.0, -1.0), confi
 
     def run(n_histories, seed, **kwargs):
         return run_projection(
-            tables, woodcock, volume, src, det, n_histories, make_generator("cpu", seed),
+            tables, woodcock, volume, src, det, n_histories, make_key(seed),
             N_PIX, N_PIX, config=config, device="cpu", **kwargs,
         )
 

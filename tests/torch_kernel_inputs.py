@@ -106,11 +106,11 @@ def clone_lanes(lanes):
 # ---------------------------------------------------------------------------
 # the engine's phases: a small scene, a state in mid-run, and the comparison
 # ---------------------------------------------------------------------------
-def slab_engine(device, config, n_pix=32, mono=True, grid=40):
+def slab_engine(device, config, n_pix=32, mono=True, grid=40, angle=270.0):
     """``(tables, woodcock, volume, source, detector, n_pix)`` of the 20 cm
     air cube with a 5 cm water slab across the beam (the golden slab's
     scene), or with ``grid=32`` its 32^3 version, under a mono-energetic or
-    the default spectrum."""
+    the default spectrum, seen from ``angle`` degrees."""
     from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
     from cbctmc_tpu_torch.engine.tables import build_device_tables, build_woodcock_table
     from cbctmc_tpu_torch.engine.transport import make_voxel_volume
@@ -138,37 +138,34 @@ def slab_engine(device, config, n_pix=32, mono=True, grid=40):
         sdd=60.0, sad=40.0, aperture_phi1=-1.0, aperture_phi2=-1.0, aperture_theta=-1.0,
         source_position_0=(10.0, 10.0 - 40.0, 10.0),
     )
-    source, detector = build_scan(geom, [270.0], device=device)
+    source, detector = build_scan(geom, [angle], device=device)
     return (tables, woodcock, volume, select_projection(source, 0),
             select_projection(detector, 0), n_pix)
 
 
 def state_in_mid_run(scene, config, n_histories, seed, iterations=4):
-    """``(consts, state, bits, generator)``: the engine state after
-    ``iterations`` outer iterations through the plain phases, and the bits of
-    the next iteration."""
+    """``(consts, state, bits)``: the engine state after ``iterations`` outer
+    iterations through the plain phases, and the random words of the next
+    iteration."""
     from cbctmc_tpu_torch.engine import transport as T
-    from cbctmc_tpu_torch.engine.rng import make_generator, random_bits
+    from cbctmc_tpu_torch.engine.rng import make_key
 
     tables, woodcock, volume, src, det, n_pix = scene
     dev = volume.packed.device
     C = T.engine_consts(tables, woodcock, volume, src, det, n_pix, n_pix, config)
     st = T.EngineState.start(T.LaneState.empty(config.n_lanes, n_pix * n_pix, dev),
-                             n_histories, n_pix * n_pix)
-    g = make_generator(dev, seed)
-    bits = torch.empty((C.rows.n_rows, config.n_lanes), dtype=torch.int64, device=dev)
+                             n_histories, n_pix * n_pix, key=make_key(seed))
     for _ in range(iterations):
-        random_bits(g, bits.shape, dev, out=bits)
-        T.outer_iteration(T._plain_phases(), C, st, bits)
-    random_bits(g, bits.shape, dev, out=bits)
-    return C, st, bits, g
+        T.outer_iteration(T._plain_phases(), C, st)
+    return C, st, T.iteration_bits(C, st).clone()
 
 
 def state_diff(a, b):
     """How two engine states differ: ``(lanes where an integer or flag field
     of the lanes or candidates differs, the largest |a - b| / (1 + |b|) of a
-    float field on the other lanes, whether ctrl[:2] / block_dead / the
-    integer counters are equal, relative difference of the image sums)``."""
+    float field on the other lanes, whether the control words the host reads
+    (budget, live, iteration, run) / block_dead / the integer counters are
+    equal, relative difference of the image sums)``."""
     pairs = list(zip(a.lanes._fields, a.lanes, b.lanes)) + [
         (f"cand.{k}", x, y) for k, x, y in zip(a.cand._fields, a.cand, b.cand)]
     bad = torch.zeros_like(a.lanes.alive)
@@ -180,7 +177,8 @@ def state_diff(a, b):
         if x.dtype == torch.float32:
             d = (x - y).abs()[~bad] / (1.0 + y.abs()[~bad])
             rel = max(rel, float(d.max()) if d.numel() else 0.0)
-    words_equal = (torch.equal(a.ctrl[:2], b.ctrl[:2])
+    host_words = [0, 1, 5, 6]  # transport.CTRL_REMAINING, _LIVE, _ITERATION, _RUN
+    words_equal = (torch.equal(a.ctrl[host_words], b.ctrl[host_words])
                    and torch.equal(a.block_dead, b.block_dead)
                    and torch.equal(a.counters, b.counters))
     sa, sb = float(a.image.double().sum()), float(b.image.double().sum())
