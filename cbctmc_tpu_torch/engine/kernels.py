@@ -1,7 +1,7 @@
-"""The engine's hand-written CUDA kernels, their plain PyTorch versions, the
-build, and the launch counters.
+"""The port's hand-written CUDA kernels: the engine's, with their plain
+PyTorch versions, the build of all of them, and the launch counters.
 
-Seven kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
+Nine kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
 what it replaces, what bounds it and how its design answers that). Two are
 the phases of the engine's outer iteration, the only device work
 :func:`cbctmc_tpu_torch.engine.transport.run_projection` issues on the card
@@ -36,6 +36,14 @@ and timed on its own (``transport.run_projection_stepwise`` drives all but
 - ``flight_step``: the engine's production flight over the packed voxel
   word, one flight per launch with the lane state in device memory (the
   body is ``csrc/flight.cuh``, which ``flight_resolve`` shares).
+
+Two serve the fast-scan and reconstruction path; their wrappers and plain
+versions live beside the code that calls them:
+
+- ``primary_trace``: the deterministic primary's voxel traversal
+  (:func:`cbctmc_tpu_torch.engine.primary.primary_trace`);
+- ``backproject``: FDK's voxel-driven backprojection of a chunk of views
+  (:func:`cbctmc_tpu_torch.recon.fdk.backproject_into`).
 
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ctypes, at first use, into
@@ -74,7 +82,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_resolve",
-           "tally", "philox_block")
+           "tally", "philox_block", "primary_trace", "backproject")
 #: the control word (csrc/engine.cuh CTRL_LAUNCHES_*) in which each phase
 #: kernel counts its launches that did work
 PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13}
@@ -230,7 +238,7 @@ def _fill_struct(struct, ints: dict, floats: dict):
     return struct
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LP, _CP = ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC)
 _SIGNATURES = {
     "refill": [_LP, _CP, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
@@ -243,6 +251,10 @@ _SIGNATURES = {
     "flight_prototype": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P],
     "flight_step": [ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC), _P, _P, _P, _P,
                     _I, _P, _P, ctypes.POINTER(_ParamsC), _P],
+    "primary_trace": [_P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _I, _I, _F, _F, _F, _P, _I, _I,
+                      _P, _P, _P],
+    "backproject": [_P, _I, _I, _I, _P, _F, _F, _F, _F, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                    _F, _F, _F, _P, _P],
 }
 
 

@@ -400,10 +400,18 @@ def _check_supported(config: EngineConfig) -> None:
 
 
 def validate_volume(volume: VoxelVolume) -> None:
-    """Reject a volume the flight cannot read: a ``packed`` array shorter
-    than the grid (such as the JAX package's primary-only repack, whose
-    engine view is a 2-word dummy) would make every gather read a clamped
-    vacuum instead of the scene."""
+    """Reject a volume the flight cannot read: anything but a
+    :class:`VoxelVolume` (the primary-only ``engine.primary.PrimaryVolume``,
+    whose clearance boxes hold water as well as air, would be crossed as
+    air), and a ``packed`` array shorter than the grid (such as the JAX
+    package's primary-only repack, whose engine view is a 2-word dummy),
+    which would make every gather read a clamped vacuum instead of the
+    scene."""
+    if not isinstance(volume, VoxelVolume):
+        raise TypeError(
+            f"{type(volume).__name__} is not a transport volume (a primary-only "
+            "volume cannot be passed to the engine)"
+        )
     nx, ny, nz = (int(s) for s in volume.shape)
     if volume.packed.dtype != torch.int32 or volume.packed.ndim != 1:
         raise ValueError("volume.packed must be a 1-D int32 tensor of u32 words")
@@ -1197,6 +1205,7 @@ def _run_projection(phases, tables, woodcock, volume, source, detector, n_histor
                     carry_in=None, return_carry=False, device=None, workspace=None,
                     iterations_per_read=None):
     dev = resolve_device(device)
+    validate_volume(volume)
     ws = workspace
     if ws is None:
         ws = EngineWorkspace(tables, woodcock, volume, n_pixels_x, n_pixels_z, config, dev)

@@ -1,6 +1,7 @@
 """The CatPhan604 QA phantom as an analytic voxel geometry (the benchmark
-scene of the MC engine). The port's copy of the JAX package's
-``CatPhan604Geometry`` and its helpers."""
+scene of the MC engine) and the one-voxel air scene of flat-field scans.
+The port's copy of the JAX package's ``CatPhan604Geometry``,
+``AirGeometry`` and their helpers."""
 
 from __future__ import annotations
 
@@ -73,6 +74,20 @@ def _roi_center(roi: CylinderROI, shape, spacing_iso: float = 1.0):
     phi = np.deg2rad(roi.angle)
     offset = np.array([np.cos(phi), -np.sin(phi), 0.0]) * (roi.distance / spacing_iso)
     return offset + np.array(shape) / 2
+
+
+class AirGeometry(MCGeometry):
+    """A single huge air voxel for flat-field (air) calibration scans."""
+
+    def __init__(self, image_spacing=(2000.0, 2000.0, 2000.0),
+                 table_set: MaterialTableSet | None = None):
+        table_set = table_set or default_material_set()
+        air = table_set.material("air")
+        super().__init__(
+            materials=np.full((1, 1, 1), air.number, np.uint8),
+            densities=np.full((1, 1, 1), air.density, np.float32),
+            image_spacing=image_spacing,
+        )
 
 
 class _CylindricalPhantom(MCGeometry):

@@ -4,8 +4,9 @@ This system has no weights: its state is the physics tables and the
 voxelised scene. These functions take the JAX package's ``DeviceTables``,
 ``WoodcockTable`` and ``VoxelVolume`` fields as numpy arrays (a mapping of
 field name to array, e.g. ``{k: np.asarray(v) for k, v in t._asdict().items()}``)
-and build the port's tensors, so tests can feed both engines one state.
-Nothing here imports the JAX package.
+and build the port's tensors, so tests can feed both engines one state;
+:func:`primary_volume_from_numpy` does the same for the deterministic
+primary's traversal. Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from cbctmc_tpu_torch.engine.device import resolve_device
+from cbctmc_tpu_torch.engine.primary import PrimaryVolume, _primary_volume
 from cbctmc_tpu_torch.engine.tables import DeviceTables, WoodcockTable
 from cbctmc_tpu_torch.engine.transport import VoxelVolume
 
@@ -54,4 +56,19 @@ def volume_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> VoxelVol
         packed=_tensor(np.asarray(words, np.uint32).reshape(-1), dev),
         shape=tuple(int(s) for s in fields["shape"]),
         **rest,
+    )
+
+
+def primary_volume_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> PrimaryVolume:
+    """The primary traversal's volume from the JAX ``VoxelVolume`` fields of
+    a scene, repacked or not (``primary.uniform_clearance_volume``): the
+    words are taken from ``packed``, which the JAX traversal reads, never
+    from ``packed_pairs``, which the repack leaves as a dummy."""
+    dev = resolve_device(device)
+    return _primary_volume(
+        _tensor(np.asarray(fields["packed"], np.uint32).reshape(-1), dev),
+        fields["shape"],
+        _tensor(np.asarray(fields["voxel_size"], np.float32), dev),
+        _tensor(np.asarray(fields["den_scale"], np.float32), dev),
+        dev,
     )

@@ -4,7 +4,7 @@ NVIDIA card and hold every hand-written kernel against its plain version.
 
 Phases (each raises on failure; nothing lets the run exit 0 after one):
 
-1. print the card (``nvidia-smi`` name, power limit); build the seven kernels
+1. print the card (``nvidia-smi`` name, power limit); build the nine kernels
    from ``cbctmc_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. ``probe_gather("cuda")`` must be True; Philox in a kernel
    (``csrc/philox.cuh``) against the plain version: Random123's three
@@ -48,7 +48,26 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
    length (device operations per outer iteration, device time by kernel)
    and one through the graph (busy share of the main path's way), written
    to ``smoke_out/profile_main_path.txt``;
-10. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+10. the fast-scan -> FDK path on the same scanner, its launch counters zeroed
+    before and read after: the uniform-clearance primary volume,
+    ``deterministic_primary`` of 16 views spread over the 894 (one
+    ``primary_trace`` launch each), an MC run of the same views at 2e7
+    histories (the primary validated against its primary channel: total
+    within 1 %, 16 x 16 superpixel |z| mean < 1.5, max < 6 where the
+    predicted sigma is at least 1e-3 of the view's median), the fast views
+    at 1.19e10 histories, the half-fan crop, the air flat of
+    ``AirGeometry``, ``air_normalize`` and ``fdk_reconstruct`` onto the
+    (464, 464, 250) grid with the CatPhan water precorrection (one
+    ``backproject`` launch per chunk); the volume finite, positive inside
+    the phantom;
+11. ``primary_trace`` against its plain version for one full view (steps
+    equal, |diff| <= 1e-6 (1 + |L|)), the steps per view with and without
+    the repack, the view's images through both (1e-6 of their max);
+    ``backproject`` against its plain version for one chunk of 64 views on
+    the full grid (1e-6 of the volume's max), with ``grid_sample`` as the
+    yardstick and ``filter_projections``' time per chunk; FDK of analytic
+    water cylinders (CYLINDER_CASES), with device times and bounds;
+12. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -58,6 +77,7 @@ Exits non-zero without a card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -95,6 +115,17 @@ PROTO_FLIGHTS = 4
 TIMING_REPS = 20
 PROFILE_HISTORIES = (1_000_000, 3_000_000)
 PHILOX_PAIRS = 1 << 20
+# the fast-scan -> FDK path on the main path's scanner
+FAST_VIEWS = 16  # spread over the scan's 894 views
+FAST_MC_HISTORIES = 20_000_000  # the low-statistics MC run, per view
+FAST_TARGET_HISTORIES = 11_903_320_312  # the reference operating point, per view
+HALF_FAN_COLUMNS = 1024
+RECON_DIMENSION = (464, 250, 464)  # reconstruct_3d's default, (x, axial, y)
+RECON_SPACING_MM = 1.0
+CYLINDER_VIEWS = 90  # a full chunk of 64 and a ragged one of 26
+CYLINDER_MU = 0.02  # water-like [1/mm]
+TRACE_FLOPS_PER_STEP = 50  # primary_trace: counted from csrc/primary_trace.cu
+BACKPROJECT_FLOPS = 45  # backproject, per voxel and view: counted from csrc/backproject.cu
 
 
 def card_line() -> str:
@@ -135,7 +166,8 @@ def kernel_ms(calls, kernel: str | None) -> float:
     total_us = sum(t for name, t in device_events(prof)
                    if kernel is None or name.startswith(kernel))
     if total_us <= 0.0:
-        raise AssertionError(f"the profiler saw no device time for {kernel}")
+        seen = sorted({name[:60] for name, _ in device_events(prof)})
+        raise AssertionError(f"the profiler saw no device time for {kernel}; it saw {seen}")
     return total_us / 1e3 / (len(calls) - 1)
 
 
@@ -1064,6 +1096,404 @@ def profile_engine(scanner, card):
     return busy / it_b
 
 
+# ---------------------------------------------------------------------------
+# the fast-scan -> FDK path
+# ---------------------------------------------------------------------------
+def fast_scan_views(scanner) -> np.ndarray:
+    """FAST_VIEWS angles spread evenly over the scanner's scan."""
+    angles = scanner.projection_angles()
+    return angles[np.linspace(0, len(angles) - 1, FAST_VIEWS).round().astype(int)]
+
+
+def primary_validation(mean, var, mc_primary, n_mc):
+    """scripts/fast_scan_acceptance.py's check of one view: the MC and
+    deterministic totals and the 16 x 16 superpixel z-scores against the
+    predicted MC noise. Returns the totals and |z| under two masks: the
+    script's (superpixels of zero predicted variance out) and
+    scripts/rescore_fast_scan_validation.py's (superpixels whose predicted
+    sigma is under 1e-3 of the view's median out: at the aperture's edge a
+    sliver of a superpixel is lit, its predicted sigma is minute and the
+    MC's boundary bleed makes any |z| there)."""
+    k = 16
+    v, u = (mean.shape[0] // k) * k, (mean.shape[1] // k) * k
+
+    def sp(x, red):
+        r = x[:v, :u].reshape(v // k, k, u // k, k)
+        return r.mean(axis=(1, 3)) if red == "mean" else r.sum(axis=(1, 3))
+
+    sig = np.sqrt(sp(var, "sum") / n_mc) / (k * k)
+    diff = sp(mc_primary, "mean") - sp(mean, "mean")
+    lit = sig > 1e-20
+    pos = sig[sig > 0]
+    in_view = sig > 1e-3 * (np.median(pos) if pos.size else 1.0)
+    return (float(mc_primary.sum()), float(mean.sum()), np.abs(diff[lit] / sig[lit]),
+            np.abs(diff[in_view] / sig[in_view]))
+
+
+def fast_scan_path(kernels, scanner, card):
+    """The fast-scan -> FDK path at full width on the main path's scanner
+    (500^3 CatPhan, 1848 x 768 detector, production scan geometry): the
+    uniform-clearance primary volume; the deterministic primary of
+    FAST_VIEWS views spread over the scan (one ``primary_trace`` launch
+    each); a low-statistics MC run of the same views, against which the
+    primary is validated as scripts/fast_scan_acceptance.py does; the fast
+    views at the reference operating point; the half-fan crop; the air flat
+    from the deterministic primary of ``AirGeometry`` and the air
+    normalisation; FDK on the reference geometry and grid with the CatPhan
+    water precorrection (``backproject`` per chunk). The launch counters are
+    zeroed just before and read just after."""
+    from cbctmc_tpu_torch.engine import primary
+    from cbctmc_tpu_torch.engine.ct import build_scan
+    from cbctmc_tpu_torch.engine.simulate import MCScanner, air_normalize, crop_half_fan
+    from cbctmc_tpu_torch.geometry.phantoms import AirGeometry
+    from cbctmc_tpu_torch.physics.reference_values import DEFAULT_WPC_CATPHAN604
+    from cbctmc_tpu_torch.pipeline.fast_scan import FastScanConfig, compose_fast_view
+    from cbctmc_tpu_torch.pipeline.reconstruction import (
+        default_cone_beam_geometry,
+        reference_grid,
+    )
+    from cbctmc_tpu_torch.recon.fdk import fdk_reconstruct
+
+    geo = scanner.scan_geometry
+    angles = fast_scan_views(scanner)
+    ts, spectrum = scanner.table_set, scanner.spectrum
+    quadrature = primary.SpectrumQuadrature.build(ts, spectrum, 2)
+    fractions = primary.photon_fractions(geo)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+    t0 = time.monotonic()
+    pv = primary.uniform_clearance_volume(scanner.volume, device=DEVICE)
+    torch.cuda.synchronize()
+    repack_s = time.monotonic() - t0
+    source, detector = build_scan(geo, angles, device=DEVICE)
+    means, variances = [], []
+    t0 = time.monotonic()
+    for i in range(len(angles)):
+        m, v = primary.deterministic_primary(pv, ts, spectrum, geo, source, detector,
+                                             projection_index=i, fractions=fractions,
+                                             quadrature=quadrature, device=DEVICE)
+        means.append(m)
+        variances.append(v)
+    primary_s = (time.monotonic() - t0) / len(angles)
+
+    t0 = time.monotonic()
+    images, info = scanner.simulate(angles_deg=angles, n_histories=FAST_MC_HISTORIES, seed=3,
+                                    progress=False)
+    mc_s = time.monotonic() - t0
+    mc_primary, mc_total = images[:, 0], images.sum(axis=1)
+
+    tot_mc = tot_det = 0.0
+    z_lit, z_in_view = [], []
+    for i in range(len(angles)):
+        a, b, zl, zv = primary_validation(means[i], variances[i], mc_primary[i],
+                                          FAST_MC_HISTORIES)
+        tot_mc, tot_det = tot_mc + a, tot_det + b
+        z_lit.append(zl)
+        z_in_view.append(zv)
+    z_lit, z = np.concatenate(z_lit), np.concatenate(z_in_view)
+    ratio = tot_mc / tot_det
+
+    generator = torch.Generator(device=DEVICE)
+    generator.manual_seed(20260819)
+    cfg = FastScanConfig(n_histories_target=FAST_TARGET_HISTORIES,
+                         pixel_area_cm2=geo.pixel_size_x * geo.pixel_size_z)
+    totals = []
+    t0 = time.monotonic()
+    for i in range(len(angles)):
+        _, total = compose_fast_view(generator, means[i], variances[i],
+                                     mc_primary[i].astype(np.float32),
+                                     mc_total[i].astype(np.float32), cfg, device=DEVICE)
+        totals.append(total)
+    compose_s = (time.monotonic() - t0) / len(angles)
+
+    air = AirGeometry()
+    air_params = dataclasses.replace(scanner.parameters, n_projections=1,
+                                     angle_between_projections=360.0)
+    air_scanner = MCScanner(air.materials, air.densities, air.image_spacing,
+                            parameters=air_params, engine_config=scanner.engine_config,
+                            device=DEVICE)
+    air_flat, _ = primary.deterministic_primary(
+        primary.primary_volume(air_scanner.volume, device=DEVICE), air_scanner.table_set,
+        air_scanner.spectrum, air_scanner.scan_geometry,
+        *build_scan(air_scanner.scan_geometry, angles[:1], device=DEVICE), device=DEVICE)
+    air_crop = crop_half_fan(air_flat[None].astype(np.float64), HALF_FAN_COLUMNS)[0]
+    t0 = time.monotonic()
+    projections = air_normalize(
+        crop_half_fan(np.stack(totals).astype(np.float64), HALF_FAN_COLUMNS), air_crop)
+    normalize_s = time.monotonic() - t0
+
+    geometry = default_cone_beam_geometry()
+    grid = reference_grid(RECON_DIMENSION, (RECON_SPACING_MM,) * 3)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    volume = fdk_reconstruct(projections, geometry, angles, grid=grid,
+                             water_precorrection=DEFAULT_WPC_CATPHAN604, device=DEVICE)
+    fdk_s = time.monotonic() - t0
+    launches = {k: kernels.launch_counts[k] for k in ("primary_trace", "backproject")}
+
+    say(f"fast-scan path: uniform-clearance repack of the {scanner.volume.shape} scene "
+        f"{repack_s:.3f} s on the card; deterministic_primary {primary_s * 1e3:.1f} ms per view "
+        f"({len(angles)} views of {geo.n_pixels_z} x {geo.n_pixels_x} rays); MC run "
+        f"{len(angles)} views x {FAST_MC_HISTORIES} histories {mc_s:.2f} s; compose_fast_view "
+        f"{compose_s * 1e3:.1f} ms per view; crop and air normalisation {normalize_s:.2f} s; "
+        f"fdk_reconstruct {fdk_s:.3f} s for {len(angles)} views ({fdk_s / len(angles) * 1e3:.1f} "
+        f"ms per view) onto {grid.shape}; launches {launches}", card)
+    say(f"fast-scan validation (deterministic primary against the MC primary channel, "
+        f"{len(angles)} views x {FAST_MC_HISTORIES} histories, 16 x 16 superpixels): total "
+        f"ratio MC / deterministic {ratio:.6f}; {z.size} superpixels in view (predicted sigma "
+        f">= 1e-3 of the view's median): |z| mean {z.mean():.4f}, max {z.max():.4f}; "
+        f"{z_lit.size} with any predicted variance: |z| mean {z_lit.mean():.4f}, max "
+        f"{z_lit.max():.4f}", card)
+    if abs(ratio - 1.0) > 0.01 or not z.mean() < 1.5 or not z.max() < 6.0:
+        raise AssertionError("the deterministic primary disagrees with the MC primary channel")
+    if launches != {"primary_trace": len(angles) + 1, "backproject": -(-len(angles) // 64)}:
+        raise AssertionError(f"fast-scan path launches {launches}")
+    fast = np.stack(totals)
+    if not (np.isfinite(fast).all() and (fast >= 0).all() and np.isfinite(projections).all()):
+        raise AssertionError("fast views or their line integrals are not finite")
+    if volume.shape != tuple(grid.shape) or not np.isfinite(volume).all():
+        raise AssertionError(f"CatPhan volume: shape {volume.shape} or non-finite values")
+    x, y, zc = (grid.origin_or_centered()[a] + np.arange(grid.shape[a]) * grid.spacing[a]
+                for a in range(3))
+    inside = ((x[:, None, None] ** 2 + y[None, :, None] ** 2 < 80.0**2)
+              & (np.abs(zc)[None, None, :] < 40.0))
+    mean_inside = float(volume[inside].mean())
+    say(f"CatPhan volume {volume.shape}: finite; mean inside the phantom (r < 80 mm, |z| < 40 "
+        f"mm) {mean_inside:.6f} /mm, outside {float(volume[~inside].mean()):.6f}", card)
+    if not mean_inside > 0.0:
+        raise AssertionError("CatPhan volume: mean inside the phantom is not positive")
+    return pv, source, detector, launches
+
+
+def check_primary_trace(kernels, card, scanner, pv, source, detector):
+    """``primary_trace`` against its plain version on the card for the first
+    fast-scan view (every ray of the 1848 x 768 detector), the steps per
+    view with and without the uniform-clearance repack, the device time per
+    launch beside the plain version and the bound (each input read once:
+    the distinct voxel words the rays cross, 12 B of direction per ray; L
+    written once; TRACE_FLOPS_PER_STEP per step)."""
+    from cbctmc_tpu_torch.engine import primary
+
+    geo, ts = scanner.scan_geometry, scanner.table_set
+    src = source.position[0].tolist()
+    dirs = torch.from_numpy(primary._detector_ray_dirs(
+        geo, np.asarray(src, np.float32), detector, 0)).to(DEVICE)
+    n = dirs.shape[0]
+    mats = primary.trace_materials(pv, ts)
+    cap = primary.max_trace_steps(pv)
+    steps_k = torch.empty(n, dtype=torch.int32, device=DEVICE)
+    steps_p = torch.empty_like(steps_k)
+    visited = torch.zeros(pv.packed.shape[0], dtype=torch.bool, device=DEVICE)
+    got = primary.primary_trace(pv, src, dirs, mats, cap, steps_k)
+    want = primary.primary_trace_reference(pv, src, dirs, mats, cap, steps_p, visited)
+    torch.cuda.synchronize()
+    rel = ((got - want).abs() / (1.0 + want.abs()))
+    err = float((got - want).abs().max())
+    n_rays_off = int((got != want).any(dim=1).sum())
+    steps_equal = bool(torch.equal(steps_k, steps_p))
+    stock = primary.primary_volume(scanner.volume, device=DEVICE)
+    steps_stock = torch.empty_like(steps_k)
+    primary.primary_trace(stock, src, dirs, primary.trace_materials(stock, ts),
+                          primary.max_trace_steps(stock), steps_stock)
+    n_steps, n_stock = int(steps_k.sum()), int(steps_stock.sum())
+    distinct = int(visited.sum())
+    n_bytes = distinct * 4 + n * 12 + got.numel() * 4
+    n_ops = n_steps * TRACE_FLOPS_PER_STEP
+    b_ms, b_by = bound(n_bytes, n_ops)
+    ms = kernel_ms([lambda: primary.primary_trace(pv, src, dirs, mats, cap)]
+                   * (TIMING_REPS + 1), "primary_trace")
+    p_ms = kernel_ms([lambda: primary.primary_trace_reference(pv, src, dirs, mats, cap)] * 2,
+                     None)
+    say(f"primary_trace: {n} rays, {len(pv.present)} present materials, {n_rays_off} rays "
+        f"differ from the plain version (max |diff| {err:.3e}, max |diff| / (1 + |L|) "
+        f"{float(rel.max()):.3e}), steps {'equal' if steps_equal else 'DIFFER'}; steps (voxel "
+        f"words read) per view {n_steps} with the uniform-clearance repack, {n_stock} without "
+        f"({n_stock / max(n_steps, 1):.2f}x), max per ray {int(steps_k.max())} / "
+        f"{int(steps_stock.max())} (cap {cap}); {ms:.5f} ms (plain {p_ms:.5f}; bound "
+        f"{b_ms:.6f} by {b_by}: {n_bytes} B ({distinct} distinct words), {n_ops} ops)", card)
+    if float(rel.max()) > 1e-6 or not steps_equal:
+        raise AssertionError("primary_trace differs from its plain version")
+
+    # the view's images, through the kernel and through the plain version
+    kw = dict(projection_index=0, device=DEVICE)
+    m_k, v_k = primary.deterministic_primary(pv, ts, scanner.spectrum, geo, source, detector,
+                                             **kw)
+    m_p, v_p = primary.deterministic_primary_reference(pv, ts, scanner.spectrum, geo, source,
+                                                       detector, **kw)
+    img_rel = max(float(np.abs(m_k - m_p).max() / np.abs(m_p).max()),
+                  float(np.abs(v_k - v_p).max() / np.abs(v_p).max()))
+    say(f"deterministic_primary through the kernel against the plain version: max |diff| "
+        f"relative to the image's max {img_rel:.3e}", card)
+    if img_rel > 1e-6:
+        raise AssertionError("deterministic_primary images differ from the plain version's")
+    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def cylinder_projections(geometry, angles, radius_mm: float) -> np.ndarray:
+    """Closed-form line integrals of an infinite water cylinder along z
+    (mu CYLINDER_MU, on the rotation axis) for every pixel of ``geometry``
+    and view, float32 [P, nv, nu]."""
+    u, v = geometry.u_coordinates(), geometry.v_coordinates()
+    src = geometry.source_positions(angles)
+    d = geometry.beam_directions(angles)
+    eu = geometry.u_axes(angles)
+    out = np.empty((len(angles), len(v), len(u)), np.float32)
+    for i in range(len(angles)):
+        # ray = src + t * D, D = sdd * d + u * e_u + v * e_z (pixel minus source)
+        dx = geometry.sdd * d[i, 0] + u[None, :] * eu[i, 0]
+        dy = geometry.sdd * d[i, 1] + u[None, :] * eu[i, 1]
+        dz = np.broadcast_to(v[:, None], (len(v), len(u)))
+        a = dx**2 + dy**2
+        b = 2.0 * (src[i, 0] * dx + src[i, 1] * dy)
+        c = src[i, 0] ** 2 + src[i, 1] ** 2 - radius_mm**2
+        disc = np.maximum(b * b - 4.0 * a * c, 0.0)
+        length = np.sqrt(disc) / a * np.sqrt(a + dz**2)
+        out[i] = CYLINDER_MU * length
+    return out
+
+
+# (detector offset [mm], cylinder radius [mm], bounds on the core's mean and
+# std and on the mean of a ring outside, as fractions of mu; the ring in mm)
+CYLINDER_CASES = (
+    # the centred panel (1024 x 0.388 mm: a field of view of 131 mm radius):
+    # tests/test_fdk.py:52-70's bounds
+    (0.0, 100.0, 0.03, 0.05, 0.05, (110.0, 125.0)),
+    # the half-fan panel (the shadow 1.2 times the 38.8 mm overlap, the
+    # proportion of tests/test_fdk.py:73-103): its bounds, no outside bound
+    (-159.856, 30.0, 0.05, 0.08, None, (42.0, 60.0)),
+    # the half-fan panel under the R = 100 mm cylinder: measured, not bounded
+    # (the reference crops the filtered stack to the panel and loses the
+    # ramp's tails past its edge, scripts/check_half_fan_fdk.py: ~32 % high)
+    (-159.856, 100.0, None, None, None, (140.0, 200.0)),
+)
+
+
+def reconstruct_cylinder(card, geometry, grid, offset, radius, mean_tol, std_tol, out_tol,
+                         ring):
+    from cbctmc_tpu_torch.recon import fdk
+    from cbctmc_tpu_torch.recon.geometry import mc_scan_angles
+
+    geometry = dataclasses.replace(geometry, detector_offset_u=offset)
+    angles = mc_scan_angles(CYLINDER_VIEWS)
+    proj = cylinder_projections(geometry, angles, radius)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    recon = fdk.fdk_reconstruct(proj, geometry, angles, grid=grid, hann=1.0, hann_y=0.0,
+                                device=DEVICE)
+    fdk_s = time.monotonic() - t0
+    x, y, _ = (grid.origin_or_centered()[a] + np.arange(grid.shape[a]) * grid.spacing[a]
+               for a in range(3))
+    rr = np.sqrt(x[:, None] ** 2 + y[None, :] ** 2)
+    mid = recon[:, :, grid.shape[2] // 2]
+    core, outside = mid[rr < 0.6 * radius], mid[(rr > ring[0]) & (rr < ring[1])]
+    mean_off, std = core.mean() / CYLINDER_MU - 1, core.std() / CYLINDER_MU
+    out = outside.mean() / CYLINDER_MU
+    say(f"water cylinder (mu {CYLINDER_MU} /mm, R {radius} mm, {CYLINDER_VIEWS} views, detector "
+        f"offset {offset} mm, closed-form line integrals) through fdk_reconstruct onto "
+        f"{grid.shape} in {fdk_s:.3f} s ({fdk_s / CYLINDER_VIEWS * 1e3:.2f} ms per view): core "
+        f"(r < {0.6 * radius:g} mm) mean {mean_off:+.6f} of mu, std {std:.6f} of mu; ring "
+        f"{ring} mm mean {out:+.6f} of mu; bounds {mean_tol}, {std_tol}, {out_tol}", card)
+    ok = np.isfinite(recon).all()
+    if mean_tol is not None:
+        ok &= abs(mean_off) < mean_tol and std < std_tol
+    if out_tol is not None:
+        ok &= abs(out) < out_tol
+    if not ok:
+        raise AssertionError(f"the water cylinder (R {radius} mm, offset {offset} mm) is "
+                             "outside its bounds")
+
+
+def check_backproject_and_cylinder(kernels, card):
+    """``backproject`` against its plain version on the card for one full
+    chunk (64 filtered views of the half-fan 1024 x 768 detector) on the
+    full (464, 464, 250) grid, with its device time, the plain version's,
+    ``grid_sample``'s for the chunk's bilinear sampling and the bound; then
+    FDK of analytic water cylinders over CYLINDER_VIEWS views (a full chunk
+    and a ragged one), CYLINDER_CASES."""
+    import torch.nn.functional as F
+
+    from cbctmc_tpu_torch.pipeline.reconstruction import (
+        default_cone_beam_geometry,
+        reference_grid,
+    )
+    from cbctmc_tpu_torch.recon import fdk
+    from cbctmc_tpu_torch.recon.geometry import mc_scan_angles
+
+    geometry = default_cone_beam_geometry()
+    grid = reference_grid(RECON_DIMENSION, (RECON_SPACING_MM,) * 3)
+    chunk = 64
+    angles = mc_scan_angles(CYLINDER_VIEWS)
+    proj = cylinder_projections(geometry, angles[:chunk], 100.0)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    filtered = fdk.filter_projections(proj, geometry, device=DEVICE)
+    torch.cuda.synchronize()
+    filter_wall = time.monotonic() - t0
+    filter_ms = kernel_ms([lambda: fdk.filter_projections(proj, geometry, device=DEVICE)] * 3,
+                          None)
+    views = torch.from_numpy(fdk.view_geometry(geometry, angles[:chunk])).to(DEVICE)
+    bp = fdk.BackprojectGeometry(geometry, grid, len(angles))
+    got = torch.zeros(grid.shape, dtype=torch.float32, device=DEVICE)
+    want = torch.zeros_like(got)
+    fdk.backproject_into(got, filtered, views, bp)
+    fdk.backproject_into_reference(want, filtered, views, bp)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    n_off = int((got != want).sum())
+    # CUDA events around the launches: the profiler missed this kernel in a
+    # run of the whole script (it saw it alone: 54.1 ms per chunk), and at
+    # tens of ms per launch the events' own cost is negligible
+    ms = as_run_ms([lambda: fdk.backproject_into(got, filtered, views, bp)] * 6)
+    p_ms = kernel_ms([lambda: fdk.backproject_into_reference(want, filtered, views, bp)] * 2,
+                     None)
+    # grid_sample: the chunk's bilinear sampling, one call per view (each
+    # view's sampling grid made outside the timed call)
+    nx, ny, nz = grid.shape
+    nv, nu = filtered.shape[1:]
+    X, Y, Z = (bp.origin[a] + bp.spacing[a] * torch.arange(n, dtype=torch.float32,
+                                                           device=DEVICE)
+               for a, n in enumerate(grid.shape))
+    lib_ms = 0.0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i, g in enumerate(views.tolist()):
+        rx, ry, rz = X[:, None, None] - g[0], Y[None, :, None] - g[1], Z[None, None, :] - g[2]
+        depth = torch.clamp(rx * g[3] + ry * g[4], min=1e-3)
+        pu = ((rx * g[6] + ry * g[7]) * (bp.sdd / depth) - bp.u0) * bp.inv_du
+        pv = (rz * (bp.sdd / depth) - bp.v0) * bp.inv_dv
+        sample_grid = torch.stack(torch.broadcast_tensors(2 * pu / (nu - 1) - 1,
+                                                          2 * pv / (nv - 1) - 1), dim=-1)
+        sample_grid = sample_grid.reshape(1, nx * ny, nz, 2)
+        image = filtered[i][None, None]
+        F.grid_sample(image, sample_grid, align_corners=True)  # warm-up
+        start.record()
+        F.grid_sample(image, sample_grid, align_corners=True)
+        end.record()
+        end.synchronize()
+        lib_ms += start.elapsed_time(end)
+        del sample_grid
+    voxel_views = nx * ny * nz * chunk
+    n_bytes = filtered.numel() * 4 + 2 * got.numel() * 4 + views.numel() * 4
+    b_ms, b_by = bound(n_bytes, voxel_views * BACKPROJECT_FLOPS)
+    say(f"filter_projections (cuFFT, a library call): {filter_ms:.5f} ms device time per "
+        f"chunk of {chunk} views of {nv} x {nu} ({filter_wall:.3f} s wall for the first call)",
+        card)
+    say(f"backproject: one chunk of {chunk} views onto {grid.shape}: max |diff| {err:.3e} "
+        f"({err / max(scale, 1e-30):.3e} of the volume's max {scale:.4e}), {n_off} voxels not "
+        f"bit-equal; {ms:.5f} ms (plain {p_ms:.5f}; grid_sample of the chunk's bilinear "
+        f"samples {lib_ms:.5f}; bound {b_ms:.6f} by {b_by}: {n_bytes} B, "
+        f"{voxel_views * BACKPROJECT_FLOPS} ops)", card)
+    if err > 1e-6 * scale:
+        raise AssertionError("backproject differs from its plain version")
+    del filtered, got, want
+    for case in CYLINDER_CASES:
+        reconstruct_cylinder(card, geometry, grid, *case)
+    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -1100,6 +1530,11 @@ def main() -> int:
         **check_phases(kernels, card, captured),
     }
     busy_us = profile_engine(scanner, card)
+    pv, fast_source, fast_detector, fast_launches = fast_scan_path(kernels, scanner, card)
+    launches.update(fast_launches)
+    results["primary_trace"] = check_primary_trace(kernels, card, scanner, pv, fast_source,
+                                                   fast_detector)
+    results["backproject"] = check_backproject_and_cylinder(kernels, card)
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -1111,6 +1546,8 @@ def main() -> int:
         "flight_resolve": ("flight_resolve.cu", f"{pallas}:63"),
         "tally": ("tally.cu", f"{jax_engine}:1160"),
         "philox_block": ("philox_block.cu", f"{jax_engine}:794"),
+        "primary_trace": ("primary_trace.cu", "cbctmc_tpu/engine/primary.py:208"),
+        "backproject": ("backproject.cu", "cbctmc_tpu/recon/fdk.py:144"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"cbctmc_tpu_torch/csrc/{meta[name][0]}",

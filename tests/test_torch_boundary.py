@@ -31,6 +31,12 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.engine.kernels",
     "cbctmc_tpu_torch.engine.transport",
     "cbctmc_tpu_torch.engine.simulate",
+    "cbctmc_tpu_torch.engine.primary",
+    "cbctmc_tpu_torch.physics.reference_values",
+    "cbctmc_tpu_torch.pipeline.fast_scan",
+    "cbctmc_tpu_torch.pipeline.reconstruction",
+    "cbctmc_tpu_torch.recon.geometry",
+    "cbctmc_tpu_torch.recon.fdk",
 ]
 
 _PROBE = """
@@ -127,3 +133,53 @@ def test_run_projection_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_projection(*args, config=cfg)
+
+
+@pytest.mark.parametrize("entry", ["deterministic_primary", "uniform_clearance_volume",
+                                   "sample_primary", "compose_fast_view", "compose_fast_scan",
+                                   "filter_projections", "fdk_reconstruct"])
+def test_fast_scan_and_fdk_entry_points_default_to_cuda(entry, monkeypatch):
+    """The fast-scan / FDK slice's entry points run on the card unless the
+    caller passes device="cpu"; without a card they raise."""
+    from cbctmc_tpu_torch.engine import primary
+    from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan
+    from cbctmc_tpu_torch.engine.transport import make_voxel_volume
+    from cbctmc_tpu_torch.physics.materials import default_material_set
+    from cbctmc_tpu_torch.physics.spectrum import default_spectrum
+    from cbctmc_tpu_torch.pipeline import fast_scan
+    from cbctmc_tpu_torch.recon import fdk
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
+
+    ts = default_material_set()
+    volume = make_voxel_volume(np.zeros((4, 4, 4), np.int32), np.full((4, 4, 4), 1e-3, np.float32),
+                               (0.5,) * 3, device="cpu")
+    pv = primary.primary_volume(volume, device="cpu")
+    geom = ScanGeometry(
+        n_pixels_x=4, n_pixels_z=4, detector_size_x=4.0, detector_size_z=4.0,
+        sdd=6.0, sad=4.0, aperture_phi1=-1.0, aperture_phi2=-1.0,
+        aperture_theta=-1.0, source_position_0=(1.0, -3.0, 1.0),
+    )
+    src, det = build_scan(geom, [270.0], device="cpu")
+    img = np.ones((4, 4), np.float32)
+    cfg = fast_scan.FastScanConfig(n_histories_target=1e9, pixel_area_cm2=1.0)
+    cone = ConeBeamGeometry(n_pixels_u=4, n_pixels_v=4, pixel_size_u=1.0, pixel_size_v=1.0,
+                            detector_offset_u=0.0)
+    proj = np.zeros((2, 4, 4), np.float32)
+    call = {
+        "deterministic_primary": lambda **kw: primary.deterministic_primary(
+            pv, ts, default_spectrum(), geom, src, det, **kw),
+        "uniform_clearance_volume": lambda **kw: primary.uniform_clearance_volume(volume, **kw),
+        "sample_primary": lambda **kw: primary.sample_primary(
+            torch.Generator(), img, img, 1e6, **kw),
+        "compose_fast_view": lambda **kw: fast_scan.compose_fast_view(
+            torch.Generator(), img, img, img, img, cfg, **kw),
+        "compose_fast_scan": lambda **kw: fast_scan.compose_fast_scan(
+            0, img[None], img[None], np.stack([img, img])[None], cfg, **kw),
+        "filter_projections": lambda **kw: fdk.filter_projections(proj, cone, **kw),
+        "fdk_reconstruct": lambda **kw: fdk.fdk_reconstruct(
+            proj, cone, [0.0, 180.0], grid=VolumeGrid(shape=(4, 4, 2)), **kw),
+    }[entry]
+    call(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()

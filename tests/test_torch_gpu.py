@@ -347,3 +347,116 @@ def test_workspace_and_graph_across_views_and_chunks_on_card(cuda):
                 for name, a, b in zip(carries[0]._fields, *carries):
                     assert torch.equal(a, b), name
     assert len(shared.graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# the fast-scan / FDK slice: primary_trace and backproject against their plain
+# versions on the card (same operation sequence, -fmad=false: bit-equal is
+# expected; the limits are those of chip_smoke.py)
+# ---------------------------------------------------------------------------
+def _primary_scene(device, shape=(64, 64, 64), spacing_mm=4.0):
+    from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan
+    from cbctmc_tpu_torch.geometry.phantoms import CatPhan604Geometry
+    from cbctmc_tpu_torch.physics.materials import default_material_set
+
+    ts = default_material_set()
+    phantom = CatPhan604Geometry(shape=shape, image_spacing=(spacing_mm,) * 3)
+    mats = np.ascontiguousarray(np.rot90(phantom.materials, k=3, axes=(0, 1)))
+    dens = np.ascontiguousarray(np.rot90(phantom.densities, k=3, axes=(0, 1)))
+    volume, _ = transport.make_scene(ts, mats.astype(np.int32) - 1, dens,
+                                     (spacing_mm / 10.0,) * 3, device=device)
+    size = shape[0] * spacing_mm / 10.0
+    geom = ScanGeometry(
+        n_pixels_x=192, n_pixels_z=80, detector_size_x=71.7024, detector_size_z=29.7984,
+        sdd=150.0, sad=100.0, aperture_phi1=1.4817, aperture_phi2=13.442, aperture_theta=-1.0,
+        source_position_0=(size / 2, size / 2 - 100.0, size / 2),
+    )
+    source, detector = build_scan(geom, [270.0, 37.0], device=device)
+    return ts, volume, geom, source, detector
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("repack", [False, True])
+def test_primary_trace_kernel_on_card(cuda, repack):
+    from cbctmc_tpu_torch.engine import primary
+
+    ts, volume, geom, source, detector = _primary_scene(cuda)
+    pv = (primary.uniform_clearance_volume(volume, device=cuda) if repack
+          else primary.primary_volume(volume, device=cuda))
+    mats = primary.trace_materials(pv, ts)
+    for i in range(2):
+        src = source.position[i].tolist()
+        dirs = torch.from_numpy(primary._detector_ray_dirs(
+            geom, np.asarray(src, np.float32), detector, i)).to(cuda)
+        n = dirs.shape[0]
+        steps_k = torch.empty(n, dtype=torch.int32, device=cuda)
+        steps_p = torch.empty(n, dtype=torch.int32, device=cuda)
+        before = kernels.launch_counts["primary_trace"]
+        got = primary.primary_trace(pv, src, dirs, mats, primary.max_trace_steps(pv), steps_k)
+        assert kernels.launch_counts["primary_trace"] == before + 1
+        want = primary.primary_trace_reference(pv, src, dirs, mats, primary.max_trace_steps(pv),
+                                               steps_p)
+        torch.cuda.synchronize()
+        assert torch.equal(steps_k, steps_p)
+        assert float(((got - want).abs() / (1 + want.abs())).max()) <= 1e-6
+        assert int((got != want).any(dim=1).sum()) <= n // 10_000
+
+
+@pytest.mark.gpu
+def test_uniform_clearance_and_primary_images_on_card(cuda):
+    from cbctmc_tpu_torch.engine import primary
+    from cbctmc_tpu_torch.physics.spectrum import default_spectrum
+
+    ts, volume, geom, source, detector = _primary_scene(cuda)
+    on_card = primary.uniform_clearance_volume(volume, device=cuda)
+    on_cpu = primary.uniform_clearance_volume(volume, device="cpu")
+    assert torch.equal(on_card.packed.cpu(), on_cpu.packed)
+    assert on_card.present == on_cpu.present
+    mean, var = primary.deterministic_primary(on_card, ts, default_spectrum(), geom, source,
+                                              detector, projection_index=1, device=cuda)
+    ref_mean, ref_var = primary.deterministic_primary_reference(
+        on_card, ts, default_spectrum(), geom, source, detector, projection_index=1, device=cuda)
+    assert np.abs(mean - ref_mean).max() <= 1e-6 * np.abs(ref_mean).max()
+    assert np.abs(var - ref_var).max() <= 1e-6 * np.abs(ref_var).max()
+    assert (mean > 0).mean() > 0.2
+
+
+@pytest.mark.gpu
+def test_backproject_kernel_on_card(cuda):
+    from cbctmc_tpu_torch.recon import fdk
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
+
+    geom = ConeBeamGeometry(n_pixels_u=256, n_pixels_v=96, pixel_size_u=1.552,
+                            pixel_size_v=1.552, detector_offset_u=-159.856)
+    grid = VolumeGrid(shape=(116, 116, 62), spacing=(4.0, 4.0, 4.0))
+    rng = np.random.default_rng(4)
+    angles = np.sort(rng.uniform(0, 360, 24))
+    filtered = torch.from_numpy(rng.normal(0, 1, (24, 96, 256)).astype(np.float32)).to(cuda)
+    views = torch.from_numpy(fdk.view_geometry(geom, angles)).to(cuda)
+    bp = fdk.BackprojectGeometry(geom, grid, len(angles))
+    start = torch.from_numpy(rng.normal(0, 1, grid.shape).astype(np.float32)).to(cuda)
+    got, want = start.clone(), start.clone()
+    before = kernels.launch_counts["backproject"]
+    fdk.backproject_into(got, filtered, views, bp)
+    assert kernels.launch_counts["backproject"] == before + 1
+    fdk.backproject_into_reference(want, filtered, views, bp)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_fdk_reconstruct_on_card_matches_cpu(cuda):
+    from cbctmc_tpu_torch.recon import fdk
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
+
+    geom = ConeBeamGeometry(sad=400.0, sdd=600.0, n_pixels_u=128, n_pixels_v=8,
+                            pixel_size_u=4.0, pixel_size_v=4.0, detector_offset_u=0.0)
+    rng = np.random.default_rng(5)
+    proj = rng.uniform(0, 2, (36, 8, 128)).astype(np.float32)
+    angles = np.arange(0.0, 360.0, 10.0) + 270.0
+    grid = VolumeGrid(shape=(48, 48, 4), spacing=(2.0, 2.0, 2.0))
+    kw = dict(grid=grid, water_precorrection=[0.05, 0.9, 0.02], view_chunk=10)
+    got = fdk.fdk_reconstruct(proj, geom, angles, device=cuda, **kw)
+    want = fdk.fdk_reconstruct(proj, geom, angles, device="cpu", **kw)
+    # cuFFT and the CPU's FFT round differently
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
