@@ -16,8 +16,9 @@ analytically (:func:`sample_primary`).
 
 Path lengths come from an exact Amanatides-Woo voxel traversal of the
 packed voxel word with clearance-box jumps: on the card the hand-written
-kernel ``primary_trace`` (``csrc/primary_trace.cu``, one thread per ray),
-on the CPU its plain version :func:`primary_trace_reference`.
+kernel ``primary_trace`` (``csrc/primary_trace.cu``, one thread per ray,
+the ray's sums and the material table in shared memory), on the CPU its
+plain version :func:`primary_trace_reference`.
 
 The traversal reads a :class:`PrimaryVolume`, a type of its own: the
 uniform-clearance repack (:func:`uniform_clearance_volume`) marks word-

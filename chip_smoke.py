@@ -60,13 +60,18 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     (464, 464, 250) grid with the CatPhan water precorrection (one
     ``backproject`` launch per chunk); the volume finite, positive inside
     the phantom;
-11. ``primary_trace`` against its plain version for one full view (steps
-    equal, |diff| <= 1e-6 (1 + |L|)), the steps per view with and without
-    the repack, the view's images through both (1e-6 of their max);
-    ``backproject`` against its plain version for one chunk of 64 views on
-    the full grid (1e-6 of the volume's max), with ``grid_sample`` as the
-    yardstick and ``filter_projections``' time per chunk; FDK of analytic
-    water cylinders (CYLINDER_CASES), with device times and bounds;
+    then the walls of one view of ``deterministic_primary`` and of that
+    ``fdk_reconstruct`` broken down into their steps (host work, copies,
+    the kernels, the card's library calls);
+11. ``primary_trace`` against its plain version for one full view (no ray
+    differs, steps equal), the steps per view with and without the repack,
+    the view's images through both (1e-6 of their max); ``backproject``
+    against its plain version for one chunk of 64 views on the full grid
+    (no voxel differs), with ``grid_sample`` as the yardstick and
+    ``filter_projections``' time per chunk; FDK of analytic water cylinders
+    (CYLINDER_CASES), with device times and bounds (from the kernels'
+    operation counts, and from those of their earlier forms, two divisions
+    per axis and step and one thread per voxel, beside them);
 12. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
@@ -124,8 +129,32 @@ RECON_DIMENSION = (464, 250, 464)  # reconstruct_3d's default, (x, axial, y)
 RECON_SPACING_MM = 1.0
 CYLINDER_VIEWS = 90  # a full chunk of 64 and a ragged one of 26
 CYLINDER_MU = 0.02  # water-like [1/mm]
-TRACE_FLOPS_PER_STEP = 50  # primary_trace: counted from csrc/primary_trace.cu
-BACKPROJECT_FLOPS = 45  # backproject, per voxel and view: counted from csrc/backproject.cu
+# Operation counts for the bounds, from the sources: every floating-point
+# add, sub, mul, div, min, max, floor and compare (conversions and integer
+# index arithmetic not counted), only those the function needs.
+# primary_trace, per step: 6 for the position, 3 divisions and 3 floors for
+# the cell, 1 for the density, 4 in each of the three axis steps for the
+# span and its lower face (2^k vs, q 2^-k, its floor, times the span), 3 + 3
+# + 2 for dt, t_next and seg, 3 for the sum, 1 for the exit test: 37; then
+# each axis's distance to the next face, 3 where the direction is positive
+# (face + span - p, times 1/d) and 2 where not (face - p, times 1/d): 43 to
+# 46 per step, counted per ray from its direction and its steps.
+# backproject, per voxel-view: 23 that depend on z (rz, v, pv, the v half of
+# the inside test, the clip, fv, 1 - fv, the four-term sum, the weight and
+# the add), 21 per column-view for the column's prologue (rx, ry, depth and
+# its clamp, sdd / depth, u, pu, the u half of the inside test, the clip,
+# fu, 1 - fu, (sad / depth)^2), 2 per voxel for the epilogue. The earlier
+# forms of the kernels (two divisions per axis and step; one thread per
+# voxel) were counted at 50 per step and 45 per voxel-view; their bounds
+# are printed beside these, so a ratio to the bound does not improve by the
+# count moving.
+TRACE_FLOPS_PER_STEP = 37
+TRACE_FLOPS_AXIS_UP, TRACE_FLOPS_AXIS_DOWN = 3, 2
+TRACE_FLOPS_PER_STEP_TWO_DIVISIONS = 50
+BACKPROJECT_Z_FLOPS = 23
+BACKPROJECT_COLUMN_FLOPS = 21
+BACKPROJECT_VOXEL_FLOPS = 2
+BACKPROJECT_FLOPS_PER_VOXEL_FORM = 45
 
 
 def card_line() -> str:
@@ -1263,7 +1292,113 @@ def fast_scan_path(kernels, scanner, card):
         f"mm) {mean_inside:.6f} /mm, outside {float(volume[~inside].mean()):.6f}", card)
     if not mean_inside > 0.0:
         raise AssertionError("CatPhan volume: mean inside the phantom is not positive")
-    return pv, source, detector, launches
+    walls = dict(primary_ms=primary_s * 1e3, fdk_s=fdk_s, projections=projections,
+                 angles=angles)
+    return pv, source, detector, launches, walls
+
+
+def fast_scan_walls(card, scanner, pv, source, detector, walls):
+    """Where the walls of ``deterministic_primary`` and ``fdk_reconstruct``
+    go, outside the two kernels: the steps of one view of
+    ``primary._deterministic_primary`` and of ``fdk_reconstruct`` on the
+    fast-scan path's projections, as the functions run them, through the
+    modules' own helpers, each timed on the host clock between two
+    ``torch.cuda.synchronize()``; beside each function's wall for the same
+    call (warm: the path has run both already)."""
+    from cbctmc_tpu_torch.engine import primary
+    from cbctmc_tpu_torch.physics.reference_values import DEFAULT_WPC_CATPHAN604
+    from cbctmc_tpu_torch.pipeline.reconstruction import (
+        default_cone_beam_geometry,
+        reference_grid,
+    )
+    from cbctmc_tpu_torch.recon import fdk
+
+    def timed(table, name, fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        table[name] = (time.monotonic() - t0) * 1e3
+        return out
+
+    def report(label, wall_ms, table):
+        parts = "; ".join(f"{k} {v:.2f}" for k, v in table.items())
+        say(f"{label}: wall {wall_ms:.2f} ms; steps [ms] {parts}; sum {sum(table.values()):.2f} "
+            f"ms", card)
+
+    geo, ts, spectrum = scanner.scan_geometry, scanner.table_set, scanner.spectrum
+    view = {}
+    quadrature = timed(view, "spectrum quadrature (host, the caller may pass it)",
+                       lambda: primary.SpectrumQuadrature.build(ts, spectrum, 2))
+    fractions = timed(view, "photon fractions (host float64, the caller may pass it)",
+                      lambda: primary.photon_fractions(geo))
+    kw = dict(projection_index=0, fractions=fractions, quadrature=quadrature, device=DEVICE)
+    wall = {}
+    timed(wall, "wall", lambda: primary.deterministic_primary(pv, ts, spectrum, geo, source,
+                                                              detector, **kw))
+    src = timed(view, "source position to the host",
+                lambda: np.asarray(source.position[0].cpu().numpy(), np.float32))
+    dirs = timed(view, "ray directions (host float64)",
+                 lambda: primary._detector_ray_dirs(geo, src, detector, 0))
+    mats = timed(view, "materials table to the card", lambda: primary.trace_materials(pv, ts))
+    d_dev = timed(view, "directions to the card", lambda: torch.from_numpy(dirs).to(DEVICE))
+    L = timed(view, "primary_trace", lambda: primary.primary_trace(
+        pv, src.tolist(), d_dev, mats, primary.max_trace_steps(pv)))
+    present = list(pv.present)
+
+    def products():
+        mu = torch.from_numpy(quadrature.mu_matrix[present]).to(DEVICE)
+        wE = torch.from_numpy(quadrature.weights * quadrature.energies_ev).to(DEVICE)
+        wE2 = torch.from_numpy((quadrature.weights * quadrature.energies_ev.astype(np.float64)
+                                ** 2).astype(np.float32)).to(DEVICE)
+        with primary._full_float32_matmul():
+            trans = torch.exp(-(L @ mu))
+            return trans @ wE, trans @ wE2
+
+    mean_d, var_d = timed(view, "transmission products (card)", products)
+    mean, var = timed(view, "copies back", lambda: (mean_d.cpu().numpy(), var_d.cpu().numpy()))
+    shape = (geo.n_pixels_z, geo.n_pixels_x)
+    a_pix = geo.pixel_size_x * geo.pixel_size_z
+    timed(view, "image epilogue (host)", lambda: (
+        (fractions * mean.reshape(shape) / a_pix).astype(np.float32),
+        (fractions * var.reshape(shape) / a_pix**2).astype(np.float32)))
+    report(f"deterministic_primary, one view of {L.shape[0]} rays (path's mean "
+           f"{walls['primary_ms']:.2f} ms per view)", wall["wall"], view)
+
+    projections, angles = walls["projections"], walls["angles"]
+    geometry = default_cone_beam_geometry()
+    grid = reference_grid(RECON_DIMENSION, (RECON_SPACING_MM,) * 3)
+    wpc = DEFAULT_WPC_CATPHAN604
+    timed(wall, "fdk", lambda: fdk.fdk_reconstruct(projections, geometry, angles, grid=grid,
+                                                   water_precorrection=wpc, device=DEVICE))
+    recon = {}
+    stack = timed(recon, "float32 stack (host)", lambda: np.asarray(projections, np.float32))
+    n_views = stack.shape[0]
+    bp = timed(recon, "geometry (host)", lambda: fdk.BackprojectGeometry(geometry, grid,
+                                                                         len(angles)))
+    views_all = fdk.view_geometry(geometry, angles)
+    vol = timed(recon, "volume zeroed on the card",
+                lambda: torch.zeros(bp.shape, dtype=torch.float32, device=DEVICE))
+    chunk_size = min(64, n_views)
+    for start in range(0, n_views, chunk_size):
+        stop = min(start + chunk_size, n_views)
+
+        def assemble():
+            chunk = np.zeros((chunk_size, *stack.shape[1:]), np.float32)
+            chunk[: stop - start] = stack[start:stop]
+            views = np.repeat(views_all[stop - 1 : stop], chunk_size, axis=0)
+            views[: stop - start] = views_all[start:stop]
+            return chunk, views
+
+        chunk, views = timed(recon, "chunk assembly (host)", assemble)
+        chunk_d, views_d = timed(recon, "chunk to the card", lambda: (
+            torch.from_numpy(chunk).to(DEVICE), torch.from_numpy(views).to(DEVICE)))
+        filtered = timed(recon, "filter_projections (card)", lambda: fdk.filter_projections(
+            chunk_d, geometry, water_precorrection=wpc, device=DEVICE))
+        timed(recon, "backproject", lambda: fdk.backproject_into(vol, filtered, views_d, bp))
+    timed(recon, "volume to the host", lambda: vol.cpu().numpy())
+    report(f"fdk_reconstruct, {n_views} views onto {grid.shape} (path's {walls['fdk_s']:.3f} s, "
+           f"its first call)", wall["fdk"], recon)
 
 
 def check_primary_trace(kernels, card, scanner, pv, source, detector):
@@ -1272,7 +1407,8 @@ def check_primary_trace(kernels, card, scanner, pv, source, detector):
     view with and without the uniform-clearance repack, the device time per
     launch beside the plain version and the bound (each input read once:
     the distinct voxel words the rays cross, 12 B of direction per ray; L
-    written once; TRACE_FLOPS_PER_STEP per step)."""
+    written once; per step TRACE_FLOPS_PER_STEP and each axis's distance to
+    its next face)."""
     from cbctmc_tpu_torch.engine import primary
 
     geo, ts = scanner.scan_geometry, scanner.table_set
@@ -1299,8 +1435,12 @@ def check_primary_trace(kernels, card, scanner, pv, source, detector):
     n_steps, n_stock = int(steps_k.sum()), int(steps_stock.sum())
     distinct = int(visited.sum())
     n_bytes = distinct * 4 + n * 12 + got.numel() * 4
-    n_ops = n_steps * TRACE_FLOPS_PER_STEP
+    up = (dirs > 0).sum(dim=1)
+    per_step = (TRACE_FLOPS_PER_STEP + up * TRACE_FLOPS_AXIS_UP
+                + (3 - up) * TRACE_FLOPS_AXIS_DOWN)
+    n_ops = int((steps_k.long() * per_step).sum())
     b_ms, b_by = bound(n_bytes, n_ops)
+    b4_ms, b4_by = bound(n_bytes, n_steps * TRACE_FLOPS_PER_STEP_TWO_DIVISIONS)
     ms = kernel_ms([lambda: primary.primary_trace(pv, src, dirs, mats, cap)]
                    * (TIMING_REPS + 1), "primary_trace")
     p_ms = kernel_ms([lambda: primary.primary_trace_reference(pv, src, dirs, mats, cap)] * 2,
@@ -1311,8 +1451,11 @@ def check_primary_trace(kernels, card, scanner, pv, source, detector):
         f"words read) per view {n_steps} with the uniform-clearance repack, {n_stock} without "
         f"({n_stock / max(n_steps, 1):.2f}x), max per ray {int(steps_k.max())} / "
         f"{int(steps_stock.max())} (cap {cap}); {ms:.5f} ms (plain {p_ms:.5f}; bound "
-        f"{b_ms:.6f} by {b_by}: {n_bytes} B ({distinct} distinct words), {n_ops} ops)", card)
-    if float(rel.max()) > 1e-6 or not steps_equal:
+        f"{b_ms:.6f} by {b_by}: {n_bytes} B ({distinct} distinct words), {n_ops} ops, "
+        f"{n_ops / max(n_steps, 1):.4f} per step; with the two-division form's "
+        f"{TRACE_FLOPS_PER_STEP_TWO_DIVISIONS} per step {b4_ms:.6f} by {b4_by}; the kernels "
+        f"line uses the first)", card)
+    if float(rel.max()) > 1e-6 or not steps_equal or n_rays_off:
         raise AssertionError("primary_trace differs from its plain version")
 
     # the view's images, through the kernel and through the plain version
@@ -1476,16 +1619,21 @@ def check_backproject_and_cylinder(kernels, card):
         del sample_grid
     voxel_views = nx * ny * nz * chunk
     n_bytes = filtered.numel() * 4 + 2 * got.numel() * 4 + views.numel() * 4
-    b_ms, b_by = bound(n_bytes, voxel_views * BACKPROJECT_FLOPS)
+    n_ops = (voxel_views * BACKPROJECT_Z_FLOPS + nx * ny * chunk * BACKPROJECT_COLUMN_FLOPS
+             + nx * ny * nz * BACKPROJECT_VOXEL_FLOPS)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    b4_ms, b4_by = bound(n_bytes, voxel_views * BACKPROJECT_FLOPS_PER_VOXEL_FORM)
     say(f"filter_projections (cuFFT, a library call): {filter_ms:.5f} ms device time per "
         f"chunk of {chunk} views of {nv} x {nu} ({filter_wall:.3f} s wall for the first call)",
         card)
     say(f"backproject: one chunk of {chunk} views onto {grid.shape}: max |diff| {err:.3e} "
         f"({err / max(scale, 1e-30):.3e} of the volume's max {scale:.4e}), {n_off} voxels not "
         f"bit-equal; {ms:.5f} ms (plain {p_ms:.5f}; grid_sample of the chunk's bilinear "
-        f"samples {lib_ms:.5f}; bound {b_ms:.6f} by {b_by}: {n_bytes} B, "
-        f"{voxel_views * BACKPROJECT_FLOPS} ops)", card)
-    if err > 1e-6 * scale:
+        f"samples {lib_ms:.5f}; bound {b_ms:.6f} by {b_by}: {n_bytes} B, {n_ops} ops "
+        f"({n_ops / voxel_views:.4f} per voxel-view); with the one-thread-per-voxel form's "
+        f"{BACKPROJECT_FLOPS_PER_VOXEL_FORM} per voxel-view {b4_ms:.6f} by {b4_by}; the kernels "
+        f"line uses the first)", card)
+    if err > 1e-6 * scale or n_off:
         raise AssertionError("backproject differs from its plain version")
     del filtered, got, want
     for case in CYLINDER_CASES:
@@ -1530,8 +1678,10 @@ def main() -> int:
         **check_phases(kernels, card, captured),
     }
     busy_us = profile_engine(scanner, card)
-    pv, fast_source, fast_detector, fast_launches = fast_scan_path(kernels, scanner, card)
+    pv, fast_source, fast_detector, fast_launches, walls = fast_scan_path(kernels, scanner,
+                                                                           card)
     launches.update(fast_launches)
+    fast_scan_walls(card, scanner, pv, fast_source, fast_detector, walls)
     results["primary_trace"] = check_primary_trace(kernels, card, scanner, pv, fast_source,
                                                    fast_detector)
     results["backproject"] = check_backproject_and_cylinder(kernels, card)

@@ -460,3 +460,133 @@ def test_fdk_reconstruct_on_card_matches_cpu(cuda):
     want = fdk.fdk_reconstruct(proj, geom, angles, device="cpu", **kw)
     # cuFFT and the CPU's FFT round differently
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# the edges of the redesigned kernels: backproject's column segments and x-y
+# tiles, primary_trace's rays with their sums and tables in shared memory;
+# every output bit-equal to the plain version
+# ---------------------------------------------------------------------------
+def _small_panel_backprojection(device, grid_shape, n_views, seed):
+    from cbctmc_tpu_torch.recon import fdk
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
+
+    # a panel whose field of view (~66 mm at the isocentre) is narrower than
+    # the 8 mm grid: most voxels fall off the detector in most views
+    geom = ConeBeamGeometry(n_pixels_u=64, n_pixels_v=24, pixel_size_u=1.552,
+                            pixel_size_v=1.552, detector_offset_u=-20.0)
+    grid = VolumeGrid(shape=grid_shape, spacing=(8.0, 8.0, 3.0))
+    rng = np.random.default_rng(seed)
+    angles = np.sort(rng.uniform(0, 360, n_views))
+    filtered = torch.from_numpy(
+        rng.normal(0, 1, (n_views, 24, 64)).astype(np.float32)).to(device)
+    views = torch.from_numpy(fdk.view_geometry(geom, angles)).to(device)
+    bp = fdk.BackprojectGeometry(geom, grid, n_views)
+    start = torch.from_numpy(rng.normal(0, 1, grid_shape).astype(np.float32)).to(device)
+    return fdk, filtered, views, bp, start
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid_shape", [(37, 29, 13), (33, 17, 250)])
+@pytest.mark.parametrize("n_views", [1, 64])
+def test_backproject_kernel_edges_on_card(cuda, grid_shape, n_views):
+    """nx and ny not multiples of the tile, nz below the z segment or not a
+    multiple of it, one view and a full chunk, voxels off the detector."""
+    fdk, filtered, views, bp, start = _small_panel_backprojection(cuda, grid_shape, n_views, 6)
+    got, want = start.clone(), start.clone()
+    before = kernels.launch_counts["backproject"]
+    fdk.backproject_into(got, filtered, views, bp)
+    assert kernels.launch_counts["backproject"] == before + 1
+    fdk.backproject_into_reference(want, filtered, views, bp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # some voxels fell off the detector in every view, some did not
+    assert bool((want == start).any()) and bool((want != start).any())
+
+
+@pytest.mark.gpu
+def test_backproject_kernel_repeats_on_card(cuda):
+    fdk, filtered, views, bp, start = _small_panel_backprojection(cuda, (33, 17, 250), 64, 7)
+    first, second = start.clone(), start.clone()
+    fdk.backproject_into(first, filtered, views, bp)
+    fdk.backproject_into(second, filtered, views, bp)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _word_scene(device, shape=(24, 20, 16), vs=0.4, seed=0):
+    """A PrimaryVolume of random words (every raw material 0..31, clearance
+    levels 0..3, random densities) with all 32 materials as columns of L,
+    and a source outside the box whose y and z lie on voxel planes."""
+    from cbctmc_tpu_torch.engine import primary
+
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    mat = rng.integers(0, 32, n).astype(np.uint32)
+    mat[:32] = np.arange(32, dtype=np.uint32)
+    level = rng.integers(0, 4, n).astype(np.uint32)
+    den = rng.integers(1, 1 << 21, n).astype(np.uint32)
+    words = (mat << 27) | (level << 24) | den
+    pv = primary._primary_volume(
+        torch.from_numpy(words.view(np.int32)), shape, torch.full((3,), vs),
+        torch.tensor(1.0 / (1 << 20)), device)
+    assert pv.present == tuple(range(32))
+    mats = primary.TraceMaterials(
+        remap=torch.arange(32, dtype=torch.int32, device=device),
+        inv_rho=torch.from_numpy(rng.uniform(0.3, 3.0, 32).astype(np.float32)).to(device))
+    v32 = np.float32(vs)
+    src = [-2.0, float(np.float32(8) * v32), float(np.float32(6) * v32)]
+    return primary, pv, mats, src
+
+
+def _word_scene_rays(src, shape, vs, n, seed):
+    """n unit directions from src: most toward random points of the box, a
+    tenth away from it (they miss), and the first along +x exactly (through
+    the voxel planes y = 8 vs, z = 6 vs: the reference's crawl)."""
+    rng = np.random.default_rng(seed)
+    box = np.asarray(shape, np.float64) * vs
+    d = rng.uniform(0.0, 1.0, (n, 3)) * box - np.asarray(src, np.float64)
+    d[: n // 10] *= -1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[0] = (1.0, 0.0, 0.0)
+    return d.astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rays", [1, 31, 1_197])
+def test_primary_trace_kernel_edges_on_card(cuda, n_rays):
+    """32 materials (the 5-bit maximum), rays that miss the box, the axis ray
+    that crawls to the step cap, ray counts that are not multiples of the
+    warp's 32 rays."""
+    shape, vs = (24, 20, 16), 0.4
+    primary, pv, mats, src = _word_scene(cuda, shape, vs)
+    dirs = torch.from_numpy(_word_scene_rays(src, shape, vs, n_rays, 8)).to(cuda)
+    cap = primary.max_trace_steps(pv)
+    steps_k = torch.full((n_rays,), -1, dtype=torch.int32, device=cuda)
+    steps_p = torch.empty_like(steps_k)
+    before = kernels.launch_counts["primary_trace"]
+    got = primary.primary_trace(pv, src, dirs, mats, cap, steps_k)
+    assert kernels.launch_counts["primary_trace"] == before + 1
+    want = primary.primary_trace_reference(pv, src, dirs, mats, cap, steps_p)
+    torch.cuda.synchronize()
+    assert torch.equal(steps_k, steps_p)
+    assert torch.equal(got, want)
+    assert int(steps_p[0]) == cap  # the axis ray along a voxel plane crawls
+    if n_rays > 10:
+        assert int((steps_p[1 : n_rays // 10] == 0).sum()) == n_rays // 10 - 1  # misses
+        assert int((steps_p > 0).sum()) > n_rays // 2
+
+
+@pytest.mark.gpu
+def test_primary_trace_kernel_repeats_on_card(cuda):
+    """Two launches on the same inputs give identical output."""
+    shape, vs = (24, 20, 16), 0.4
+    primary, pv, mats, src = _word_scene(cuda, shape, vs, seed=1)
+    dirs = torch.from_numpy(_word_scene_rays(src, shape, vs, 5_000, 9)).to(cuda)
+    cap = primary.max_trace_steps(pv)
+    s1 = torch.empty(dirs.shape[0], dtype=torch.int32, device=cuda)
+    s2 = torch.empty_like(s1)
+    first = primary.primary_trace(pv, src, dirs, mats, cap, s1)
+    second = primary.primary_trace(pv, src, dirs, mats, cap, s2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(s1, s2)

@@ -403,3 +403,35 @@ def test_mcscanner_refuses_primary_volume(sets):
     with pytest.raises(TypeError, match="PrimaryVolume"):
         tprimary.deterministic_primary(engine_volume, tts, default_spectrum(),
                                        scanner.scan_geometry, source, detector, device="cpu")
+
+
+# voxel sizes [cm] of the traversals the port runs: chip_smoke.py's 500^3
+# CatPhan at 1 mm, the 4 mm CatPhans of these tests and the card tests, the
+# 5 mm scenes of these tests, an 8 mm CatPhan, AirGeometry's 2000 mm voxel
+@pytest.mark.parametrize("vs_cm", [0.1, 0.4, 0.5, 0.8, 200.0])
+def test_trace_span_floor_from_the_cell_division(vs_cm):
+    """``primary_trace`` (csrc/primary_trace.cu) divides a position by the
+    voxel size once per axis and step and takes both the cell and the
+    clearance box's lower face from that quotient: for span = 2^k * vs
+    (exact), floor(p / span) * span == floor((p / vs) * 2^-k) * span in
+    float32, because rounding commutes with scaling by a power of two. Held
+    here on random positions in [0, 60] cm (or one voxel), on the multiples
+    of vs and on their float32 neighbours, for every clearance level k."""
+    vs = np.float32(vs_cm)
+    top = max(60.0, vs_cm)
+    rng = np.random.default_rng(int(vs_cm * 1000))
+    multiples = np.arange(int(top / vs_cm) + 2, dtype=np.float32) * vs
+    p = np.concatenate([
+        rng.uniform(0.0, top, 200_000).astype(np.float32),
+        multiples,
+        np.nextafter(multiples, np.float32(np.inf)),
+        np.nextafter(multiples[1:], np.float32(0.0)),
+    ]).astype(np.float32)
+    q = p / vs
+    assert q.dtype == np.float32
+    for k in range(8):
+        span = np.float32(1 << k) * vs
+        want = np.floor(p / span) * span
+        got = np.floor(q * np.float32(2.0**-k)) * span
+        assert want.dtype == got.dtype == np.float32
+        assert np.array_equal(got, want), (k, int((got != want).sum()))
