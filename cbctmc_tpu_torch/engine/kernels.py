@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels: the engine's, with their plain
 PyTorch versions, the build of all of them, and the launch counters.
 
-Nine kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
+Thirteen kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
 what it replaces, what bounds it and how its design answers that). Two are
 the phases of the engine's outer iteration, the only device work
 :func:`cbctmc_tpu_torch.engine.transport.run_projection` issues on the card
@@ -37,13 +37,21 @@ and timed on its own (``transport.run_projection_stepwise`` drives all but
   word, one flight per launch with the lane state in device memory (the
   body is ``csrc/flight.cuh``, which ``flight_resolve`` shares).
 
-Two serve the fast-scan and reconstruction path; their wrappers and plain
+Six serve the fast-scan and reconstruction paths; their wrappers and plain
 versions live beside the code that calls them:
 
 - ``primary_trace``: the deterministic primary's voxel traversal
   (:func:`cbctmc_tpu_torch.engine.primary.primary_trace`);
 - ``backproject``: FDK's voxel-driven backprojection of a chunk of views
-  (:func:`cbctmc_tpu_torch.recon.fdk.backproject_into`).
+  (:func:`cbctmc_tpu_torch.recon.fdk.backproject_into`);
+- ``joseph_project`` and ``joseph_splat``: the ray-marched forward
+  projection and its exact transpose
+  (:func:`cbctmc_tpu_torch.recon.joseph.joseph_project` /
+  :func:`~cbctmc_tpu_torch.recon.joseph.joseph_splat`);
+- ``tv_spatial`` and ``tv_temporal``: ROOSTER's spatial (Chambolle) and
+  temporal total-variation steps
+  (:func:`cbctmc_tpu_torch.recon.rooster.spatial_tv` /
+  :func:`~cbctmc_tpu_torch.recon.rooster.temporal_tv`).
 
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ctypes, at first use, into
@@ -82,7 +90,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_resolve",
-           "tally", "philox_block", "primary_trace", "backproject")
+           "tally", "philox_block", "primary_trace", "backproject", "joseph_project",
+           "joseph_splat", "tv_spatial", "tv_temporal")
 #: the control word (csrc/engine.cuh CTRL_LAUNCHES_*) in which each phase
 #: kernel counts its launches that did work
 PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13}
@@ -255,6 +264,12 @@ _SIGNATURES = {
                       _P, _P, _P],
     "backproject": [_P, _I, _I, _I, _P, _F, _F, _F, _F, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                     _F, _F, _F, _P, _P],
+    "joseph_project": [_P, _I, _I, _I, *[_F] * 15, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "joseph_splat": [_P, _I, _I, _I, *[_F] * 15, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "tv_spatial": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "tv_spatial:tv_spatial_update": [_P, _P, _I, _I, _I, _I, _P],
+    "tv_spatial:tv_spatial_finish": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "tv_temporal": [_P, _I, ctypes.c_longlong, _F, _I, _P, _P],
 }
 
 

@@ -6,7 +6,10 @@ voxelised scene. These functions take the JAX package's ``DeviceTables``,
 field name to array, e.g. ``{k: np.asarray(v) for k, v in t._asdict().items()}``)
 and build the port's tensors, so tests can feed both engines one state;
 :func:`primary_volume_from_numpy` does the same for the deterministic
-primary's traversal. Nothing here imports the JAX package.
+primary's traversal. :func:`rooster_checkpoint_from_numpy` reads the
+state a 4D ROOSTER run carries from one outer iteration to the next, as
+either package's checkpoint file holds it. Nothing here imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -72,3 +75,19 @@ def primary_volume_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> 
         _tensor(np.asarray(fields["den_scale"], np.float32), dev),
         dev,
     )
+
+
+def rooster_checkpoint_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> dict:
+    """A ROOSTER checkpoint (the ``.npz`` that ``rooster_reconstruct`` of
+    either package writes after each outer iteration: ``key``, the repr of
+    the grid shape, the parameters' ``astuple`` and the projections' shape;
+    ``outer_done``; ``volumes f32[n_phases, nx, ny, nz]``) as ``{"key": str,
+    "outer_done": int, "volumes": tensor}`` on ``device``. A file without a
+    key gets the key ``""``, which matches no run."""
+    dev = resolve_device(device)
+    key = str(fields["key"]) if "key" in fields else ""
+    return {
+        "key": key,
+        "outer_done": int(fields["outer_done"]),
+        "volumes": _tensor(np.asarray(fields["volumes"], np.float32), dev),
+    }

@@ -139,10 +139,12 @@ def filter_projections(
 class BackprojectGeometry:
     """The float32 scalars of a backprojection (as the JAX package casts
     them): detector origin and inverse pitch, the grid's first voxel centre
-    and spacing, sad, sdd and the angular weight."""
+    and spacing, sad, sdd and the angular weight: FDK's
+    ``arc / (2 n_angles)`` in radians unless ``angular_weight`` is given
+    (ROOSTER's Landweber step passes ``1 / n_views``)."""
 
     def __init__(self, geometry: ConeBeamGeometry, grid: VolumeGrid, n_angles: int,
-                 arc_deg: float = 360.0):
+                 arc_deg: float = 360.0, angular_weight: float | None = None):
         f32 = lambda x: float(np.float32(x))  # noqa: E731
         u = geometry.u_coordinates()
         v = geometry.v_coordinates()
@@ -152,7 +154,9 @@ class BackprojectGeometry:
         self.spacing = [f32(x) for x in grid.spacing]
         self.shape = tuple(int(s) for s in grid.shape)
         self.sad, self.sdd = f32(geometry.sad), f32(geometry.sdd)
-        self.angular_weight = f32(np.deg2rad(arc_deg) / (2.0 * n_angles))
+        if angular_weight is None:
+            angular_weight = np.deg2rad(arc_deg) / (2.0 * n_angles)
+        self.angular_weight = f32(angular_weight)
 
 
 def view_geometry(geometry: ConeBeamGeometry, angles_deg) -> np.ndarray:

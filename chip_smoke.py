@@ -4,7 +4,7 @@ NVIDIA card and hold every hand-written kernel against its plain version.
 
 Phases (each raises on failure; nothing lets the run exit 0 after one):
 
-1. print the card (``nvidia-smi`` name, power limit); build the nine kernels
+1. print the card (``nvidia-smi`` name, power limit); build the thirteen kernels
    from ``cbctmc_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. ``probe_gather("cuda")`` must be True; Philox in a kernel
    (``csrc/philox.cuh``) against the plain version: Random123's three
@@ -72,7 +72,25 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     (CYLINDER_CASES), with device times and bounds (from the kernels'
     operation counts, and from those of their earlier forms, two divisions
     per axis and step and one thread per voxel, beside them);
-12. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+12. the ``recon-mc`` path at full width (the half-fan 1024 x 768 panel, the
+    (464, 464, 250) grid), its launch counters zeroed before and read after:
+    the fast-scan views written as a projection stack and ``reconstruct_3d``
+    of the file (the volume read back, no voxel may differ from the
+    in-memory FDK of the same stack); a moving phantom (the CatPhan mu volume
+    with a sphere moving along z with the breathing phase) projected by
+    ``project_forward`` onto 160 views at their own phases, written as a
+    stack, and ``reconstruct_4d`` of it (10 phases, one outer iteration, two
+    CG steps) on the shear-warp pair and on the Joseph pair, each volume
+    read back (the checkpoint removed; the insert's z centroid over the
+    phases whose insert is above z = 0 above 0, over the others below, the
+    phases' departures from their mean correlated positively with the
+    phantom's); then ``joseph_project`` (no ray
+    may differ) and ``joseph_splat`` (1e-5 of the volume's max, the adjoint
+    identity within 1e-4) on one full view against their plain versions
+    with ``grid_sample`` / ``index_add_`` as yardsticks, and ``tv_spatial``
+    (one iteration) and ``tv_temporal`` (10) over the 10 phase volumes (no
+    voxel may differ);
+13. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -84,6 +102,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
+import re
 import subprocess
 import sys
 import time
@@ -129,6 +149,18 @@ RECON_DIMENSION = (464, 250, 464)  # reconstruct_3d's default, (x, axial, y)
 RECON_SPACING_MM = 1.0
 CYLINDER_VIEWS = 90  # a full chunk of 64 and a ragged one of 26
 CYLINDER_MU = 0.02  # water-like [1/mm]
+# the recon-mc path (reconstruct_3d, reconstruct_4d) on the same grid and panel
+# 16 views per phase: with 4 views a phase (40 views) two CG steps barely move the
+# insert at this grid (PERF.md, section 6)
+ROOSTER_VIEWS = 160  # over 360 deg (the reference scans 894)
+ROOSTER_CYCLES = 16  # breathing cycles over the views: 10 views per cycle, one per phase
+ROOSTER_PHASES = 10
+ROOSTER_ITERATIONS = 1  # outer iterations (the reference runs 10)
+ROOSTER_CG_STEPS = 2  # CG steps per outer iteration (the reference runs 4)
+INSERT_MU = 0.08  # dense bone [1/mm]
+INSERT_RADIUS_MM = 20.0
+INSERT_XY_MM = (40.0, 0.0)
+INSERT_AMPLITUDE_MM = 20.0  # z excursion of the insert over a breathing cycle
 # Operation counts for the bounds, from the sources: every floating-point
 # add, sub, mul, div, min, max, floor and compare (conversions and integer
 # index arithmetic not counted), only those the function needs.
@@ -155,6 +187,24 @@ BACKPROJECT_Z_FLOPS = 23
 BACKPROJECT_COLUMN_FLOPS = 21
 BACKPROJECT_VOXEL_FLOPS = 2
 BACKPROJECT_FLOPS_PER_VOXEL_FORM = 45
+# joseph_project: per ray 49 (detector point 12, ray 3, norm 6, direction 3,
+# box entry 24, the final scale 1); per step of the march 21 (t 3, position
+# 6, index 6, the inside test 6), charged only for the steps a ray needs
+# (check_joseph_kernels); per step inside the volume 31 (floors 3,
+# offsets 3, 1 - f 3, the interpolation 21, the sum 1). joseph_splat: the
+# same march, the ray's value (1 per ray), and per step inside 41 (floors 3,
+# offsets 3, 1 - f 3, the eight weights 16, their products with the value 8,
+# the eight additions 8). tv_spatial: per voxel and iteration 27 (d 7; g 3,
+# the norm 6, the denominator 2, the update 9), 7 for the last launch.
+# tv_temporal: per voxel, phase and iteration 9 (q 2, g 1, the update 6), 4
+# per voxel and phase outside the loop (the division and the result's 3).
+JOSEPH_RAY_FLOPS = 49
+JOSEPH_STEP_FLOPS = 21
+JOSEPH_INSIDE_FLOPS = 31
+SPLAT_INSIDE_FLOPS = 41
+TV_SPATIAL_ITER_FLOPS = 27
+TV_SPATIAL_FINISH_FLOPS = 7
+TV_TEMPORAL_FLOPS = 9
 
 
 def card_line() -> str:
@@ -180,24 +230,37 @@ def device_events(prof):
             yield e.name, (getattr(e, "cuda_time", 0.0) if t_us is None else t_us)
 
 
-def kernel_ms(calls, kernel: str | None) -> float:
-    """Device time per call of the device functions named ``kernel...``
-    (every device operation when None), from the profiler's trace of the
-    calls after a warm-up call."""
+def kernel_ms(calls, kernel: str | None) -> tuple:
+    """``(ms, timer)``: the device time per call of the device functions
+    named ``kernel...`` (after the ``void`` and the namespaces of a
+    templated kernel's name; every device operation when None), from the
+    profiler's trace of the calls after a warm-up call, and ``"profiler"``.
+    On the card's machine the profiler now and then records no device event
+    at all in a window; it is asked twice, and then the calls are timed by
+    CUDA events (:func:`as_run_ms`, which counts host gaps and every
+    operation of the calls) and the timer is ``"events"``."""
     from torch.profiler import ProfilerActivity, profile
 
-    calls[0]()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for call in calls[1:]:
-            call()
+    for _ in range(2):
+        calls[0]()
         torch.cuda.synchronize()
-    total_us = sum(t for name, t in device_events(prof)
-                   if kernel is None or name.startswith(kernel))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for call in calls[1:]:
+                call()
+            torch.cuda.synchronize()
+        events = list(device_events(prof))
+        if events:
+            break
+    else:
+        say(f"the profiler recorded no device event in two windows: {kernel} timed by CUDA "
+            "events")
+        return as_run_ms(calls), "events"
+    named = re.compile(rf"(?:^|[\s:]){re.escape(kernel or '')}")
+    total_us = sum(t for name, t in events if named.search(name))
     if total_us <= 0.0:
-        seen = sorted({name[:60] for name, _ in device_events(prof)})
+        seen = sorted({name[:60] for name, _ in events})
         raise AssertionError(f"the profiler saw no device time for {kernel}; it saw {seen}")
-    return total_us / 1e3 / (len(calls) - 1)
+    return total_us / 1e3 / (len(calls) - 1), "profiler"
 
 
 def as_run_ms(calls) -> float:
@@ -657,12 +720,12 @@ def check_philox(kernels, card, cfg):
     n_off += int((out.cpu() != philox_bits(key, 4, n_rows, n, "cpu")).sum())
     if n_off:
         raise AssertionError(f"philox: {n_off} words differ from the plain version")
-    ms = kernel_ms([lambda: kernels.philox_block(key, 4, n_rows, n, DEVICE, out=out)]
+    ms, timer = kernel_ms([lambda: kernels.philox_block(key, 4, n_rows, n, DEVICE, out=out)]
                    * (TIMING_REPS + 1), "philox_block")
     plain = [lambda: philox_bits(key, 4, n_rows, n, DEVICE, out=out)] * 6
-    p_ms, p_run = kernel_ms(plain, None), as_run_ms(plain)
+    p_ms, p_run = kernel_ms(plain, None)[0], as_run_ms(plain)
     lib_ms = kernel_ms([lambda: torch.randint(0, 1 << 32, (n_rows, n), generator=g, out=out)]
-                       * (TIMING_REPS + 1), None)
+                       * (TIMING_REPS + 1), None)[0]
     # nothing read, every word written once; one Philox call (10 rounds of 2
     # wide products, 4 xors, 2 adds) per 4 words, counted at the fp32 rate
     n_bytes = out.numel() * 8
@@ -671,7 +734,7 @@ def check_philox(kernels, card, cfg):
         f"{n_rows} x {n} block (card and CPU plain versions): every word equal; philox_block "
         f"{ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; torch.randint of the same block "
         f"{lib_ms:.5f}; bound {b_ms:.6f} by {b_by}: {n_bytes} B)", card)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+    return dict(max_abs_err=0.0, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
 
 
@@ -684,18 +747,18 @@ def check_gather(kernels, card, gather_args):
     err = float((out - ref).abs().max())
     if err != 0.0:
         raise AssertionError(f"gather differs from table[idx]: {err}")
-    ms = kernel_ms([lambda: kernels.gather(table, idx)] * (TIMING_REPS + 1), "gather_probe")
+    ms, timer = kernel_ms([lambda: kernels.gather(table, idx)] * (TIMING_REPS + 1), "gather_probe")
     plain = [lambda: kernels.gather_reference(table, idx)] * (TIMING_REPS + 1)
-    p_ms, p_run = kernel_ms(plain, None), as_run_ms(plain)
-    lib_ms = kernel_ms([lambda: torch.index_select(table, 0, idx)] * (TIMING_REPS + 1), None)
+    p_ms, p_run = kernel_ms(plain, None)[0], as_run_ms(plain)
+    lib_ms = kernel_ms([lambda: torch.index_select(table, 0, idx)] * (TIMING_REPS + 1), None)[0]
     n = idx.shape[0]
     n_bytes = 8 * n + 4 * torch.unique(idx).numel()
     b_ms, b_by = bound(n_bytes, 0)
     say(f"gather_probe: {n} lanes from a {table.shape[0]}-entry table, max_abs_err {err}, "
         f"{ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; index_select {lib_ms:.5f}; "
         f"bound {b_ms:.6f})", card)
-    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+    return dict(max_abs_err=err, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def _off(got, want) -> tuple:
@@ -756,7 +819,7 @@ def check_flight_step(kernels, card, flight_args):
     b_ms, b_by = bound(n_bytes, n_ops)
 
     reps = [(clone(lanes0), remaining0.clone(), counts0.clone()) for _ in range(TIMING_REPS + 1)]
-    ms = kernel_ms([
+    ms, timer = kernel_ms([
         (lambda s=s: kernels.flight_step(s[0], cand, u_step, u_int, consts, s[1], s[2]))
         for s in reps
     ], "flight_step")
@@ -766,14 +829,14 @@ def check_flight_step(kernels, card, flight_args):
                                                    s[1], s[2]))
         for s in reps
     ]
-    p_ms = kernel_ms(plain[: TIMING_REPS // 2 + 1], None)
+    p_ms = kernel_ms(plain[: TIMING_REPS // 2 + 1], None)[0]
     p_run = as_run_ms(plain[TIMING_REPS // 2 :])
     say(f"flight_step: {n} lanes ({n_act} active, {n_real} real events, {n_esc} escapes, "
         f"{n_adopt} adoptions), {n_bad} lanes differ, max_abs_err {err:.3e}, "
         f"{ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; bound {b_ms:.6f} by {b_by}: "
         f"{n_bytes} B, {n_ops} ops)", card)
-    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return dict(max_abs_err=err, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def check_flight_prototype(kernels, card, scanner):
@@ -833,15 +896,15 @@ def check_flight_prototype(kernels, card, scanner):
     n_bytes = n * (12 + 12 + 16 + 4 + 8 * F + 28) + lane_flights * (4 + 4 + 8)
     n_ops = lane_flights * 40
     b_ms, b_by = bound(n_bytes, n_ops)
-    ms = kernel_ms([lambda: kernels.flight_prototype(*args)] * (TIMING_REPS + 1),
+    ms, timer = kernel_ms([lambda: kernels.flight_prototype(*args)] * (TIMING_REPS + 1),
                    "flight_prototype")
     plain = [lambda: kernels.flight_prototype_reference(*args)] * 6
-    p_ms, p_run = kernel_ms(plain, None), as_run_ms(plain)
+    p_ms, p_run = kernel_ms(plain, None)[0], as_run_ms(plain)
     say(f"flight_prototype: {n} lanes x {F} flights ({lane_flights} active lane-flights) over "
         f"{voxden.shape[0]} voxels, {n_bad} lanes differ, max_abs_err {err:.3e}, "
         f"{ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; bound {b_ms:.6f} by {b_by})", card)
-    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return dict(max_abs_err=err, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -996,16 +1059,17 @@ def time_phase(card, kernel, label, call, engine, plain, st, want, C):
     """Device time of one phase launch (fresh clones: a phase updates its
     state in place) beside its plain version and its bound."""
     reps = [st.clone() for _ in range(TIMING_REPS + 1)]
-    ms = kernel_ms([(lambda s=s: call(engine, s)) for s in reps], kernel)
+    ms, timer = kernel_ms([(lambda s=s: call(engine, s)) for s in reps], kernel)
     reps = [st.clone() for _ in range(5)]
     plain_calls = [(lambda s=s: call(plain, s)) for s in reps]
-    p_ms = kernel_ms(plain_calls[:3], None)
+    p_ms = kernel_ms(plain_calls[:3], None)[0]
     p_run = as_run_ms(plain_calls[2:])
     n_bytes, n_ops, what = phase_bound(kernel, st, want, C)
     b_ms, b_by = bound(n_bytes, n_ops)
     say(f"{label}: {what}; {ms:.5f} ms (plain {p_ms:.5f}, as run {p_run:.5f}; bound "
         f"{b_ms:.6f} by {b_by}: {n_bytes} B, {n_ops} ops)", card)
-    return dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return dict(ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def check_phases(kernels, card, captured):
@@ -1029,7 +1093,7 @@ def check_phases(kernels, card, captured):
             reps = [st.clone() for _ in range(TIMING_REPS + 1)]
             flight_ms = kernel_ms([
                 (lambda s=s: kernels.launch_flight_resolve(C, s, C.rows.flight, -1))
-                for s in reps], kernel)
+                for s in reps], kernel)[0]
             say(f"{label}: the flight alone in this kernel {flight_ms:.5f} ms, so the resolve "
                 f"of {sum((want.counters - st.counters)[2:5].tolist())} pending lanes adds "
                 f"{timing['ms'] - flight_ms:.5f} ms", card)
@@ -1090,6 +1154,10 @@ def profile_engine(scanner, card):
 
     (it_a, ops_a, _, _), (it_b, ops_b, wall_us, by_name) = (
         profiled(n, 1) for n in PROFILE_HISTORIES)
+    if not (ops_a and ops_b):
+        say(f"profile: the profiler recorded no device event in an eager call ({ops_a}, "
+            f"{ops_b} operations): device busy time not measured  [{card}]")
+        return None
     ops_per_iteration = (ops_b - ops_a) / (it_b - it_a)
     busy = sum(t for t, _ in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -1441,10 +1509,10 @@ def check_primary_trace(kernels, card, scanner, pv, source, detector):
     n_ops = int((steps_k.long() * per_step).sum())
     b_ms, b_by = bound(n_bytes, n_ops)
     b4_ms, b4_by = bound(n_bytes, n_steps * TRACE_FLOPS_PER_STEP_TWO_DIVISIONS)
-    ms = kernel_ms([lambda: primary.primary_trace(pv, src, dirs, mats, cap)]
+    ms, timer = kernel_ms([lambda: primary.primary_trace(pv, src, dirs, mats, cap)]
                    * (TIMING_REPS + 1), "primary_trace")
     p_ms = kernel_ms([lambda: primary.primary_trace_reference(pv, src, dirs, mats, cap)] * 2,
-                     None)
+                     None)[0]
     say(f"primary_trace: {n} rays, {len(pv.present)} present materials, {n_rays_off} rays "
         f"differ from the plain version (max |diff| {err:.3e}, max |diff| / (1 + |L|) "
         f"{float(rel.max()):.3e}), steps {'equal' if steps_equal else 'DIFFER'}; steps (voxel "
@@ -1470,8 +1538,8 @@ def check_primary_trace(kernels, card, scanner, pv, source, detector):
         f"relative to the image's max {img_rel:.3e}", card)
     if img_rel > 1e-6:
         raise AssertionError("deterministic_primary images differ from the plain version's")
-    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return dict(max_abs_err=err, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def cylinder_projections(geometry, angles, radius_mm: float) -> np.ndarray:
@@ -1575,7 +1643,7 @@ def check_backproject_and_cylinder(kernels, card):
     torch.cuda.synchronize()
     filter_wall = time.monotonic() - t0
     filter_ms = kernel_ms([lambda: fdk.filter_projections(proj, geometry, device=DEVICE)] * 3,
-                          None)
+                          None)[0]
     views = torch.from_numpy(fdk.view_geometry(geometry, angles[:chunk])).to(DEVICE)
     bp = fdk.BackprojectGeometry(geometry, grid, len(angles))
     got = torch.zeros(grid.shape, dtype=torch.float32, device=DEVICE)
@@ -1589,9 +1657,9 @@ def check_backproject_and_cylinder(kernels, card):
     # CUDA events around the launches: the profiler missed this kernel in a
     # run of the whole script (it saw it alone: 54.1 ms per chunk), and at
     # tens of ms per launch the events' own cost is negligible
-    ms = as_run_ms([lambda: fdk.backproject_into(got, filtered, views, bp)] * 6)
+    ms, timer = as_run_ms([lambda: fdk.backproject_into(got, filtered, views, bp)] * 6), "events"
     p_ms = kernel_ms([lambda: fdk.backproject_into_reference(want, filtered, views, bp)] * 2,
-                     None)
+                     None)[0]
     # grid_sample: the chunk's bilinear sampling, one call per view (each
     # view's sampling grid made outside the timed call)
     nx, ny, nz = grid.shape
@@ -1638,8 +1706,466 @@ def check_backproject_and_cylinder(kernels, card):
     del filtered, got, want
     for case in CYLINDER_CASES:
         reconstruct_cylinder(card, geometry, grid, *case)
-    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+    return dict(max_abs_err=err, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
+# the recon-mc path: reconstruct_3d and 4D ROOSTER at full width
+# ---------------------------------------------------------------------------
+def write_stack(path, projections, geometry, compress: bool = True) -> None:
+    """Line integrals ``[P, nv, nu]`` written as a MetaImage in the layout
+    ``load_projection_stack_for_recon`` reads (rows flipped, [u, v, P]):
+    ``write_image``'s zlib-compressed file, or with ``compress=False`` the
+    same file uncompressed (the 4D stack's 503 MB: zlib writes ~17 MB/s)."""
+    from cbctmc_tpu_torch.utils.io import write_mha
+
+    write_mha(np.ascontiguousarray(np.transpose(projections[:, ::-1, :], (2, 1, 0))), path,
+              spacing=(geometry.pixel_size_u, geometry.pixel_size_v, 1.0), compress=compress)
+
+
+def insert_centre_mm(phase) -> np.ndarray:
+    """The moving insert's z centre [mm] at a breathing phase in [0, 1)."""
+    return INSERT_AMPLITUDE_MM * np.cos(2.0 * np.pi * np.asarray(phase))
+
+
+def moving_phantom(mu, grid, phase) -> np.ndarray:
+    """The CatPhan mu volume with a sphere of INSERT_MU at INSERT_XY_MM,
+    shifted along z by the breathing phase."""
+    x, y, z = (grid.origin_or_centered()[a] + np.arange(grid.shape[a]) * grid.spacing[a]
+               for a in range(3))
+    r2 = ((x[:, None, None] - INSERT_XY_MM[0]) ** 2 + (y[None, :, None] - INSERT_XY_MM[1]) ** 2
+          + (z[None, None, :] - insert_centre_mm(phase)) ** 2)
+    out = mu.copy()
+    out[r2 <= INSERT_RADIUS_MM**2] = INSERT_MU
+    return out
+
+
+def insert_motion(volumes_xyzp, grid) -> tuple:
+    """Whether the insert moves between the phase volumes as the phantom's
+    does (tests/test_rooster.py::test_rooster_separates_motion_states's
+    check, for a continuum of phases): in the box around the insert's swept
+    region, the z centroid [mm] of what the phases whose insert sits above
+    z = 0 add to the mean over all phases, and of what those below add; and
+    the correlation, over the swept region and all phases, of each phase's
+    departure from that mean with the phantom's. Reads the [x, y, z, phase]
+    volumes of the file (the MC frame) in the engine frame."""
+    vols = np.rot90(volumes_xyzp, k=-1, axes=(0, 1))  # undo engine_volume_to_mc_frame
+    x, y, z = (grid.origin_or_centered()[a] + np.arange(grid.shape[a]) * grid.spacing[a]
+               for a in range(3))
+    margin = 2.0 * max(grid.spacing)
+    bx = np.abs(x - INSERT_XY_MM[0]) <= INSERT_RADIUS_MM + margin
+    by = np.abs(y - INSERT_XY_MM[1]) <= INSERT_RADIUS_MM + margin
+    bz = np.abs(z) <= INSERT_AMPLITUDE_MM + INSERT_RADIUS_MM + margin
+    sub = np.asarray(vols[bx][:, by][:, :, bz], np.float64)  # [x, y, z, phase]
+    xs, ys, zs = x[bx], y[by], z[bz]
+    n = sub.shape[-1]
+    centres = insert_centre_mm(np.arange(n) / n)
+    spheres = np.stack([
+        ((xs[:, None, None] - INSERT_XY_MM[0]) ** 2 + (ys[None, :, None] - INSERT_XY_MM[1]) ** 2
+         + (zs[None, None, :] - c) ** 2 <= INSERT_RADIUS_MM**2) for c in centres], -1)
+    swept = spheres.any(-1)
+    mean = sub.mean(-1)
+
+    def centroid(group):
+        excess = np.clip(sub[..., group].mean(-1) - mean, 0.0, None) * swept
+        return float((excess.sum(axis=(0, 1)) * zs).sum() / max(excess.sum(), 1e-30))
+
+    departure = (sub - mean[..., None])[swept].ravel()
+    truth = (spheres - spheres.mean(-1, keepdims=True))[swept].ravel()
+    return centroid(centres > 0), centroid(centres < 0), float(np.corrcoef(departure, truth)[0, 1])
+
+
+def recon_mc_path(kernels, card, walls):
+    """The ``recon-mc`` entry points at the reference's full width: the
+    half-fan 1024 x 768 panel and the (464, 464, 250) grid at 1 mm.
+
+    3D: the fast-scan path's views written as a projection stack, then
+    ``reconstruct_3d`` of the file, read back and held to the in-memory FDK
+    of the same stack (the same views at ``reconstruct_3d``'s angles).
+    4D: a moving phantom (the CatPhan mu volume from that FDK with a sphere
+    moving along z with the breathing phase), ``project_forward`` onto
+    ROOSTER_VIEWS views over 360 deg, each view at its own phase, written as
+    a stack, then ``reconstruct_4d`` of the file with 10 phases, one outer
+    iteration and two CG steps, on the shear-warp pair and on the Joseph
+    pair; each 4D volume read back, the checkpoint gone, the insert moving
+    with the phantom (:func:`insert_motion`). The launch counters are zeroed just
+    before the 3D run and read just after the second 4D run."""
+    from cbctmc_tpu_torch.physics.reference_values import DEFAULT_WPC_CATPHAN604
+    from cbctmc_tpu_torch.pipeline import reconstruction
+    from cbctmc_tpu_torch.recon.fdk import fdk_reconstruct
+    from cbctmc_tpu_torch.recon.geometry import mc_scan_angles
+    from cbctmc_tpu_torch.recon.joseph import project_forward
+    from cbctmc_tpu_torch.recon.rooster import RoosterParameters, phase_interpolation_weights
+    from cbctmc_tpu_torch.utils.io import read_image
+
+    folder = OUT / "recon_mc"
+    folder.mkdir(parents=True, exist_ok=True)
+    geometry = reconstruction.default_cone_beam_geometry()
+    grid = reconstruction.reference_grid(RECON_DIMENSION, (RECON_SPACING_MM,) * 3)
+    spacing = (RECON_SPACING_MM,) * 3
+    catphan = np.asarray(walls["projections"], np.float32)
+    angles_3d = mc_scan_angles(len(catphan), start_angle=float(walls["angles"][0]))
+    stack_3d = folder / "projections_catphan.mha"
+    t0 = time.monotonic()
+    write_stack(stack_3d, catphan, geometry)
+    write_3d_s = time.monotonic() - t0
+    # the comparison: the in-memory FDK of the same views at the same angles
+    mu = fdk_reconstruct(catphan, geometry, angles_3d, grid=grid,
+                         water_precorrection=DEFAULT_WPC_CATPHAN604, device=DEVICE)
+
+    # the 4D scene: each view at its own breathing phase
+    angles_4d = mc_scan_angles(ROOSTER_VIEWS)
+    per_cycle = ROOSTER_VIEWS // ROOSTER_CYCLES
+    phases = (np.arange(ROOSTER_VIEWS) % per_cycle) / per_cycle
+    base = np.clip(mu, 0.0, None)
+    par = RoosterParameters(n_phases=ROOSTER_PHASES, n_iterations=ROOSTER_ITERATIONS,
+                            n_data_subiterations=ROOSTER_CG_STEPS)
+    weights = phase_interpolation_weights(phases, par.n_phases)
+    per_phase = [int((weights[:, ph] > 1e-6).sum()) for ph in range(par.n_phases)]
+    distinct = np.unique(phases)
+    say(f"recon-mc path: reconstruct_3d of the fast-scan path's {len(catphan)} views "
+        f"(written {write_3d_s:.2f} s); 4D: {ROOSTER_VIEWS} views over 360 deg at "
+        f"{ROOSTER_CYCLES} breathing cycles ({len(distinct)} distinct phases, views per phase "
+        f"{per_phase}), {par.n_phases} phases, {par.n_iterations} outer iteration, "
+        f"{par.n_data_subiterations} CG steps, {par.n_tv_iterations} TV iterations; cut in "
+        f"depth only (the reference scans 894 views and runs 10 outer iterations of 4 CG "
+        f"steps), full width: panel {geometry.n_pixels_v} x {geometry.n_pixels_u}, grid "
+        f"{grid.shape}", card)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out_3d = reconstruction.reconstruct_3d(stack_3d, output_folder=folder,
+                                           dimension=RECON_DIMENSION, spacing=spacing,
+                                           use_wpc=True, start_angle=float(angles_3d[0]),
+                                           device=DEVICE)
+    wall_3d = time.monotonic() - t0
+    projections = np.empty((ROOSTER_VIEWS, geometry.n_pixels_v, geometry.n_pixels_u),
+                           np.float32)
+    t0 = time.monotonic()
+    for ph in distinct:
+        sel = np.where(phases == ph)[0]
+        projections[sel] = project_forward(moving_phantom(base, grid, ph), geometry,
+                                           angles_4d[sel], volume_spacing=spacing,
+                                           device=DEVICE)
+    project_s = time.monotonic() - t0
+    stack_4d = folder / "projections_moving.mha"
+    write_stack(stack_4d, projections, geometry, compress=False)
+
+    # the two runs one after the other; rooster_reconstruct's wall is the
+    # one it logs when it returns
+    rooster_walls = RoosterWalls()
+    rooster_log = logging.getLogger("cbctmc_tpu_torch.recon.rooster")
+    rooster_log.setLevel(logging.INFO)
+    rooster_log.addHandler(rooster_walls)
+    runs = {}  # projector: (file, wall, rooster_reconstruct wall, peak device memory)
+    try:
+        for projector in ("shearwarp", "joseph"):
+            name = f"recon_rooster4d_{projector}.mha"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.monotonic()
+            out = reconstruction.reconstruct_4d(
+                stack_4d, phase_signal=phases, output_folder=folder, output_filename=name,
+                dimension=RECON_DIMENSION, spacing=spacing,
+                parameters=dataclasses.replace(par, projector=projector), device=DEVICE)
+            wall = time.monotonic() - t
+            if (folder / f"{name}.ckpt.npz").exists() or not out.with_suffix(".yaml").is_file():
+                raise AssertionError(f"reconstruct_4d ({projector}): checkpoint left behind or "
+                                     "no parameter yaml")
+            runs[projector] = (out, wall, rooster_walls.walls[projector],
+                               torch.cuda.max_memory_allocated())
+    finally:
+        rooster_log.removeHandler(rooster_walls)
+    torch.cuda.synchronize()
+    launches = {k: kernels.launch_counts[k] for k in
+                ("backproject", "joseph_project", "joseph_splat", "tv_spatial", "tv_temporal")}
+
+    # the 3D volume from its file against the in-memory FDK
+    volume_3d, meta = read_image(out_3d)
+    want_3d = reconstruction.engine_volume_to_mc_frame(mu)
+    n_off = int((volume_3d != want_3d).sum())
+    say(f"reconstruct_3d: wall {wall_3d:.3f} s ({len(catphan)} views from "
+        f"{stack_3d.name} onto {grid.shape}, file written and yaml); volume {volume_3d.shape}, "
+        f"spacing {meta['spacing']}; {n_off} voxels differ from the in-memory FDK of the same "
+        f"stack (max |diff| {float(np.abs(volume_3d - want_3d).max()):.3e})", card)
+    if volume_3d.shape != want_3d.shape or n_off or not np.isfinite(volume_3d).all():
+        raise AssertionError("reconstruct_3d's volume differs from the in-memory FDK")
+
+    # expected launches: FDK once per file (chunks of 64 views), one
+    # project_forward launch per phase's views, per phase of the Joseph run 4
+    # forward and 4 splat launches (the right-hand side and the first residual
+    # take one each, each CG step one each), 2 n_tv + 1 spatial and one
+    # temporal launch per 4D run
+    with_views = sum(n > 0 for n in per_phase)
+    want = {"backproject": 1 + 2 * -(-ROOSTER_VIEWS // 64),
+            "joseph_project": len(distinct) + (2 + par.n_data_subiterations) * with_views,
+            "joseph_splat": (2 + par.n_data_subiterations) * with_views,
+            "tv_spatial": 2 * (2 * par.n_tv_iterations + 1), "tv_temporal": 2}
+    truth = insert_centre_mm(np.arange(par.n_phases) / par.n_phases)
+    failed = []
+    for projector, (out, wall, rooster_s, peak) in runs.items():
+        t0 = time.monotonic()
+        vols, meta4 = read_image(out)
+        read_s = time.monotonic() - t0
+        up, down, corr = insert_motion(vols, grid)
+        say(f"reconstruct_4d ({projector} pair): wall {wall:.2f} s, of which rooster_reconstruct "
+            f"{rooster_s:.2f} s (the rest the stack's read and the 4D file's compressed write); "
+            f"read back {read_s:.2f} s; volume {vols.shape}, spacing {meta4['spacing']}; peak "
+            f"device memory {peak / 1e9:.2f} GB; the insert's z centroid over the phases where "
+            f"the phantom's is above 0 {up:+.3f} mm, below 0 {down:+.3f} mm (the phantom's "
+            f"centres {np.round(truth, 3).tolist()} mm); the phases' departures from their mean "
+            f"correlate with the phantom's by {corr:.4f} over the insert's swept region", card)
+        if (vols.shape != (*grid.shape, par.n_phases) or not np.isfinite(vols).all()
+                or not up > 0.0 > down or not corr > 0.0):
+            failed.append(projector)
+        if projector == "shearwarp":
+            shearwarp_volumes = vols
+        out.unlink()
+    if failed:
+        raise AssertionError(f"reconstruct_4d ({failed}): the insert does not move with the "
+                             "phantom, or the volume is not finite")
+    say(f"recon-mc path: project_forward of the moving phantom {project_s:.2f} s for "
+        f"{ROOSTER_VIEWS} views (one launch per phase's views, 0.5 mm steps); launches "
+        f"{launches}, expected {want}", card)
+    if launches != want:
+        raise AssertionError(f"recon-mc path launches {launches}, expected {want}")
+    stack_3d.unlink()
+    stack_4d.unlink()
+    return launches, dict(base=base, grid=grid, geometry=geometry,
+                          walls={"reconstruct_3d": wall_3d,
+                                 **{f"reconstruct_4d_{k}": v[1] for k, v in runs.items()}},
+                          volumes=shearwarp_volumes)
+
+
+class RoosterWalls(logging.Handler):
+    """Keeps the wall time that ``rooster_reconstruct`` logs when it
+    returns, by projector."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.walls = {}
+
+    def emit(self, record):
+        if record.msg.startswith("ROOSTER done in"):
+            self.walls[record.args[1]] = record.args[0]
+
+
+def _events_ms(fn, reps: int) -> float:
+    """CUDA-event time per call over ``reps`` calls after a warm-up."""
+    return as_run_ms([fn] * (reps + 1))
+
+
+def check_joseph_kernels(kernels, card, recon):
+    """``joseph_project`` and ``joseph_splat`` against their plain versions on
+    the card for one view of the moving phantom at ROOSTER's march (0.7 mm
+    steps, 1,002 of them) on the full panel and grid, with their device times
+    per launch (the profiler's, filtered to the kernel's name, with CUDA
+    events around the wrapper's call beside them), the plain versions', the
+    bounds and the library yardsticks: ``grid_sample`` (3-D, align_corners=True, zero padding) of the
+    same sample points for the projection, ``index_add_`` of the same 8 x
+    samples values for the splat (both in chunks of steps, their inputs made
+    outside the timing).
+
+    The bounds count the work these inputs need, from each ray's samples
+    inside the volume as the plain version counts them: every ray's
+    direction and box entry; for a ray that enters the volume, the march's
+    per-step work at each sample inside and at one more step at each end of
+    that run (where the march finds the box's faces), and the interpolation
+    at each sample inside; nothing per step for a ray that misses. The
+    splat is charged nothing for a ray whose value is 0, which it skips."""
+    import torch.nn.functional as F
+
+    from cbctmc_tpu_torch.recon import joseph
+
+    grid, geometry = recon["grid"], recon["geometry"]
+    spacing = np.asarray(grid.spacing, np.float64)
+    step_mm = 0.7 * float(spacing.min())
+    n_steps = int(np.ceil(float(np.linalg.norm((np.asarray(grid.shape) - 1) * spacing))
+                          / step_mm)) + 1
+    jg = joseph.JosephGeometry(grid.shape, grid.origin_or_centered(), spacing,
+                               geometry.u_coordinates(), geometry.v_coordinates(),
+                               (0.0, 0.0, 1.0), n_steps, step_mm)
+    angle = np.array([279.0])
+    src = geometry.source_positions(angle)
+    views = torch.from_numpy(joseph.view_rows(src, src + geometry.beam_directions(angle)
+                                              * geometry.sdd, geometry.u_axes(angle))).to(DEVICE)
+    vol = torch.from_numpy(moving_phantom(recon["base"], grid, 0.0)).to(DEVICE)
+    got = joseph.joseph_project(vol, views, jg)
+    stats = {}
+    want = joseph.project_one_reference(vol, views, jg, stats)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    n_off = int((got != want).sum())
+    n_rays = jg.n_rays
+    per_ray = stats["inside"].reshape(-1).long()
+    inside = int(per_ray.sum())
+    n_enter = int((per_ray > 0).sum())
+    ms, timer = kernel_ms([lambda: joseph.joseph_project(vol, views, jg)] * (TIMING_REPS + 1),
+                          "joseph_project")
+    ev_ms = _events_ms(lambda: joseph.joseph_project(vol, views, jg), TIMING_REPS)
+    # the plain versions issue ~45 operations per step: CUDA events, not the profiler
+    p_ms = _events_ms(lambda: joseph.project_one_reference(vol, views, jg), 1)
+
+    # grid_sample of the same sample points, in chunks of steps
+    src_t, direction, t_near = joseph._rays(views, jg)
+    vol5 = vol[None, None]
+    lib_ms = 0.0
+    chunk = 64
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for s0 in range(0, n_steps, chunk):
+        steps = torch.arange(s0, min(s0 + chunk, n_steps), dtype=torch.float32, device=DEVICE)
+        t = t_near[0][None] + (steps + 0.5)[:, None, None] * float(jg.step_mm)
+        coords = [((src_t[a][0] + direction[a][0][None] * t) - float(jg.origin[a]))
+                  / float(jg.spacing[a]) for a in range(3)]
+        norm = [2.0 * coords[a] / (grid.shape[a] - 1) - 1.0 for a in range(3)]
+        # grid_sample's last axis is (W, H, D) = (z, y, x) of the [x, y, z] volume
+        sample_grid = torch.stack([norm[2], norm[1], norm[0]], dim=-1)[None]
+        F.grid_sample(vol5, sample_grid, align_corners=True)  # warm-up
+        start_ev.record()
+        F.grid_sample(vol5, sample_grid, align_corners=True)
+        end_ev.record()
+        end_ev.synchronize()
+        lib_ms += start_ev.elapsed_time(end_ev)
+        del sample_grid, coords, norm, t
+    n_bytes = vol.numel() * 4 + got.numel() * 4 + views.numel() * 4
+    n_ops = (n_rays * JOSEPH_RAY_FLOPS + (inside + 2 * n_enter) * JOSEPH_STEP_FLOPS
+             + inside * JOSEPH_INSIDE_FLOPS)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    all_ms = bound(n_bytes, n_ops + (n_rays * n_steps - inside - 2 * n_enter)
+                   * JOSEPH_STEP_FLOPS)[0]
+    say(f"joseph_project: one view of {n_rays} rays x {n_steps} steps ({n_enter} rays enter "
+        f"the volume, {inside} samples inside it) on {grid.shape}: {n_off} rays not bit-equal "
+        f"to the plain version (max |diff| {err:.3e}); {ms:.5f} ms by the {timer}, "
+        f"{ev_ms:.5f} by CUDA events (plain {p_ms:.5f} by CUDA events; grid_sample of the "
+        f"same samples {lib_ms:.5f}; bound {b_ms:.6f} by {b_by}: {n_bytes} B, {n_ops} ops; "
+        f"{all_ms:.6f} if every step of every ray were charged)", card)
+    if n_off:
+        raise AssertionError("joseph_project differs from its plain version")
+    project = dict(max_abs_err=err, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+
+    # the splat of the view's own line integrals
+    g = (got / got.max()).contiguous()
+    vol_k = joseph.joseph_splat(g, views, jg)
+    vol_p = joseph.splat_one_reference(g, views, jg)
+    torch.cuda.synchronize()
+    s_err = float((vol_k - vol_p).abs().max())
+    scale = float(vol_p.abs().max())
+    lhs = float((got.double() * g.double()).sum())
+    rhs = float((vol.double() * vol_k.double()).sum())
+    adj = abs(lhs - rhs) / abs(lhs)
+    s_ms, s_timer = kernel_ms([lambda: joseph.joseph_splat(g, views, jg)]
+                              * (TIMING_REPS // 2 + 1), "joseph_splat")
+    s_ev = _events_ms(lambda: joseph.joseph_splat(g, views, jg), TIMING_REPS // 2)
+    s_plain = _events_ms(lambda: joseph.splat_one_reference(g, views, jg), 1)
+    # index_add_ of the same values, in chunks of steps
+    value = (g * float(jg.step_mm)).reshape(-1)
+    offs = torch.tensor(joseph._corner_offsets(grid.shape[1] * grid.shape[2], grid.shape[2]),
+                        dtype=torch.int64, device=DEVICE)
+    flat = torch.zeros(vol.numel(), dtype=torch.float32, device=DEVICE)
+    s_lib = 0.0
+    for s0 in range(0, n_steps, 16):
+        idx_l, val_l = [], []
+        for i in range(s0, min(s0 + 16, n_steps)):
+            ins, base, (fx, fy, fz) = joseph._sample(jg, src_t, direction, t_near, i)
+            w = torch.stack([(a * b) * c for a in (1.0 - fx, fx) for b in (1.0 - fy, fy)
+                             for c in (1.0 - fz, fz)]).reshape(8, -1)
+            keep = ins.reshape(-1)
+            idx_l.append((base.reshape(1, -1) + offs[:, None])[:, keep].reshape(-1))
+            val_l.append((w * value[None, :])[:, keep].reshape(-1))
+        idx, val = torch.cat(idx_l), torch.cat(val_l)
+        start_ev.record()
+        flat.index_add_(0, idx, val)
+        end_ev.record()
+        end_ev.synchronize()
+        s_lib += start_ev.elapsed_time(end_ev)
+        del idx, val, idx_l, val_l
+    s_bytes = g.numel() * 4 + 2 * vol.numel() * 4 + views.numel() * 4
+    live = per_ray[(g.reshape(-1) != 0.0)]  # the rays the splat does not skip
+    s_inside, s_rays = int(live.sum()), len(live)
+    s_ops = (s_rays * (JOSEPH_RAY_FLOPS + 1) + (s_inside + 2 * s_rays) * JOSEPH_STEP_FLOPS
+             + s_inside * SPLAT_INSIDE_FLOPS)
+    sb_ms, sb_by = bound(s_bytes, s_ops)
+    say(f"joseph_splat: the same view's {n_rays} rays into {grid.shape}: max |diff| {s_err:.3e} "
+        f"against the plain version ({s_err / max(scale, 1e-30):.3e} of its max {scale:.4e}; "
+        f"bound 1e-5); adjoint identity <A x, y> {lhs:.10e}, <x, A^T y> {rhs:.10e}, relative "
+        f"{adj:.3e} (bound 1e-4); {s_ms:.5f} ms by the {s_timer}, {s_ev:.5f} by CUDA events "
+        f"with the wrapper's zeroed volume (plain {s_plain:.5f} by CUDA events; index_add_ of "
+        f"the same {8 * inside} values {s_lib:.5f}; bound {sb_ms:.6f} by {sb_by}: {s_bytes} B, "
+        f"{s_ops} ops, for the {s_rays} rays of non-zero value and their {s_inside} samples "
+        f"inside)", card)
+    if s_err > 1e-5 * scale or adj > 1e-4:
+        raise AssertionError("joseph_splat differs from its plain version or is not the adjoint")
+    splat = dict(max_abs_err=s_err, ms=s_ms, timer=s_timer, plain_ms=s_plain, bound_ms=sb_ms,
+                 bound_by=sb_by, library_ms=s_lib)
+    return project, splat
+
+
+def check_tv_kernels(kernels, card, recon):
+    """``tv_spatial`` (one iteration) and ``tv_temporal`` (10 iterations)
+    against their plain versions on the card over the 10 phase volumes of the
+    shear-warp 4D run, with device times per launch (the profiler's, filtered
+    to the kernels' names, so the wrapper's allocations and the zeroing of
+    its dual variable are not counted; CUDA events around the whole call
+    beside them), the plain versions', the spatial step at the path's 10
+    iterations, and the bounds (each reads the phases once and writes them
+    once). ``spatial_tv`` with one iteration is 3 launches (the divergence,
+    the dual update, the finish): its row's time, plain time and bound are
+    each the call's over 3, a mean launch's."""
+    from cbctmc_tpu_torch.recon import rooster
+
+    par = rooster.RoosterParameters()
+    vols = torch.from_numpy(np.ascontiguousarray(np.moveaxis(recon["volumes"], -1, 0))).to(DEVICE)
+    n = vols.numel()
+    got = rooster.spatial_tv(vols, par.gamma_space, 1)
+    want = rooster.spatial_tv_reference(vols, par.gamma_space, 1)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    n_off = int((got != want).sum())
+    del got, want
+    per_call = 3  # launches of one iteration
+    call_ms, timer = kernel_ms([lambda: rooster.spatial_tv(vols, par.gamma_space, 1)] * 6,
+                               "tv_spatial")
+    ev_ms = _events_ms(lambda: rooster.spatial_tv(vols, par.gamma_space, 1), 5)
+    n10 = 2 * par.n_tv_iterations + 1
+    ms10 = _events_ms(lambda: rooster.spatial_tv(vols, par.gamma_space, par.n_tv_iterations), 2)
+    p_ms = _events_ms(lambda: rooster.spatial_tv_reference(vols, par.gamma_space, 1), 1)
+    b_ms, b_by = bound(2 * n * 4, n * (TV_SPATIAL_ITER_FLOPS + TV_SPATIAL_FINISH_FLOPS))
+    say(f"tv_spatial: one iteration over {tuple(vols.shape)}: {n_off} voxels not bit-equal to "
+        f"the plain version (max |diff| {err:.3e}); {call_ms:.5f} ms for its {per_call} "
+        f"launches by the {timer} ({call_ms / per_call:.5f} a launch), {ev_ms:.5f} ms by CUDA "
+        f"events around the call with its allocations and the zeroing of p; "
+        f"{ms10:.5f} ms by CUDA events at the path's {par.n_tv_iterations} iterations ({n10} "
+        f"launches) (plain {p_ms:.5f} for one iteration, CUDA events; bound "
+        f"{b_ms:.6f} by {b_by}; the kernels line has each over {per_call})", card)
+    if n_off:
+        raise AssertionError("tv_spatial differs from its plain version")
+    spatial = dict(max_abs_err=err, ms=call_ms / per_call, timer=timer, plain_ms=p_ms / per_call,
+                   bound_ms=b_ms / per_call, bound_by=b_by, library_ms=None)
+
+    n_iter = par.n_tv_iterations
+    got = rooster.temporal_tv(vols, par.gamma_time, n_iter)
+    want = rooster.temporal_tv_reference(vols, par.gamma_time, n_iter)
+    torch.cuda.synchronize()
+    t_err = float((got - want).abs().max())
+    t_off = int((got != want).sum())
+    del got, want
+    t_ms, t_timer = kernel_ms([lambda: rooster.temporal_tv(vols, par.gamma_time, n_iter)] * 6,
+                              "tv_temporal")
+    t_ev = _events_ms(lambda: rooster.temporal_tv(vols, par.gamma_time, n_iter), 5)
+    t_plain = _events_ms(lambda: rooster.temporal_tv_reference(vols, par.gamma_time, n_iter), 1)
+    tb_ms, tb_by = bound(2 * n * 4, n * (TV_TEMPORAL_FLOPS * n_iter + 4))
+    say(f"tv_temporal: {n_iter} iterations over {tuple(vols.shape)}: {t_off} voxels not "
+        f"bit-equal to the plain version (max |diff| {t_err:.3e}); {t_ms:.5f} ms for its one "
+        f"launch by the {t_timer}, {t_ev:.5f} by CUDA events around the call (plain "
+        f"{t_plain:.5f}, CUDA events; bound {tb_ms:.6f} by {tb_by})", card)
+    if t_off:
+        raise AssertionError("tv_temporal differs from its plain version")
+    temporal = dict(max_abs_err=t_err, ms=t_ms, timer=t_timer, plain_ms=t_plain, bound_ms=tb_ms,
+                    bound_by=tb_by, library_ms=None)
+    return spatial, temporal
 
 
 def main() -> int:
@@ -1685,6 +2211,12 @@ def main() -> int:
     results["primary_trace"] = check_primary_trace(kernels, card, scanner, pv, fast_source,
                                                    fast_detector)
     results["backproject"] = check_backproject_and_cylinder(kernels, card)
+    recon_launches, recon = recon_mc_path(kernels, card, walls)
+    for name in ("joseph_project", "joseph_splat", "tv_spatial", "tv_temporal"):
+        launches[name] = recon_launches[name]
+    results["joseph_project"], results["joseph_splat"] = check_joseph_kernels(kernels, card,
+                                                                              recon)
+    results["tv_spatial"], results["tv_temporal"] = check_tv_kernels(kernels, card, recon)
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -1698,16 +2230,22 @@ def main() -> int:
         "philox_block": ("philox_block.cu", f"{jax_engine}:794"),
         "primary_trace": ("primary_trace.cu", "cbctmc_tpu/engine/primary.py:208"),
         "backproject": ("backproject.cu", "cbctmc_tpu/recon/fdk.py:144"),
+        "joseph_project": ("joseph_project.cu", "cbctmc_tpu/recon/joseph.py:80"),
+        "joseph_splat": ("joseph_splat.cu", "cbctmc_tpu/recon/joseph.py:130"),
+        "tv_spatial": ("tv_spatial.cu", "cbctmc_tpu/recon/rooster.py:71"),
+        "tv_temporal": ("tv_temporal.cu", "cbctmc_tpu/recon/rooster.py:102"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"cbctmc_tpu_torch/csrc/{meta[name][0]}",
          "replaces": meta[name][1], "launches": launches[name], **results[name]}
         for name in kernels.KERNELS
     ]}
+    busy = "not measured" if busy_us is None else f"{busy_us:.1f} us"
     say(f"end to end: {info.histories_per_second:.6e} hist/s (2 views x {MAIN_HISTORIES}), "
-        f"long runs median {long_rate:.6e} hist/s, device busy {busy_us:.1f} us per outer "
-        f"iteration, set-up {setup_s:.2f} s, whole script {time.monotonic() - t_start:.1f} s",
-        card)
+        f"long runs median {long_rate:.6e} hist/s, device busy {busy} per outer "
+        f"iteration, set-up {setup_s:.2f} s; recon-mc walls "
+        f"{ {k: round(v, 3) for k, v in recon['walls'].items()} } s; whole script "
+        f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

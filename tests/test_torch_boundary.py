@@ -37,6 +37,13 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.pipeline.reconstruction",
     "cbctmc_tpu_torch.recon.geometry",
     "cbctmc_tpu_torch.recon.fdk",
+    "cbctmc_tpu_torch.recon.joseph",
+    "cbctmc_tpu_torch.recon.shearwarp",
+    "cbctmc_tpu_torch.recon.rooster",
+    "cbctmc_tpu_torch.utils.io",
+    "cbctmc_tpu_torch.analysis.metrics",
+    "cbctmc_tpu_torch.analysis.peaks",
+    "cbctmc_tpu_torch.analysis.binning",
 ]
 
 _PROBE = """
@@ -178,6 +185,43 @@ def test_fast_scan_and_fdk_entry_points_default_to_cuda(entry, monkeypatch):
         "filter_projections": lambda **kw: fdk.filter_projections(proj, cone, **kw),
         "fdk_reconstruct": lambda **kw: fdk.fdk_reconstruct(
             proj, cone, [0.0, 180.0], grid=VolumeGrid(shape=(4, 4, 2)), **kw),
+    }[entry]
+    call(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["project_forward", "shearwarp_project", "rooster_reconstruct",
+                                   "reconstruct_3d", "reconstruct_4d"])
+def test_recon_mc_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
+    """The recon-mc slice's entry points run on the card unless the caller
+    passes device="cpu"; without a card they raise."""
+    from cbctmc_tpu_torch.pipeline import reconstruction
+    from cbctmc_tpu_torch.recon import joseph, rooster, shearwarp
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
+    from cbctmc_tpu_torch.utils.io import write_image
+
+    cone = ConeBeamGeometry(sad=400.0, sdd=600.0, n_pixels_u=8, n_pixels_v=4, pixel_size_u=8.0,
+                            pixel_size_v=8.0, detector_offset_u=0.0)
+    vol = np.ones((6, 6, 4), np.float32)
+    proj = np.ones((4, 4, 8), np.float32)
+    stack = tmp_path / "projections.mha"
+    write_image(np.transpose(proj, (2, 1, 0)), stack, spacing=(8.0, 8.0, 1.0))
+    par = rooster.RoosterParameters(n_phases=2, n_iterations=1, n_data_subiterations=1,
+                                    n_tv_iterations=1, projector="joseph")
+    phase = [0.0, 0.25, 0.5, 0.75]
+    call = {
+        "project_forward": lambda **kw: joseph.project_forward(vol, cone, [0.0, 90.0], **kw),
+        "shearwarp_project": lambda **kw: shearwarp.shearwarp_project(vol, cone, [0.0], **kw),
+        "rooster_reconstruct": lambda **kw: rooster.rooster_reconstruct(
+            proj, cone, [0.0, 90.0, 180.0, 270.0], phase, grid=VolumeGrid(shape=(6, 6, 4)),
+            parameters=par, **kw),
+        "reconstruct_3d": lambda **kw: reconstruction.reconstruct_3d(
+            stack, output_folder=tmp_path, dimension=(6, 4, 6), geometry=cone, **kw),
+        "reconstruct_4d": lambda **kw: reconstruction.reconstruct_4d(
+            stack, phase_signal=np.asarray(phase), output_folder=tmp_path, dimension=(6, 4, 6),
+            geometry=cone, parameters=par, **kw),
     }[entry]
     call(device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -590,3 +590,132 @@ def test_primary_trace_kernel_repeats_on_card(cuda):
     second = primary.primary_trace(pv, src, dirs, mats, cap, s2)
     torch.cuda.synchronize()
     assert torch.equal(first, second) and torch.equal(s1, s2)
+
+
+# ---------------------------------------------------------------------------
+# the recon-mc kernels at ragged small sizes: a (37, 29, 13) grid and a
+# 33 x 17 panel, neither a multiple of a block
+# ---------------------------------------------------------------------------
+def _joseph_case(device, seed=8, n_views=3):
+    from cbctmc_tpu_torch.recon import joseph
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry
+
+    shape, spacing = (37, 29, 13), np.array([3.0, 3.0, 4.0])
+    geom = ConeBeamGeometry(sad=400.0, sdd=600.0, n_pixels_u=33, n_pixels_v=17,
+                            pixel_size_u=5.0, pixel_size_v=5.0, detector_offset_u=-12.0)
+    angles = np.array([270.0, 311.7, 95.0])[:n_views]
+    sources = geom.source_positions(angles)
+    rows = joseph.view_rows(sources, sources + geom.beam_directions(angles) * geom.sdd,
+                            geom.u_axes(angles))
+    origin = -(np.asarray(shape) - 1) * spacing / 2
+    jg = joseph.JosephGeometry(shape, origin, spacing, geom.u_coordinates(),
+                               geom.v_coordinates(), (0.0, 0.0, 1.0), 90, 1.4)
+    rng = np.random.default_rng(seed)
+    vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.random((n_views, 17, 33)).astype(np.float32)).to(device)
+    return joseph, jg, torch.from_numpy(rows).to(device), vol, g
+
+
+@pytest.mark.gpu
+def test_joseph_project_kernel_on_card(cuda):
+    """Bit-equal to the plain version: the same operations in the same order,
+    -fmad=false."""
+    joseph, jg, views, vol, _ = _joseph_case(cuda)
+    before = kernels.launch_counts["joseph_project"]
+    got = joseph.joseph_project(vol, views, jg)
+    assert kernels.launch_counts["joseph_project"] == before + 1
+    want = joseph.project_one_reference(vol, views, jg)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 17, 33)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_joseph_splat_kernel_on_card(cuda):
+    """atomicAdd sums in no fixed order: 1e-5 of the volume's maximum against
+    the plain version; the adjoint identity against joseph_project with the
+    bound of tests/test_rooster.py (1e-4), both sums in float64."""
+    joseph, jg, views, vol, g = _joseph_case(cuda)
+    before = kernels.launch_counts["joseph_splat"]
+    got = joseph.joseph_splat(g, views, jg)
+    assert kernels.launch_counts["joseph_splat"] == before + 1
+    want = joseph.splat_one_reference(g, views, jg)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    ax = joseph.joseph_project(vol, views, jg)
+    lhs = float((ax.double() * g.double()).sum())
+    rhs = float((vol.double() * got.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iter", [0, 1, 4])
+def test_tv_spatial_kernel_on_card(cuda, n_iter):
+    from cbctmc_tpu_torch.recon import rooster
+
+    rng = np.random.default_rng(9)
+    vols = torch.from_numpy(rng.normal(size=(3, 37, 29, 13)).astype(np.float32)).to(cuda)
+    before = kernels.launch_counts["tv_spatial"]
+    got = rooster.spatial_tv(vols, 0.3, n_iter)
+    assert kernels.launch_counts["tv_spatial"] == before + 2 * n_iter + 1
+    want = rooster.spatial_tv_reference(vols, 0.3, n_iter)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_phases", [1, 7, 16])
+def test_tv_temporal_kernel_on_card(cuda, n_phases):
+    from cbctmc_tpu_torch.recon import rooster
+
+    rng = np.random.default_rng(n_phases)
+    vols = torch.from_numpy(rng.normal(size=(n_phases, 37, 29, 13)).astype(np.float32)).to(cuda)
+    before = kernels.launch_counts["tv_temporal"]
+    got = rooster.temporal_tv(vols, 0.2, 10)
+    assert kernels.launch_counts["tv_temporal"] == before + 1
+    want = rooster.temporal_tv_reference(vols, 0.2, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_tv_temporal_kernel_refuses_too_many_phases(cuda):
+    from cbctmc_tpu_torch.recon import rooster
+
+    with pytest.raises(ValueError, match="phases"):
+        rooster.temporal_tv(torch.zeros((17, 4, 4, 4), device=cuda), 0.2, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, projector", [
+    ("cg", "shearwarp"), ("cg", "joseph"), ("landweber", "joseph")])
+def test_rooster_on_card_matches_cpu(cuda, method, projector):
+    """The whole reconstruction through the kernels against the plain
+    versions on the CPU (tests/test_rooster.py's two-state phantom): the
+    splat's atomics, cuBLAS and the card's reductions change summation
+    orders, which CG amplifies: 1e-4 of the volumes' maximum."""
+    from cbctmc_tpu_torch.recon import joseph, rooster
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
+
+    geom = ConeBeamGeometry(sad=400.0, sdd=600.0, n_pixels_u=64, n_pixels_v=4,
+                            pixel_size_u=6.0, pixel_size_v=8.0, detector_offset_u=0.0)
+    coords = (np.arange(48) - 23.5) * 4.0
+    x, y = np.meshgrid(coords, coords, indexing="ij")
+    angles = 270.0 + np.arange(24) * 15.0
+    proj = np.empty((24, 4, 64), np.float32)
+    for k, off in enumerate((16.0, -16.0)):
+        vol = np.repeat(((((x - off) ** 2 + y**2) <= 40.0**2) * 0.02).astype(np.float32)[
+            :, :, None], 4, 2)
+        proj[k::2] = joseph.project_forward(vol, geom, angles[k::2], volume_spacing=(4.0,) * 3,
+                                            step_mm=2.0, device="cpu")
+    phase = np.where(np.arange(24) % 2 == 0, 0.0, 0.5)
+    par = rooster.RoosterParameters(n_phases=2, n_iterations=3, n_data_subiterations=2,
+                                    n_tv_iterations=5, gamma_space=1e-5, gamma_time=1e-4,
+                                    data_method=method, projector=projector)
+    grid = VolumeGrid(shape=(48, 48, 4), spacing=(4.0,) * 3)
+    got = rooster.rooster_reconstruct(proj, geom, angles, phase, grid=grid, parameters=par,
+                                      device=cuda)
+    want = rooster.rooster_reconstruct(proj, geom, angles, phase, grid=grid, parameters=par,
+                                       device="cpu")
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
