@@ -11,6 +11,28 @@
 // built with -fmad=false and without fast math, so nothing is contracted
 // into a fused multiply-add and every division and square root is rounded
 // correctly.
+//
+// The march is cut to each ray's run inside the volume (step_range). Every
+// coordinate of a sample, ((s + d * t) - o) / spacing with t = t_near +
+// (i + 0.5) * step_mm, is monotone in the step i in float32: each operation
+// is correctly rounded, and rounding is monotone. So each of the six face
+// tests holds on a prefix or a suffix of the steps, the samples inside form
+// one run [first, last], and bisection with the same expressions finds its
+// ends exactly. The steps outside it are exactly those at which the
+// reference adds 0; a kernel runs none of them (the plain version of the
+// rule is recon/joseph.py step_range_reference).
+//
+// Thread layout (ray_of_thread): the 32 lanes of a warp are 32 rays that
+// neighbour each other in v, rows of one detector column. The detector's v
+// axis is the volume's z, its contiguous axis, so at one step a warp's
+// samples lie on a short run of z (neighbouring rows are ~0.26 voxel apart
+// at the isocentre on the reference panel) in one or two x-y columns: each
+// of the eight corner loads touches one or two 32-byte sectors, where 32
+// rays of a detector row, spread across x-y, touched about 32. A block holds
+// kWarps warps on neighbouring columns; blockIdx.z is the view.
+//
+// The flat volume is indexed with 32-bit integers, as the JAX package's
+// march indexes it; the wrappers refuse volumes of 2^31 voxels or more.
 
 #pragma once
 
@@ -19,8 +41,11 @@
 
 namespace joseph {
 
-constexpr int kRaysX = 32;  // rays of a block along u: one warp, 32 consecutive u of a row
-constexpr int kRaysY = 4;   // rows of a block along v
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpV = 32;                  // a warp's rays along v (the rest of its 32 along u)
+constexpr int kWarps = 4;                   // warps of a block
+constexpr int kThreads = 32 * kWarps;       // rays of a block
+constexpr int kBlockU = kThreads / kWarpV;  // a block's rays along u
 
 struct Args {
   int nx, ny, nz;
@@ -35,6 +60,18 @@ struct Args {
   int n_steps;
   float step_mm;
 };
+
+// the detector pixel (iu, iv) of this thread: a warp is kWarpV rows x
+// 32 / kWarpV columns, a block kWarpV rows x kBlockU columns; the grid is
+// (columns / kBlockU, rows / kWarpV, views)
+__device__ __forceinline__ void ray_of_thread(int& iu, int& iv) {
+  iv = blockIdx.y * kWarpV + threadIdx.x % kWarpV;
+  iu = blockIdx.x * kBlockU + threadIdx.x / kWarpV;
+}
+
+inline dim3 grid_of(int P, int nv, int nu) {
+  return dim3((nu + kBlockU - 1) / kBlockU, (nv + kWarpV - 1) / kWarpV, P);
+}
 
 // torch.minimum / torch.maximum: a NaN operand gives NaN
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -74,32 +111,79 @@ __device__ __forceinline__ Ray make_ray(const Args& a, int p, int iu, int iv) {
   return r;
 }
 
+// the index-space coordinate of step i on one axis (source s, direction d,
+// first voxel centre o, spacing sp)
+__device__ __forceinline__ float coord(const Args& a, const Ray& r, float s, float d, float o,
+                                       float sp, int i) {
+  const float t = r.t_near + ((float)i + 0.5f) * a.step_mm;
+  return ((s + d * t) - o) / sp;
+}
+
+// narrows [first, last] to the steps of [0, n) at which `holds`, true on a
+// prefix or a suffix of them, is true
+template <class Holds>
+__device__ __forceinline__ void narrow(int n, Holds holds, int& first, int& last) {
+  const bool at_0 = holds(0), at_end = holds(n - 1);
+  if (at_0 && at_end) return;
+  if (!at_0 && !at_end) {
+    last = -1;
+    return;
+  }
+  int lo = 0, hi = n - 1;  // holds(lo) == at_0 != holds(hi)
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (holds(mid) == at_0)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  if (at_0)
+    last = last < lo ? last : lo;
+  else
+    first = first > hi ? first : hi;
+}
+
+// the ray's run of steps inside the volume, [first, last]; (n_steps, -1)
+// when it has none
+__device__ __forceinline__ void step_range(const Args& a, const Ray& r, int& first, int& last) {
+  first = 0;
+  last = a.n_steps - 1;
+  auto axis = [&](float s, float d, float o, float sp, int n_vox) {
+    const float top = (float)(n_vox - 1);
+    narrow(a.n_steps, [&](int i) { return coord(a, r, s, d, o, sp, i) >= 0.0f; }, first, last);
+    narrow(a.n_steps, [&](int i) { return coord(a, r, s, d, o, sp, i) <= top; }, first, last);
+  };
+  if (last >= 0) axis(r.sx, r.dx, a.ox, a.sx, a.nx);
+  if (last >= first) axis(r.sy, r.dy, a.oy, a.sy, a.ny);
+  if (last >= first) axis(r.sz, r.dz, a.oz, a.sz, a.nz);
+  if (last < first) {
+    first = a.n_steps;
+    last = -1;
+  }
+}
+
 struct Sample {
-  int64_t base;      // flat index of the lower corner, z fastest
+  int base;          // flat index of the lower corner, z fastest
   float fx, fy, fz;  // fractional offsets from it
 };
 
-// step i of the ray: false where the sample lies outside the volume (the
-// reference's zero there); else the lower corner and the offsets
-__device__ __forceinline__ bool sample_at(const Args& a, const Ray& r, int i, Sample& s) {
-  const float t = r.t_near + ((float)i + 0.5f) * a.step_mm;
-  const float x = ((r.sx + r.dx * t) - a.ox) / a.sx;
-  const float y = ((r.sy + r.dy * t) - a.oy) / a.sy;
-  const float z = ((r.sz + r.dz * t) - a.oz) / a.sz;
-  if (!((x >= 0.0f) && (x <= (float)(a.nx - 1)) && (y >= 0.0f) && (y <= (float)(a.ny - 1)) &&
-        (z >= 0.0f) && (z <= (float)(a.nz - 1))))
-    return false;
-  // inside the box, so the reference's clip of x, y, z changes nothing
+// step i of the ray, a step of its run inside the volume: inside, so the
+// reference's clip of x, y, z changes nothing and the corner is >= 0
+__device__ __forceinline__ Sample sample_at(const Args& a, const Ray& r, int i) {
+  const float x = coord(a, r, r.sx, r.dx, a.ox, a.sx, i);
+  const float y = coord(a, r, r.sy, r.dy, a.oy, a.sy, i);
+  const float z = coord(a, r, r.sz, r.dz, a.oz, a.sz, i);
   int x0 = __float2int_rz(floorf(x)), y0 = __float2int_rz(floorf(y)),
       z0 = __float2int_rz(floorf(z));
   x0 = x0 > a.nx - 2 ? a.nx - 2 : x0;
   y0 = y0 > a.ny - 2 ? a.ny - 2 : y0;
   z0 = z0 > a.nz - 2 ? a.nz - 2 : z0;
+  Sample s;
   s.fx = x - (float)x0;
   s.fy = y - (float)y0;
   s.fz = z - (float)z0;
-  s.base = ((int64_t)x0 * a.ny + y0) * a.nz + z0;
-  return true;
+  s.base = (x0 * a.ny + y0) * a.nz + z0;
+  return s;
 }
 
 }  // namespace joseph

@@ -14,34 +14,41 @@
 //
 // Bound on the H100: operations. At the production shapes (a 464 x 464 x
 // 250 volume of 215 MB, 768 x 1024 rays a view, 1,002 or 1,402 steps) the
-// function reads the volume once and writes 3 MB a view, against 21
-// floating-point operations for every step of every ray (the sample's
-// position and the inside test), 31 more for every step inside the volume
-// (floors, offsets, the three-level interpolation and the sum) and 49 per
-// ray (its direction and box entry).
+// function reads the volume once and writes 3 MB a view, against 31
+// floating-point operations for every sample inside the volume (floors,
+// offsets, the three-level interpolation and the sum) and 21 for placing it
+// (its position and the face tests), and 49 per ray (its direction and box
+// entry); ~61 % of the steps of a view lie inside.
 //
-// Design (simple first): one thread per ray with its sum in a register; a
-// warp holds 32 consecutive u of one detector row, a block 4 rows, and
-// blockIdx.z is the view, so one launch covers a batch of views. The eight
-// corners are __ldg loads of the volume (read-only path). Every step runs,
-// also for rays that miss the volume, as in the reference. The volume does
-// not fit the 50 MB L2; neighbouring rays of a warp sample neighbouring
-// voxels, so most corners come from L1 and L2.
+// What held the first version back, and the design's answer (joseph.cuh):
+// - its warps held 32 rays of a detector row, spread across x-y, so each of
+//   the eight corner loads of a step touched ~32 sectors and the kernel ran
+//   at the L1's sector rate. A warp now holds 32 rays along v, the volume's
+//   contiguous z: a load touches one or two sectors;
+// - it ran all n_steps of every ray. A ray now runs only its run of steps
+//   inside the volume (step_range), found exactly, so the sum is the same
+//   sum, bit for bit, without the steps at which the reference adds 0.
+// What is left is issue: per sample three correctly rounded divisions (the
+// reference's positions), the floors, the eight __ldg and the
+// interpolation, one thread per ray with the sum in a register. Warps of
+// 8 v x 4 u or 16 v x 2 u rays, and blocks of 8 warps, time the same.
 
 #include "joseph.cuh"
 
-__global__ void joseph_project_kernel(joseph::Args a, const float* __restrict__ vol,
-                                      float* __restrict__ out) {
-  const int iu = blockIdx.x * joseph::kRaysX + threadIdx.x;
-  const int iv = blockIdx.y * joseph::kRaysY + threadIdx.y;
+__global__ void __launch_bounds__(joseph::kThreads)
+    joseph_project_kernel(joseph::Args a, const float* __restrict__ vol,
+                          float* __restrict__ out) {
+  int iu, iv;
+  joseph::ray_of_thread(iu, iv);
   const int p = blockIdx.z;
   if (iu >= a.nu || iv >= a.nv) return;
   const joseph::Ray r = joseph::make_ray(a, p, iu, iv);
-  const int64_t sy = a.nz, sx = (int64_t)a.ny * a.nz;
+  int first, last;
+  joseph::step_range(a, r, first, last);
+  const int sy = a.nz, sx = a.ny * a.nz;
   float acc = 0.0f;
-  for (int i = 0; i < a.n_steps; ++i) {
-    joseph::Sample s;
-    if (!joseph::sample_at(a, r, i, s)) continue;  // the reference adds 0 there
+  for (int i = first; i <= last; ++i) {
+    const joseph::Sample s = joseph::sample_at(a, r, i);
     const float* c = vol + s.base;
     const float c000 = __ldg(c), c001 = __ldg(c + 1);
     const float c010 = __ldg(c + sy), c011 = __ldg(c + sy + 1);
@@ -67,13 +74,11 @@ extern "C" int joseph_project_launch(const float* vol, int nx, int ny, int nz, f
                                      int nu, int n_steps, float step_mm, float* out,
                                      void* stream) {
   if (P > 0 && nv > 0 && nu > 0) {
-    if (P > 65535 || nv > 65535 * joseph::kRaysY) return (int)cudaErrorInvalidValue;
+    if (P > 65535 || nv > 65535 * joseph::kWarpV) return (int)cudaErrorInvalidValue;
     joseph::Args a{nx, ny, nz, ox, oy, oz, sx, sy, sz, lox, loy, loz, hix, hiy, hiz,
                    evx, evy, evz, views, pixel_u, pixel_v, P, nv, nu, n_steps, step_mm};
-    const dim3 block(joseph::kRaysX, joseph::kRaysY);
-    const dim3 grid((nu + joseph::kRaysX - 1) / joseph::kRaysX,
-                    (nv + joseph::kRaysY - 1) / joseph::kRaysY, P);
-    joseph_project_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a, vol, out);
+    joseph_project_kernel<<<joseph::grid_of(P, nv, nu), joseph::kThreads, 0,
+                            (cudaStream_t)stream>>>(a, vol, out);
   }
   return (int)cudaGetLastError();
 }

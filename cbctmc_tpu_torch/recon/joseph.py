@@ -10,7 +10,9 @@ transpose (the "splat" that ROOSTER's conjugate gradient needs) one launch
 of ``joseph_splat`` (``csrc/joseph_splat.cu``); on the CPU their plain
 versions :func:`project_one_reference` and :func:`splat_one_reference`
 run, which follow the JAX ``_project_one`` and ``_splat_one`` op for op
-(true divisions by tensors, no fused multiply-adds).
+(true divisions by tensors, no fused multiply-adds). The kernels run only
+each ray's run of steps inside the volume, found exactly by the rule whose
+plain version is :func:`step_range_reference`.
 :func:`make_linear_projector` wraps the pair in a ``torch.autograd.Function``
 whose backward is the splat.
 """
@@ -30,6 +32,8 @@ _f32 = np.float32
 # views per ``joseph_project`` launch in :func:`project_forward`: bounds the
 # line integrals held on the device; the whole detector is one launch
 PROJECT_VIEW_CHUNK = 64
+#: the most voxels a volume may have: its flat indices are 32-bit integers
+MAX_VOXELS = 2**31 - 1
 
 
 class JosephGeometry:
@@ -43,6 +47,9 @@ class JosephGeometry:
         self.shape = tuple(int(s) for s in vol_shape)
         if any(s < 2 for s in self.shape):
             raise ValueError(f"the volume needs at least 2 voxels on every axis, not {self.shape}")
+        if int(np.prod(self.shape)) > MAX_VOXELS:
+            # the JAX march indexes the flat volume in int32, as the kernels do
+            raise ValueError(f"the volume {self.shape} has more than {MAX_VOXELS} voxels")
         self.origin = np.asarray(vol_origin, np.float64).astype(_f32)
         self.spacing = np.asarray(vol_spacing, np.float64).astype(_f32)
         self.extent = np.asarray([s - 1 for s in self.shape], _f32) * self.spacing
@@ -107,13 +114,18 @@ def _rays(views: torch.Tensor, jg: JosephGeometry):
     return src, direction, t_near
 
 
+def _coord(jg: JosephGeometry, src, direction, t, a: int):
+    """The index-space coordinate on axis ``a`` of the samples at distance
+    ``t`` along the rays."""
+    return _div((src[a] + direction[a] * t) - float(jg.origin[a]), float(jg.spacing[a]))
+
+
 def _sample(jg: JosephGeometry, src, direction, t_near, i: int):
     """Step ``i`` of every ray: whether the sample lies inside the volume,
     the flat index of its lower corner (clamped as the reference clamps)
     and its offsets ``fx, fy, fz``."""
     t = t_near + float(_f32(_f32(i + 0.5) * jg.step_mm))
-    idx = [_div((src[a] + direction[a] * t) - float(jg.origin[a]), float(jg.spacing[a]))
-           for a in range(3)]
+    idx = [_coord(jg, src, direction, t, a) for a in range(3)]
     inside = torch.ones_like(t, dtype=torch.bool)
     corner, frac = [], []
     for a, n in enumerate(jg.shape):
@@ -125,6 +137,41 @@ def _sample(jg: JosephGeometry, src, direction, t_near, i: int):
     _, ny, nz = jg.shape
     base = (corner[0] * ny + corner[1]) * nz + corner[2]
     return inside, base, frac
+
+
+def step_range_reference(views: torch.Tensor, jg: JosephGeometry) -> tuple:
+    """Plain version of the kernels' ``step_range`` (``csrc/joseph.cuh``):
+    each ray's run of steps ``[first, last]`` (int64 ``[P, nv, nu]`` each)
+    whose samples lie inside the volume, ``(n_steps, -1)`` where it has
+    none.
+
+    Every coordinate of a sample is monotone in the step in float32 (each
+    operation is correctly rounded, and rounding is monotone), so each of
+    the six face tests of :func:`_sample` holds on a prefix or a suffix of
+    the steps; bisection with the same expressions finds where it changes,
+    and the run is the intersection of the six."""
+    src, direction, t_near = _rays(views, jg)
+    n = jg.n_steps
+    first = torch.zeros(t_near.shape, dtype=torch.int64, device=t_near.device)
+    last = torch.full_like(first, n - 1)
+    if n > 0:
+        def at(step, a):
+            t = t_near + (step.to(torch.float32) + 0.5) * float(jg.step_mm)
+            return _coord(jg, src, direction, t, a)
+
+        for a, n_vox in enumerate(jg.shape):
+            for holds in (lambda c: c >= 0.0, lambda c, top=n_vox - 1.0: c <= top):
+                lo, hi = torch.zeros_like(first), torch.full_like(first, n - 1)
+                at_0, at_end = holds(at(lo, a)), holds(at(hi, a))
+                while bool((hi - lo > 1).any()):  # holds(lo) == at_0 != holds(hi)
+                    mid = (lo + hi) // 2
+                    keep = holds(at(mid, a)) == at_0
+                    lo, hi = torch.where(keep, mid, lo), torch.where(keep, hi, mid)
+                last = torch.where(at_0 & ~at_end, torch.minimum(last, lo), last)
+                first = torch.where(~at_0 & at_end, torch.maximum(first, hi), first)
+                last = torch.where(~at_0 & ~at_end, torch.full_like(last, -1), last)
+    empty = last < first
+    return torch.where(empty, n, first), torch.where(empty, -1, last)
 
 
 def _corner_offsets(sx: int, sy: int) -> list:

@@ -87,7 +87,9 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     phantom's); then ``joseph_project`` (no ray
     may differ) and ``joseph_splat`` (1e-5 of the volume's max, the adjoint
     identity within 1e-4) on one full view against their plain versions
-    with ``grid_sample`` / ``index_add_`` as yardsticks, and ``tv_spatial``
+    with ``grid_sample`` / ``index_add_`` as yardsticks (the plain step
+    ranges' counts equal to the march's samples inside), both timed also at
+    the path's launch shape of 16 views, and ``tv_spatial``
     (one iteration) and ``tv_temporal`` (10) over the 10 phase volumes (no
     voxel may differ);
 13. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
@@ -230,17 +232,24 @@ def device_events(prof):
             yield e.name, (getattr(e, "cuda_time", 0.0) if t_us is None else t_us)
 
 
-def kernel_ms(calls, kernel: str | None) -> tuple:
+def kernel_ms(calls, kernel: str | None, launches: int | None = None) -> tuple:
     """``(ms, timer)``: the device time per call of the device functions
     named ``kernel...`` (after the ``void`` and the namespaces of a
     templated kernel's name; every device operation when None), from the
     profiler's trace of the calls after a warm-up call, and ``"profiler"``.
     On the card's machine the profiler now and then records no device event
-    at all in a window; it is asked twice, and then the calls are timed by
-    CUDA events (:func:`as_run_ms`, which counts host gaps and every
-    operation of the calls) and the timer is ``"events"``."""
+    at all in a window, or only some of a window's launches. ``launches``,
+    when given, is the number of the kernel's launches a call makes (each
+    the same work): the time per call is then the mean of the launches the
+    window recorded times ``launches``, so a launch the profiler dropped
+    does not shorten it. The profiler is asked twice; where neither window
+    recorded the kernel, the calls are timed by CUDA events
+    (:func:`as_run_ms`, which counts host gaps and every operation of the
+    calls) and the timer is ``"events"``."""
     from torch.profiler import ProfilerActivity, profile
 
+    named = re.compile(rf"(?:^|[\s:]){re.escape(kernel or '')}")
+    want = None if launches is None else launches * (len(calls) - 1)
     for _ in range(2):
         calls[0]()
         torch.cuda.synchronize()
@@ -249,18 +258,22 @@ def kernel_ms(calls, kernel: str | None) -> tuple:
                 call()
             torch.cuda.synchronize()
         events = list(device_events(prof))
-        if events:
+        times = [t for name, t in events if named.search(name)]
+        if events and (want is None or times):
             break
     else:
-        say(f"the profiler recorded no device event in two windows: {kernel} timed by CUDA "
-            "events")
+        say(f"the profiler recorded no launch of {kernel} in two windows: timed by CUDA events")
         return as_run_ms(calls), "events"
-    named = re.compile(rf"(?:^|[\s:]){re.escape(kernel or '')}")
-    total_us = sum(t for name, t in events if named.search(name))
+    total_us = sum(times)
     if total_us <= 0.0:
         seen = sorted({name[:60] for name, _ in events})
         raise AssertionError(f"the profiler saw no device time for {kernel}; it saw {seen}")
-    return total_us / 1e3 / (len(calls) - 1), "profiler"
+    if want is None:
+        return total_us / 1e3 / (len(calls) - 1), "profiler"
+    if len(times) != want:
+        say(f"the profiler recorded {len(times)} of {want} launches of {kernel}: their mean "
+            "times the launches a call makes")
+    return total_us / len(times) * launches / 1e3, "profiler"
 
 
 def as_run_ms(calls) -> float:
@@ -1974,10 +1987,19 @@ def check_joseph_kernels(kernels, card, recon):
     per-step work at each sample inside and at one more step at each end of
     that run (where the march finds the box's faces), and the interpolation
     at each sample inside; nothing per step for a ray that misses. The
-    splat is charged nothing for a ray whose value is 0, which it skips."""
+    splat is charged nothing for a ray whose value is 0, which it skips.
+    Each ray's samples inside are also counted by the plain version of the
+    kernels' step range (``step_range_reference``), which must agree with
+    the march's own count.
+
+    Then both kernels are held to the same bounds at the path's launch
+    shape, one phase's 16 views of the 4D scan a launch (the Joseph ROOSTER
+    run's), and timed there, with their bounds from those views' step
+    ranges."""
     import torch.nn.functional as F
 
     from cbctmc_tpu_torch.recon import joseph
+    from cbctmc_tpu_torch.recon.geometry import mc_scan_angles
 
     grid, geometry = recon["grid"], recon["geometry"]
     spacing = np.asarray(grid.spacing, np.float64)
@@ -1987,10 +2009,29 @@ def check_joseph_kernels(kernels, card, recon):
     jg = joseph.JosephGeometry(grid.shape, grid.origin_or_centered(), spacing,
                                geometry.u_coordinates(), geometry.v_coordinates(),
                                (0.0, 0.0, 1.0), n_steps, step_mm)
-    angle = np.array([279.0])
-    src = geometry.source_positions(angle)
-    views = torch.from_numpy(joseph.view_rows(src, src + geometry.beam_directions(angle)
-                                              * geometry.sdd, geometry.u_axes(angle))).to(DEVICE)
+
+    def view_rows(angles):
+        src = geometry.source_positions(angles)
+        return torch.from_numpy(joseph.view_rows(src, src + geometry.beam_directions(angles)
+                                                 * geometry.sdd,
+                                                 geometry.u_axes(angles))).to(DEVICE)
+
+    def runs_inside(views_):
+        first, last = joseph.step_range_reference(views_, jg)
+        return (last - first + 1).clamp(min=0).reshape(-1)
+
+    def project_ops(per_ray):
+        inside_, enter_ = int(per_ray.sum()), int((per_ray > 0).sum())
+        return (len(per_ray) * JOSEPH_RAY_FLOPS + (inside_ + 2 * enter_) * JOSEPH_STEP_FLOPS
+                + inside_ * JOSEPH_INSIDE_FLOPS)
+
+    def splat_ops(per_ray, g_):
+        live_ = per_ray[g_.reshape(-1) != 0.0]  # the rays the splat does not skip
+        inside_ = int(live_.sum())
+        return (len(live_) * (JOSEPH_RAY_FLOPS + 1) + (inside_ + 2 * len(live_))
+                * JOSEPH_STEP_FLOPS + inside_ * SPLAT_INSIDE_FLOPS)
+
+    views = view_rows(np.array([279.0]))
     vol = torch.from_numpy(moving_phantom(recon["base"], grid, 0.0)).to(DEVICE)
     got = joseph.joseph_project(vol, views, jg)
     stats = {}
@@ -2002,8 +2043,10 @@ def check_joseph_kernels(kernels, card, recon):
     per_ray = stats["inside"].reshape(-1).long()
     inside = int(per_ray.sum())
     n_enter = int((per_ray > 0).sum())
+    if not torch.equal(runs_inside(views), per_ray):
+        raise AssertionError("the step ranges' counts differ from the march's samples inside")
     ms, timer = kernel_ms([lambda: joseph.joseph_project(vol, views, jg)] * (TIMING_REPS + 1),
-                          "joseph_project")
+                          "joseph_project", 1)
     ev_ms = _events_ms(lambda: joseph.joseph_project(vol, views, jg), TIMING_REPS)
     # the plain versions issue ~45 operations per step: CUDA events, not the profiler
     p_ms = _events_ms(lambda: joseph.project_one_reference(vol, views, jg), 1)
@@ -2030,8 +2073,7 @@ def check_joseph_kernels(kernels, card, recon):
         lib_ms += start_ev.elapsed_time(end_ev)
         del sample_grid, coords, norm, t
     n_bytes = vol.numel() * 4 + got.numel() * 4 + views.numel() * 4
-    n_ops = (n_rays * JOSEPH_RAY_FLOPS + (inside + 2 * n_enter) * JOSEPH_STEP_FLOPS
-             + inside * JOSEPH_INSIDE_FLOPS)
+    n_ops = project_ops(per_ray)
     b_ms, b_by = bound(n_bytes, n_ops)
     all_ms = bound(n_bytes, n_ops + (n_rays * n_steps - inside - 2 * n_enter)
                    * JOSEPH_STEP_FLOPS)[0]
@@ -2057,7 +2099,7 @@ def check_joseph_kernels(kernels, card, recon):
     rhs = float((vol.double() * vol_k.double()).sum())
     adj = abs(lhs - rhs) / abs(lhs)
     s_ms, s_timer = kernel_ms([lambda: joseph.joseph_splat(g, views, jg)]
-                              * (TIMING_REPS // 2 + 1), "joseph_splat")
+                              * (TIMING_REPS // 2 + 1), "joseph_splat", 1)
     s_ev = _events_ms(lambda: joseph.joseph_splat(g, views, jg), TIMING_REPS // 2)
     s_plain = _events_ms(lambda: joseph.splat_one_reference(g, views, jg), 1)
     # index_add_ of the same values, in chunks of steps
@@ -2085,8 +2127,7 @@ def check_joseph_kernels(kernels, card, recon):
     s_bytes = g.numel() * 4 + 2 * vol.numel() * 4 + views.numel() * 4
     live = per_ray[(g.reshape(-1) != 0.0)]  # the rays the splat does not skip
     s_inside, s_rays = int(live.sum()), len(live)
-    s_ops = (s_rays * (JOSEPH_RAY_FLOPS + 1) + (s_inside + 2 * s_rays) * JOSEPH_STEP_FLOPS
-             + s_inside * SPLAT_INSIDE_FLOPS)
+    s_ops = splat_ops(per_ray, g)
     sb_ms, sb_by = bound(s_bytes, s_ops)
     say(f"joseph_splat: the same view's {n_rays} rays into {grid.shape}: max |diff| {s_err:.3e} "
         f"against the plain version ({s_err / max(scale, 1e-30):.3e} of its max {scale:.4e}; "
@@ -2100,6 +2141,55 @@ def check_joseph_kernels(kernels, card, recon):
         raise AssertionError("joseph_splat differs from its plain version or is not the adjoint")
     splat = dict(max_abs_err=s_err, ms=s_ms, timer=s_timer, plain_ms=s_plain, bound_ms=sb_ms,
                  bound_by=sb_by, library_ms=s_lib)
+
+    # the path's launch shape: one phase's views of the 4D scan a launch,
+    # held to the same bounds as the one view: each view a block's z, the
+    # views' atomics landing in one volume
+    views_n = view_rows(mc_scan_angles(ROOSTER_VIEWS)[::ROOSTER_VIEWS // ROOSTER_CYCLES])
+    n = len(views_n)
+    got_n = joseph.joseph_project(vol, views_n, jg)
+    stats_n = {}
+    want_n = joseph.project_one_reference(vol, views_n, jg, stats_n)
+    torch.cuda.synchronize()
+    n_off_n = int((got_n != want_n).sum())
+    per_ray_n = stats_n["inside"].reshape(-1).long()
+    del want_n, stats_n
+    if not torch.equal(runs_inside(views_n), per_ray_n):
+        raise AssertionError(f"the step ranges' counts differ from the march's samples inside "
+                             f"at {n} views")
+    g_n = (got_n / got_n.max()).contiguous()
+    vol_kn = joseph.joseph_splat(g_n, views_n, jg)
+    vol_pn = joseph.splat_one_reference(g_n, views_n, jg)
+    torch.cuda.synchronize()
+    s_err_n = float((vol_kn - vol_pn).abs().max())
+    scale_n = float(vol_pn.abs().max())
+    lhs_n = float((got_n.double() * g_n.double()).sum())
+    rhs_n = float((vol.double() * vol_kn.double()).sum())
+    adj_n = abs(lhs_n - rhs_n) / abs(lhs_n)
+    del got_n, vol_kn, vol_pn
+    say(f"joseph kernels at the path's launch shape, {n} views a launch: joseph_project "
+        f"{n_off_n} of {n * n_rays} rays not bit-equal to the plain version; joseph_splat max "
+        f"|diff| {s_err_n:.3e} ({s_err_n / max(scale_n, 1e-30):.3e} of the plain version's max "
+        f"{scale_n:.4e}; bound 1e-5), adjoint identity <A x, y> {lhs_n:.10e}, <x, A^T y> "
+        f"{rhs_n:.10e}, relative {adj_n:.3e} (bound 1e-4)", card)
+    if n_off_n:
+        raise AssertionError(f"joseph_project differs from its plain version at {n} views")
+    if s_err_n > 1e-5 * scale_n or adj_n > 1e-4:
+        raise AssertionError(f"joseph_splat differs from its plain version or is not the adjoint "
+                             f"at {n} views")
+    for name, call, n_bytes_n, ops in (
+            ("joseph_project", lambda: joseph.joseph_project(vol, views_n, jg),
+             vol.numel() * 4 + (g_n.numel() + views_n.numel()) * 4, project_ops(per_ray_n)),
+            ("joseph_splat", lambda: joseph.joseph_splat(g_n, views_n, jg),
+             (g_n.numel() + views_n.numel()) * 4 + 2 * vol.numel() * 4,
+             splat_ops(per_ray_n, g_n))):
+        ms_n, timer_n = kernel_ms([call] * 4, name, 1)
+        ev_n = _events_ms(call, 3)
+        bn_ms, bn_by = bound(n_bytes_n, ops)
+        say(f"{name} at the path's launch shape, {n} views a launch: {ms_n:.5f} ms a launch by "
+            f"the {timer_n} ({ms_n / n:.5f} a view), {ev_n:.5f} by CUDA events around the "
+            f"wrapper's call ({ev_n / n:.5f} a view); bound {bn_ms:.6f} by {bn_by} "
+            f"({bn_ms / n:.6f} a view, {int(per_ray_n.sum())} samples inside)", card)
     return project, splat
 
 
@@ -2127,7 +2217,7 @@ def check_tv_kernels(kernels, card, recon):
     del got, want
     per_call = 3  # launches of one iteration
     call_ms, timer = kernel_ms([lambda: rooster.spatial_tv(vols, par.gamma_space, 1)] * 6,
-                               "tv_spatial")
+                               "tv_spatial", per_call)
     ev_ms = _events_ms(lambda: rooster.spatial_tv(vols, par.gamma_space, 1), 5)
     n10 = 2 * par.n_tv_iterations + 1
     ms10 = _events_ms(lambda: rooster.spatial_tv(vols, par.gamma_space, par.n_tv_iterations), 2)
@@ -2153,7 +2243,7 @@ def check_tv_kernels(kernels, card, recon):
     t_off = int((got != want).sum())
     del got, want
     t_ms, t_timer = kernel_ms([lambda: rooster.temporal_tv(vols, par.gamma_time, n_iter)] * 6,
-                              "tv_temporal")
+                              "tv_temporal", 1)
     t_ev = _events_ms(lambda: rooster.temporal_tv(vols, par.gamma_time, n_iter), 5)
     t_plain = _events_ms(lambda: rooster.temporal_tv_reference(vols, par.gamma_time, n_iter), 1)
     tb_ms, tb_by = bound(2 * n * 4, n * (TV_TEMPORAL_FLOPS * n_iter + 4))

@@ -43,13 +43,10 @@ checkout's results.
 
 from __future__ import annotations
 
-import ctypes
-import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
+import kernel_variants
 import numpy as np
 import torch
 
@@ -67,10 +64,10 @@ def _tiles(tw: int, th: int) -> str:
             "  if (i < a.n) trace_ray(a, mat_table, acc, blockDim.x, i);")
 
 
-#: name -> (kernel, [(text of the source, its replacement), ...]); {W} is
+#: name -> (kernel, {source file: [(text, its replacement), ...]}); {W} is
 #: the detector's width in pixels
 VARIANTS = {
-    "primary_trace_persistent": ("primary_trace", [
+    "primary_trace_persistent": ("primary_trace", {"primary_trace.cu": [
         ("// at global scope: the profiler reports the kernel under this name",
          "__device__ int g_handed_out;  // rays handed out, zeroed before each launch\n"
          "__device__ __forceinline__ int next_batch(int lane) {\n"
@@ -96,39 +93,18 @@ VARIANTS = {
          "    const unsigned blocks = (unsigned)(fill < needed ? fill : needed);\n"
          "    cudaMemcpyToSymbolAsync(g_handed_out, &zero, sizeof(int), 0,\n"
          "                            cudaMemcpyHostToDevice, (cudaStream_t)stream);"),
-    ]),
-    "primary_trace_tiles_8x4": ("primary_trace", [(_TRACE_INDEX, _tiles(8, 4))]),
-    "primary_trace_tiles_4x8": ("primary_trace", [(_TRACE_INDEX, _tiles(4, 8))]),
-    "backproject_no_taps": ("backproject", [
+    ]}),
+    "primary_trace_tiles_8x4": ("primary_trace", {
+        "primary_trace.cu": [(_TRACE_INDEX, _tiles(8, 4))]}),
+    "primary_trace_tiles_4x8": ("primary_trace", {
+        "primary_trace.cu": [(_TRACE_INDEX, _tiles(4, 8))]}),
+    "backproject_no_taps": ("backproject", {"backproject.cu": [
         ("const float g00 = __ldg(t), g01 = __ldg(t + 1);\n"
          "        const float g10 = __ldg(t + a.nu), g11 = __ldg(t + a.nu + 1);",
          "const float g00 = pv, g01 = fv, g10 = pu, g11 = fu;\n"
          "        (void)t;"),
-    ]),
+    ]}),
 }
-
-
-def build_variant(kernels, name: str, width: int):
-    """Compile the variant ``name`` from this checkout's source; returns its
-    launch function with the shipped kernel's signature."""
-    kernel, edits = VARIANTS[name]
-    src = (kernels.CSRC / f"{kernel}.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise AssertionError(f"{name}: the edit's text occurs {src.count(old)} times")
-        src = src.replace(old, new.replace("{W}", str(width)))
-    out = kernels.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{name}.cu").write_text(src)
-    lib = out / f"lib{name}.so"
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
-                           str(out / f"{name}.cu")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    fn = getattr(ctypes.CDLL(str(lib)), f"{kernel}_launch")
-    fn.argtypes = kernels._SIGNATURES[kernel]
-    fn.restype = ctypes.c_int
-    return kernel, fn
 
 
 def variants(cs, kernels, card, scanner, pv, source, detector) -> dict:
@@ -168,6 +144,7 @@ def variants(cs, kernels, card, scanner, pv, source, detector) -> dict:
         return cs.as_run_ms([lambda: fdk.backproject_into(vol, filtered, views, bp)] * 6)
 
     timers = {"primary_trace": trace_ms, "backproject": backproject_ms}
+    built = kernel_variants.build_variants(kernels, VARIANTS, {"{W}": str(width)})
     out = {}
     for name in ("shipped", *VARIANTS, "shipped again"):
         if name.startswith("shipped"):
@@ -175,24 +152,18 @@ def variants(cs, kernels, card, scanner, pv, source, detector) -> dict:
                 out[f"{kernel} ({name})"] = ms = timer()
                 cs.say(f"variants: {kernel} as shipped: {ms} ms", card)
             continue
-        kernel, fn = build_variant(kernels, name, width)
-        shipped = kernels._launcher(kernel)
-        kernels._libs[kernel] = fn
-        try:
+        kernel, fn = built[name]
+        with kernel_variants.swapped(kernels, kernel, fn):
             if kernel == "primary_trace":
                 if not torch.equal(primary.primary_trace(pv, src, dirs, mats, cap), want):
                     raise AssertionError(f"{name} differs from the plain version")
             out[name] = ms = timers[kernel]()
-        finally:
-            kernels._libs[kernel] = shipped
         cs.say(f"variants: {name}: {ms} ms", card)
     return out
 
 
 def child(root: Path, with_variants: bool) -> None:
-    sys.path.insert(0, str(root))
-    os.chdir(root)
-    import chip_smoke as cs
+    cs = kernel_variants.enter(root)
     from cbctmc_tpu_torch.engine import kernels, primary
     from cbctmc_tpu_torch.engine.ct import build_scan
     from cbctmc_tpu_torch.engine.simulate import MCScanner
@@ -216,37 +187,8 @@ def child(root: Path, with_variants: bool) -> None:
     }
     if with_variants:
         result["variants"] = variants(cs, kernels, card, scanner, pv, source, detector)
-    print("RESULT " + json.dumps(result), flush=True)
-
-
-def main() -> int:
-    args = sys.argv[1:]
-    with_variants = "--variants" in args
-    if args and args[0] == "--child":
-        child(Path(args[1]).resolve(), with_variants)
-        return 0
-    if not torch.cuda.is_available():
-        print("compare_fast_scan_kernels: no CUDA device, nothing run", file=sys.stderr)
-        return 2
-    roots = [a for a in args if not a.startswith("--")]
-    if not roots:
-        print(__doc__, file=sys.stderr)
-        return 2
-    home = Path(__file__).resolve().parents[1]
-    results = []
-    for root in roots:
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--child", root]
-        if with_variants and Path(root).resolve() == home:
-            cmd.append("--variants")
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        print(f"== {root}\n{proc.stdout}{proc.stderr[-4000:]}", flush=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"{root}: exit code {proc.returncode}")
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
-        results.append(json.loads(lines[-1][len("RESULT "):]))
-    print(json.dumps({"runs": results}))
-    return 0
+    kernel_variants.emit(result)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(kernel_variants.main(__doc__, __file__, child))

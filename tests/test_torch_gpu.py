@@ -596,13 +596,14 @@ def test_primary_trace_kernel_repeats_on_card(cuda):
 # the recon-mc kernels at ragged small sizes: a (37, 29, 13) grid and a
 # 33 x 17 panel, neither a multiple of a block
 # ---------------------------------------------------------------------------
-def _joseph_case(device, seed=8, n_views=3):
+def _joseph_case(device, seed=8, n_views=3, nu=33, nv=17):
     from cbctmc_tpu_torch.recon import joseph
     from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry
 
     shape, spacing = (37, 29, 13), np.array([3.0, 3.0, 4.0])
-    geom = ConeBeamGeometry(sad=400.0, sdd=600.0, n_pixels_u=33, n_pixels_v=17,
-                            pixel_size_u=5.0, pixel_size_v=5.0, detector_offset_u=-12.0)
+    geom = ConeBeamGeometry(sad=400.0, sdd=600.0, n_pixels_u=nu, n_pixels_v=nv,
+                            pixel_size_u=5.0 * 33 / nu, pixel_size_v=5.0 * 17 / nv,
+                            detector_offset_u=-12.0)
     angles = np.array([270.0, 311.7, 95.0])[:n_views]
     sources = geom.source_positions(angles)
     rows = joseph.view_rows(sources, sources + geom.beam_directions(angles) * geom.sdd,
@@ -612,8 +613,31 @@ def _joseph_case(device, seed=8, n_views=3):
                                geom.v_coordinates(), (0.0, 0.0, 1.0), 90, 1.4)
     rng = np.random.default_rng(seed)
     vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(device)
-    g = torch.from_numpy(rng.random((n_views, 17, 33)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.random((n_views, nv, nu)).astype(np.float32)).to(device)
     return joseph, jg, torch.from_numpy(rows).to(device), vol, g
+
+
+def _joseph_edge_case(device, seed=3):
+    """Odd panels (a pixel centre on the beam axis: rays with d = 0 on two
+    axes) over a grid whose z face lies 0.3 mm from the sources, rows 0.075
+    mm apart: runs cut where the rays leave through that face at shallow
+    angles; three views a launch (along y, along x, oblique)."""
+    from cbctmc_tpu_torch.recon import joseph
+
+    shape, spacing = (20, 20, 6), np.array([4.0, 4.0, 4.0])
+    origin = -(np.asarray(shape) - 1) * spacing / 2
+    origin[2] = 0.0
+    src = np.array([[0.0, -400.0, 0.3], [400.0, 0.0, 0.3], [283.0, 283.0, 0.3]])
+    det = np.array([[0.0, 200.0, 0.3], [-200.0, 0.0, 0.3], [-141.0, -141.0, 0.3]])
+    e_u = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [-0.7071, 0.7071, 0.0]])
+    pixel_u, pixel_v = (np.arange(65) - 32.0) * 6.0, (np.arange(41) - 40.0) * 0.075
+    jg = joseph.JosephGeometry(shape, origin, spacing, pixel_u, pixel_v, (0.0, 0.0, 1.0), 160,
+                               2.5)
+    rng = np.random.default_rng(seed)
+    vol = torch.from_numpy(rng.random(shape).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.random((3, 41, 65)).astype(np.float32)).to(device)
+    rows = torch.from_numpy(joseph.view_rows(src, det, e_u)).to(device)
+    return joseph, jg, rows, vol, g
 
 
 @pytest.mark.gpu
@@ -646,6 +670,35 @@ def test_joseph_splat_kernel_on_card(cuda):
     ax = joseph.joseph_project(vol, views, jg)
     lhs = float((ax.double() * g.double()).sum())
     rhs = float((vol.double() * got.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["7x45", "130x65", "edges"])
+def test_joseph_kernels_ragged_panels_on_card(cuda, case):
+    """Warps of 32 rows of a column and blocks of 4 columns (csrc/joseph.cuh)
+    on panels that are not whole blocks, 3 views a launch, each ray's march
+    cut to its run inside: the projection bit-equal to the plain version
+    (which runs every step), the splat within 1e-5 of the volume's maximum
+    and the adjoint identity within 1e-4."""
+    if case == "edges":
+        joseph, jg, views, vol, g = _joseph_edge_case(cuda)
+        first, last = joseph.step_range_reference(views.cpu(), jg)
+        assert bool((last < first).any()) and bool((last >= first).any())
+    else:
+        nu, nv = map(int, case.split("x"))
+        joseph, jg, views, vol, g = _joseph_case(cuda, seed=nu, nu=nu, nv=nv)
+    got = joseph.joseph_project(vol, views, jg)
+    want = joseph.project_one_reference(vol, views, jg)
+    splat = joseph.joseph_splat(g, views, jg)
+    want_splat = joseph.splat_one_reference(g, views, jg)
+    torch.cuda.synchronize()
+    assert got.shape == (3, len(jg.pixel_v), len(jg.pixel_u))
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+    assert float((splat - want_splat).abs().max()) <= 1e-5 * float(want_splat.abs().max())
+    lhs = float((got.double() * g.double()).sum())
+    rhs = float((vol.double() * splat.double()).sum())
     assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
 
 

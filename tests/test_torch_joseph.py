@@ -3,8 +3,9 @@
 the ray march (``_project_one``, ``project_forward``) on the geometries of
 tests/test_fdk.py and tests/test_rooster.py, the splat against
 ``_splat_one``, the adjoint identity, the ``autograd.Function``'s gradient,
-and the shear-warp pair (``ShearWarpProjector``) on tests/test_shearwarp.py's
-geometries, the half-fan offset one included.
+the plain version of the kernels' step range against the march's own
+inside test, and the shear-warp pair (``ShearWarpProjector``) on
+tests/test_shearwarp.py's geometries, the half-fan offset one included.
 
 Tolerances. The march: XLA on the CPU fuses ``a * b + c`` into a fused
 multiply-add and the port does not (PERF.md), so a sample position can
@@ -114,6 +115,83 @@ def test_project_forward_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tjoseph.project_forward(np.zeros((4, 4, 4), np.float32),
                                 ConeBeamGeometry(**ROOSTER_GEOM), [0.0])
+
+
+def _range_views(case: str):
+    """``(views [P, 9], pixel_u, pixel_v, origin)`` of a step-range case on
+    the (20, 20, 6) splat grid at 4 mm; the panels are odd (a pixel centre
+    on the beam axis) and wider than the volume's shadow (rays that miss)."""
+    pixel_u = (np.arange(65) - 32.0) * 6.0
+    pixel_v = (np.arange(9) - 4.0) * 8.0
+    if case == "seeded":
+        rng = np.random.default_rng(5)
+        ang = rng.uniform(0.0, 2.0 * np.pi, 4)
+        rad = rng.uniform(300.0, 500.0, 4)
+        src = np.stack([rad * np.cos(ang), rad * np.sin(ang), rng.uniform(-20.0, 20.0, 4)], 1)
+        beam = -np.stack([np.cos(ang), np.sin(ang), np.zeros(4)], 1)
+        e_u = np.stack([-np.sin(ang), np.cos(ang), np.zeros(4)], 1)
+        return tjoseph.view_rows(src, src + 600.0 * beam, e_u), pixel_u, pixel_v, SPLAT_ORIGIN
+    # two views along the axes: the centre pixel's ray has d = 0 on two axes
+    src = np.array([[0.0, -400.0, 0.0], [400.0, 0.0, 0.0]])
+    det = np.array([[0.0, 200.0, 0.0], [-200.0, 0.0, 0.0]])
+    e_u = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    origin = SPLAT_ORIGIN.copy()
+    if case != "axes":
+        # the source 0.3 mm inside a z face of the volume and rows 0.075 mm
+        # apart: the rays cross the face at shallow angles inside the volume
+        # (the last row, dz = 0, runs parallel to it)
+        side = 1.0 if case == "grazing_low" else -1.0
+        src[:, 2] = det[:, 2] = 0.3 * side
+        origin[2] = 0.0 if side > 0 else -(SPLAT_SHAPE[2] - 1) * SPLAT_SPACING[2]
+        pixel_v = (np.arange(9) - 8.0) * 0.075 * side
+    return tjoseph.view_rows(src, det, e_u), pixel_u, pixel_v, origin
+
+
+@pytest.mark.parametrize("case", ["seeded", "axes", "grazing_low", "grazing_high"])
+def test_step_range_holds_exactly_the_samples_inside(case):
+    """The kernels' step range (its plain version) against the march's own
+    inside test: every sample inside lies in ``[first, last]``, and the
+    range holds exactly as many steps as the reference counts inside."""
+    rows, pixel_u, pixel_v, origin = _range_views(case)
+    jg = tjoseph.JosephGeometry(SPLAT_SHAPE, origin, SPLAT_SPACING, pixel_u, pixel_v, E_V,
+                                SPLAT_STEPS, 2.5)
+    views = torch.from_numpy(rows)
+    first, last = tjoseph.step_range_reference(views, jg)
+    stats = {}
+    tjoseph.project_one_reference(torch.zeros(SPLAT_SHAPE), views, jg, stats)
+    count = stats["inside"].long()
+    assert torch.equal((last - first + 1).clamp(min=0), count)
+    assert torch.equal(first[count == 0], torch.full_like(first[count == 0], SPLAT_STEPS))
+    assert bool((last[count == 0] == -1).all())
+    src, direction, t_near = tjoseph._rays(views, jg)
+    for i in range(SPLAT_STEPS):
+        inside = tjoseph._sample(jg, src, direction, t_near, i)[0]
+        assert bool(((first <= i) & (i <= last))[inside].all()), i
+    assert bool((count == 0).any()) and bool((count > 0).any())
+    if case == "axes":
+        # the centre ray runs along y (x) with d = 0 on the two other axes
+        assert float(direction[0][0, 4, 32]) == 0.0 == float(direction[2][0, 4, 32])
+        assert float(direction[1][1, 4, 32]) == 0.0 == float(direction[2][1, 4, 32])
+        assert int(count[0, 4, 32]) > 0 and int(count[1, 4, 32]) > 0
+    if case.startswith("grazing"):
+        # some runs end where the ray leaves through the z face, and the
+        # rows parallel to it keep their samples
+        after = torch.minimum(last + 1, torch.full_like(last, SPLAT_STEPS - 1)).float()
+        t = t_near + (after + 0.5) * float(jg.step_mm)
+        xyz = [tjoseph._coord(jg, src, direction, t, a) for a in range(3)]
+        in_xy = ((xyz[0] >= 0) & (xyz[0] <= 19) & (xyz[1] >= 0) & (xyz[1] <= 19))
+        out_z = (xyz[2] < 0) | (xyz[2] > SPLAT_SHAPE[2] - 1)
+        assert bool((in_xy & out_z & (count > 0) & (last < SPLAT_STEPS - 1)).any())
+        assert float(direction[2][0, 8, 32]) == 0.0 and int(count[0, 8, 32]) > 0
+
+
+def test_joseph_geometry_refuses_volumes_past_int32_indices():
+    """The kernels index the flat volume with 32-bit integers, as the JAX
+    march does: a volume of 2^31 voxels or more is refused."""
+    args = ((0.0,) * 3, (1.0,) * 3, SPLAT_PIXEL_U, SPLAT_PIXEL_V, E_V, 4, 1.0)
+    tjoseph.JosephGeometry((1024, 1024, 2047), *args)
+    with pytest.raises(ValueError, match="voxels"):
+        tjoseph.JosephGeometry((1024, 1024, 2048), *args)
 
 
 @pytest.mark.parametrize("view", range(len(SPLAT_VIEWS)))
