@@ -267,7 +267,6 @@ _SIGNATURES = {
     "joseph_project": [_P, _I, _I, _I, *[_F] * 15, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "joseph_splat": [_P, _I, _I, _I, *[_F] * 15, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "tv_spatial": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
-    "tv_spatial:tv_spatial_update": [_P, _P, _I, _I, _I, _I, _P],
     "tv_spatial:tv_spatial_finish": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "tv_temporal": [_P, _I, ctypes.c_longlong, _F, _I, _P, _P],
 }

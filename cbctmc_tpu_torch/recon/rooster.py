@@ -108,11 +108,25 @@ def spatial_tv_reference(volumes: torch.Tensor, weight: float, n_iter: int) -> t
     return torch.stack([_spatial_tv_one(v, weight, n_iter) for v in volumes])
 
 
+def spatial_tv_launches(n_iter: int) -> list:
+    """The launches of :func:`spatial_tv` on the card, in order, as ``(entry,
+    p read, p written)``: p is ping-ponged between buffers 0 and 1 (an
+    iteration's neighbours read the old p); ``None`` read means p = 0 (the
+    first iteration, or the finish when no iteration ran), ``None`` written
+    the result. ``n_iter + 1`` launches."""
+    plan = [("tv_spatial", None if k == 0 else (k - 1) % 2, k % 2) for k in range(n_iter)]
+    plan.append(("tv_spatial:tv_spatial_finish", (n_iter - 1) % 2 if n_iter else None, None))
+    return plan
+
+
 def spatial_tv(volumes: torch.Tensor, weight: float, n_iter: int) -> torch.Tensor:
     """Chambolle TV denoising of every volume of ``volumes f32[B, nx, ny,
     nz]`` (each axis at least 2), returned as a new tensor. On a CUDA tensor
-    ``2 * n_iter + 1`` launches of ``tv_spatial`` for all B volumes
-    together; the plain version on a CPU tensor."""
+    ``n_iter + 1`` launches of ``tv_spatial`` for all B volumes together
+    (:func:`spatial_tv_launches`; the dual variable in two buffers of
+    ``[B, 3, nx, ny, nz]``, one when ``n_iter`` is 1; the kernel takes
+    ``B * nx <= 65535`` and ``3 * nx * ny * nz < 2**31``); the plain version
+    on a CPU tensor."""
     _check(volumes, "volumes", torch.float32)
     if volumes.ndim != 4 or min(volumes.shape[1:]) < 2:
         raise ValueError(f"volumes: expected [B, nx, ny, nz], each axis >= 2, not "
@@ -120,16 +134,16 @@ def spatial_tv(volumes: torch.Tensor, weight: float, n_iter: int) -> torch.Tenso
     if volumes.device.type == "cpu":
         return spatial_tv_reference(volumes, weight, n_iter)
     B, nx, ny, nz = volumes.shape
-    p = torch.zeros((B, 3, nx, ny, nz), dtype=torch.float32, device=volumes.device)
-    d = torch.empty_like(volumes)
+    if B * nx > 65535 or 3 * nx * ny * nz >= 2**31:
+        raise ValueError(f"tv_spatial takes B * nx <= 65535 and 3 * nx * ny * nz < 2**31, not "
+                         f"{tuple(volumes.shape)}")
+    p = [torch.empty((B, 3, nx, ny, nz), dtype=torch.float32, device=volumes.device)
+         for _ in range(min(n_iter, 2))]
     out = torch.empty_like(volumes)
     s = _stream(volumes)
-    for _ in range(n_iter):
-        _launch("tv_spatial", volumes.data_ptr(), p.data_ptr(), B, nx, ny, nz, weight,
-                d.data_ptr(), s)
-        _launch("tv_spatial:tv_spatial_update", d.data_ptr(), p.data_ptr(), B, nx, ny, nz, s)
-    _launch("tv_spatial:tv_spatial_finish", volumes.data_ptr(), p.data_ptr(), B, nx, ny, nz,
-            weight, out.data_ptr(), s)
+    for entry, read, write in spatial_tv_launches(n_iter):
+        _launch(entry, volumes.data_ptr(), None if read is None else p[read].data_ptr(), B, nx,
+                ny, nz, weight, (out if write is None else p[write]).data_ptr(), s)
     return out
 
 

@@ -90,8 +90,9 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     with ``grid_sample`` / ``index_add_`` as yardsticks (the plain step
     ranges' counts equal to the march's samples inside), both timed also at
     the path's launch shape of 16 views, and ``tv_spatial``
-    (one iteration) and ``tv_temporal`` (10) over the 10 phase volumes (no
-    voxel may differ);
+    (at 1 and at the path's 10 iterations, with its stream floor and the
+    call's peak device memory) and ``tv_temporal`` (10) over the 10 phase
+    volumes (no voxel may differ);
 13. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
@@ -1909,13 +1910,13 @@ def recon_mc_path(kernels, card, walls):
     # expected launches: FDK once per file (chunks of 64 views), one
     # project_forward launch per phase's views, per phase of the Joseph run 4
     # forward and 4 splat launches (the right-hand side and the first residual
-    # take one each, each CG step one each), 2 n_tv + 1 spatial and one
+    # take one each, each CG step one each), n_tv + 1 spatial and one
     # temporal launch per 4D run
     with_views = sum(n > 0 for n in per_phase)
     want = {"backproject": 1 + 2 * -(-ROOSTER_VIEWS // 64),
             "joseph_project": len(distinct) + (2 + par.n_data_subiterations) * with_views,
             "joseph_splat": (2 + par.n_data_subiterations) * with_views,
-            "tv_spatial": 2 * (2 * par.n_tv_iterations + 1), "tv_temporal": 2}
+            "tv_spatial": 2 * (par.n_tv_iterations + 1), "tv_temporal": 2}
     truth = insert_centre_mm(np.arange(par.n_phases) / par.n_phases)
     failed = []
     for projector, (out, wall, rooster_s, peak) in runs.items():
@@ -2193,45 +2194,68 @@ def check_joseph_kernels(kernels, card, recon):
     return project, splat
 
 
+def tv_spatial_floor_bytes(n: int, n_iter: int) -> float:
+    """The bytes ``spatial_tv``'s launches must stream over ``n`` voxels: f
+    in and p out in the first iteration (p = 0 is not read), f and p in and
+    p out in each later one, f and p in and the result out in the finish (f
+    in and the result out when no iteration ran)."""
+    floats = 2 if n_iter == 0 else 4 + 7 * (n_iter - 1) + 5
+    return 4.0 * n * floats
+
+
 def check_tv_kernels(kernels, card, recon):
-    """``tv_spatial`` (one iteration) and ``tv_temporal`` (10 iterations)
-    against their plain versions on the card over the 10 phase volumes of the
-    shear-warp 4D run, with device times per launch (the profiler's, filtered
-    to the kernels' names, so the wrapper's allocations and the zeroing of
-    its dual variable are not counted; CUDA events around the whole call
-    beside them), the plain versions', the spatial step at the path's 10
-    iterations, and the bounds (each reads the phases once and writes them
-    once). ``spatial_tv`` with one iteration is 3 launches (the divergence,
-    the dual update, the finish): its row's time, plain time and bound are
-    each the call's over 3, a mean launch's."""
+    """``tv_spatial`` (at 1 iteration and at the path's 10) and
+    ``tv_temporal`` (10 iterations) against their plain versions on the card
+    over the 10 phase volumes of the shear-warp 4D run (no voxel may
+    differ), with device times (the profiler's, filtered to the kernels'
+    names, so the wrapper's allocations are not counted; CUDA events around
+    the whole call beside them), the plain versions', the bounds (each reads
+    the phases once and writes them once, or its operations, whichever is
+    longer), ``tv_spatial``'s stream floor (:func:`tv_spatial_floor_bytes`)
+    and the call's peak device memory. ``spatial_tv`` with ``n`` iterations
+    is ``n + 1`` launches: the kernels line's row is the path's call of 10
+    iterations, each number over its 11 launches (a mean launch)."""
     from cbctmc_tpu_torch.recon import rooster
 
     par = rooster.RoosterParameters()
     vols = torch.from_numpy(np.ascontiguousarray(np.moveaxis(recon["volumes"], -1, 0))).to(DEVICE)
     n = vols.numel()
-    got = rooster.spatial_tv(vols, par.gamma_space, 1)
-    want = rooster.spatial_tv_reference(vols, par.gamma_space, 1)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    n_off = int((got != want).sum())
-    del got, want
-    per_call = 3  # launches of one iteration
-    call_ms, timer = kernel_ms([lambda: rooster.spatial_tv(vols, par.gamma_space, 1)] * 6,
-                               "tv_spatial", per_call)
-    ev_ms = _events_ms(lambda: rooster.spatial_tv(vols, par.gamma_space, 1), 5)
-    n10 = 2 * par.n_tv_iterations + 1
-    ms10 = _events_ms(lambda: rooster.spatial_tv(vols, par.gamma_space, par.n_tv_iterations), 2)
-    p_ms = _events_ms(lambda: rooster.spatial_tv_reference(vols, par.gamma_space, 1), 1)
-    b_ms, b_by = bound(2 * n * 4, n * (TV_SPATIAL_ITER_FLOPS + TV_SPATIAL_FINISH_FLOPS))
-    say(f"tv_spatial: one iteration over {tuple(vols.shape)}: {n_off} voxels not bit-equal to "
-        f"the plain version (max |diff| {err:.3e}); {call_ms:.5f} ms for its {per_call} "
-        f"launches by the {timer} ({call_ms / per_call:.5f} a launch), {ev_ms:.5f} ms by CUDA "
-        f"events around the call with its allocations and the zeroing of p; "
-        f"{ms10:.5f} ms by CUDA events at the path's {par.n_tv_iterations} iterations ({n10} "
-        f"launches) (plain {p_ms:.5f} for one iteration, CUDA events; bound "
-        f"{b_ms:.6f} by {b_by}; the kernels line has each over {per_call})", card)
-    if n_off:
-        raise AssertionError("tv_spatial differs from its plain version")
+    lam = par.gamma_space
+    for n_iter in (1, par.n_tv_iterations):
+        got = rooster.spatial_tv(vols, lam, n_iter)
+        want = rooster.spatial_tv_reference(vols, lam, n_iter)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        n_off = int((got != want).sum())
+        del got, want
+        per_call = n_iter + 1
+
+        def call(n_iter=n_iter):
+            return rooster.spatial_tv(vols, lam, n_iter)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        reps = 5 if n_iter == 1 else 3
+        call_ms, timer = kernel_ms([call] * (reps + 1), "tv_spatial", per_call)
+        ev_ms = _events_ms(call, reps)
+        p_ms = _events_ms(lambda: rooster.spatial_tv_reference(vols, lam, n_iter), 1)
+        b_ms, b_by = bound(2 * n * 4, n * (TV_SPATIAL_ITER_FLOPS * n_iter
+                                           + TV_SPATIAL_FINISH_FLOPS))
+        floor_ms = tv_spatial_floor_bytes(n, n_iter) / PEAK_BYTES_PER_S * 1e3
+        say(f"tv_spatial: {n_iter} iteration(s) over {tuple(vols.shape)}: {n_off} voxels not "
+            f"bit-equal to the plain version (max |diff| {err:.3e}); {call_ms:.5f} ms for its "
+            f"{per_call} launches by the {timer} ({call_ms / per_call:.5f} a launch), "
+            f"{ev_ms:.5f} ms by CUDA events around the call with its allocations; plain "
+            f"{p_ms:.5f} (CUDA events); bound {b_ms:.6f} by {b_by}; the design's stream floor "
+            f"{floor_ms:.6f} ({tv_spatial_floor_bytes(n, n_iter) / 1e9:.3f} GB); peak device "
+            f"memory {peak / 1e9:.3f} GB, {(peak - held) / 1e9:.3f} GB of it the call's", card)
+        if n_off:
+            raise AssertionError(f"tv_spatial at {n_iter} iterations differs from its plain "
+                                 "version")
     spatial = dict(max_abs_err=err, ms=call_ms / per_call, timer=timer, plain_ms=p_ms / per_call,
                    bound_ms=b_ms / per_call, bound_by=b_by, library_ms=None)
 

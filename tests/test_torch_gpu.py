@@ -702,19 +702,40 @@ def test_joseph_kernels_ragged_panels_on_card(cuda, case):
     assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
 
 
+# the (y, z) tile a block of tv_spatial owns (kTY, kTZ in csrc/tv_spatial.cu)
+TV_TILE_Y, TV_TILE_Z = 8, 32
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_iter", [0, 1, 4])
-def test_tv_spatial_kernel_on_card(cuda, n_iter):
+@pytest.mark.parametrize("batch", [1, 10])
+@pytest.mark.parametrize("shape", [
+    (2, 2, 2), (2, 5, 3), (3, TV_TILE_Y + 1, TV_TILE_Z + 1), (5, 2, TV_TILE_Z + 1),
+    (4, TV_TILE_Y + 1, 2), (37, 29, 13)])
+@pytest.mark.parametrize("n_iter", [0, 1, 2, 10])
+def test_tv_spatial_kernel_on_card(cuda, n_iter, shape, batch):
+    """n_iter + 1 launches, every voxel equal to the plain version's: axes
+    at their minimum of 2, one voxel past a block's tile in y and in z."""
     from cbctmc_tpu_torch.recon import rooster
 
     rng = np.random.default_rng(9)
-    vols = torch.from_numpy(rng.normal(size=(3, 37, 29, 13)).astype(np.float32)).to(cuda)
+    vols = torch.from_numpy(rng.normal(size=(batch, *shape)).astype(np.float32)).to(cuda)
     before = kernels.launch_counts["tv_spatial"]
     got = rooster.spatial_tv(vols, 0.3, n_iter)
-    assert kernels.launch_counts["tv_spatial"] == before + 2 * n_iter + 1
+    assert kernels.launch_counts["tv_spatial"] == before + n_iter + 1
     want = rooster.spatial_tv_reference(vols, 0.3, n_iter)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 32768, 2, 2), (1, 2, 1024, 349526)])
+def test_tv_spatial_kernel_refuses_too_large(cuda, shape):
+    """The grid holds B * nx <= 65535 and offsets within a phase 3 n < 2^31
+    (the second shape: 2.9 GB)."""
+    from cbctmc_tpu_torch.recon import rooster
+
+    with pytest.raises(ValueError, match="takes"):
+        rooster.spatial_tv(torch.empty(shape, device=cuda), 0.3, 1)
 
 
 @pytest.mark.gpu

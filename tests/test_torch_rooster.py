@@ -22,6 +22,7 @@ from cbctmc_tpu.recon import rooster as jrooster
 from cbctmc_tpu.recon.geometry import ConeBeamGeometry as JaxGeometry
 from cbctmc_tpu.recon.geometry import VolumeGrid as JaxGrid
 from cbctmc_tpu.recon.joseph import project_forward
+from cbctmc_tpu_torch.engine.kernels import _div
 from cbctmc_tpu_torch.recon import rooster as trooster
 from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
 
@@ -68,8 +69,8 @@ def test_phase_interpolation_weights_match_jax():
                                       jrooster.phase_interpolation_weights(phase, n))
 
 
-@pytest.mark.parametrize("shape", [(6, 5, 4), (9, 4, 7)])
-@pytest.mark.parametrize("n_iter", [0, 1, 7])
+@pytest.mark.parametrize("shape", [(6, 5, 4), (9, 4, 7), (2, 2, 2), (2, 5, 3)])
+@pytest.mark.parametrize("n_iter", [0, 1, 7, 10])
 def test_spatial_tv_matches_jax(shape, n_iter):
     import jax
     import jax.numpy as jnp
@@ -83,6 +84,38 @@ def test_spatial_tv_matches_jax(shape, n_iter):
     assert _rel_err(got, want) <= TV_RTOL
     one = trooster._spatial_tv_chambolle(torch.from_numpy(vols[1]), weight, n_iter).numpy()
     assert _rel_err(one, want[1]) <= TV_RTOL
+
+
+def _run_launch(entry, f, p, weight):
+    """One launch of ``tv_spatial`` on the CPU in the plain version's
+    operations: an iteration from p (None: p = 0) or the finish."""
+    if p is None:
+        p = torch.zeros((3, *f.shape), dtype=f.dtype)
+    if entry == "tv_spatial:tv_spatial_finish":
+        return f - weight * trooster._divergence(p)
+    gx, gy, gz = trooster._grad(trooster._divergence(p) - _div(f, weight))
+    norm = torch.sqrt((gx * gx + gy * gy) + gz * gz)
+    return (p + 0.125 * torch.stack([gx, gy, gz])) / (1.0 + 0.125 * norm)[None]
+
+
+@pytest.mark.parametrize("n_iter", [0, 1, 2, 3, 10])
+def test_spatial_tv_launch_plan(n_iter):
+    """The card's launches: n_iter + 1, the first reading no p, each reading
+    the buffer the one before wrote and never the one it writes, two buffers
+    at most, the finish writing the result; run in that order on the CPU
+    they give the plain version's result to the bit."""
+    plan = trooster.spatial_tv_launches(n_iter)
+    assert len(plan) == n_iter + 1
+    assert [e for e, _, _ in plan] == ["tv_spatial"] * n_iter + ["tv_spatial:tv_spatial_finish"]
+    assert plan[0][1] is None and plan[-1][2] is None
+    for (_, _, wrote), (_, read, write) in zip(plan, plan[1:]):
+        assert read == wrote and read != write
+    assert {w for _, _, w in plan[:-1]} <= {0, 1}
+    f = torch.from_numpy(np.random.default_rng(n_iter).normal(size=(5, 4, 3)).astype(np.float32))
+    buffers = {None: None}
+    for entry, read, write in plan:
+        buffers[write] = _run_launch(entry, f, buffers[read], 0.3)
+    assert torch.equal(buffers[None], trooster.spatial_tv_reference(f[None], 0.3, n_iter)[0])
 
 
 @pytest.mark.parametrize("n_phases", [2, 5, 10])
