@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time ROOSTER's spatial TV kernel, ``tv_spatial``, of one or more
-checkouts of this repository on one card, in turns, and count the SASS
-instructions of the TV kernels' loops.
+"""Time ROOSTER's two TV kernels, ``tv_spatial`` and ``tv_temporal``, of
+one or more checkouts of this repository on one card, in turns, and count
+the SASS instructions of their loops.
 
 Usage (on a machine with one CUDA card)::
 
     python3 scripts/compare_tv_kernels.py ROOT [ROOT ...] [--variants]
+        [--only=tv_spatial|tv_temporal]
 
 Each ROOT is a checkout of the repository: the working tree, or another
 commit unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -24,41 +25,61 @@ smoke's insert at each phase's height, noise):
 - times two PyTorch calls on the same tensors as yardsticks of the card's
   streaming rate: ``copy_`` of the volumes and a ``torch.add`` that moves
   an iteration's 28 B a voxel;
+- holds ``temporal_tv`` against its plain version at 0, 1 and ROOSTER's 10
+  iterations (no voxel may differ), counts its launches a call and times it
+  at each by the profiler and by CUDA events;
 - counts, with ``cuobjdump -sass`` where the toolkit has it, the
   instructions of every loop of ``tv_spatial``'s iteration kernel and of
-  ``tv_temporal_kernel<10>``, and turns ``tv_temporal``'s iteration loop
-  into an issue-rate time: its instructions per iteration x 53,824,000
-  voxels / 32 lanes x 10 iterations over 132 SMs x 4 warp instructions a
-  clock at the card's maximum SM clock (``nvidia-smi``).
+  ``tv_temporal``'s kernel for 10 phases, and turns ``tv_temporal``'s
+  iteration loop into an issue-rate time: its instructions per iteration x
+  53,824,000 voxels / 32 lanes x 10 iterations over 132 SMs x 4 warp
+  instructions a clock at the card's maximum SM clock (``nvidia-smi``).
+
+``--only=tv_spatial`` or ``--only=tv_temporal`` measures one kernel;
+``--volumes=PATH`` times them on the phase volumes of a ``.npy`` file (the
+recon-mc path's, as ``chip_smoke.py --save-tv-volumes`` writes them) in
+place of those made here.
 
 With ``--variants``, the process of the checkout that holds this script
-(each time it is named) also builds variants of the iteration kernel
-(``VARIANTS``: text edits of ``csrc/tv_spatial.cu``, each of which must
-match once), holds each against the plain version as above and times it in
-the same process beside the shipped kernel, through the package's own
-wrapper (the finish stays the shipped one), and times the shipped kernel
-and each variant at 10 iterations on rows of 256 z as well (timing only).
+(each time it is named) also builds variants of the kernels
+(``SPATIAL_VARIANTS``, ``TEMPORAL_VARIANTS``: text edits of
+``csrc/tv_spatial.cu`` and ``csrc/tv_temporal.cu``, each of which must match
+once), holds each against the plain version as above (but those that
+``TIMING_ONLY`` names) and times it in the same process beside the shipped
+kernel, through the package's own wrapper. ``tv_spatial``'s variants replace
+its iteration kernel (the finish stays the shipped one); the shipped kernel
+and each variant are timed at 10 iterations on rows of 256 z as well
+(timing only). ``tv_temporal``'s variants are its first form (one thread a
+voxel, every thread loading its phases, iterating and storing) as it was,
+with its loop removed (loads and stores only) and with its loads replaced
+by values made in registers and its stores by one that never runs (the
+loop only), and the designs measured against the shipped one; each
+variant's iteration loop is counted as the shipped kernel's is.
 Every line names the card and its power limit; the last line of the output
 is one JSON object with every checkout's results.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import math
 import re
-import shutil
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import kernel_variants
+import numpy as np
 import torch
 
 SHAPE = (10, 464, 464, 250)  # the recon-mc path's phases on reconstruct_4d's grid
 ITERATIONS = (1, 10)  # the smoke's check and ROOSTER's n_tv_iterations
-REPS = {1: 5, 10: 3}  # timed calls
-SMS, ISSUE_PER_CLOCK, LANES = 132, 4, 32
-SLOW_BLOCK = 8  # instructions around the call of a division's or square root's slow path
+TEMPORAL_ITERATIONS = (0, 1, 10)  # 0: the loads and stores alone
+REPS = {0: 5, 1: 5, 10: 3}  # timed calls
+HOME = Path(__file__).resolve().parents[1]  # the checkout that holds this script
+AIR_RADIUS_MM = 232.0
 
 # variant (a): one thread a voxel, d at the voxel and at its +1 neighbours
 # formed from device memory through L1 and L2; the grid's z is x and phase
@@ -326,7 +347,7 @@ _PLANES = "constexpr int kPlanes = 4;"
 _TILE_Y = "constexpr int kTY = 8;"
 
 #: name -> (kernel, {source file: [(text, replacement), ...]})
-VARIANTS = {
+SPATIAL_VARIANTS = {
     "voxel": ("tv_spatial", {"tv_spatial.cu": [
         ('extern "C" int tv_spatial_launch(', _VOXEL)]}),
     "voxel_flat": ("tv_spatial", {"tv_spatial.cu": [
@@ -345,12 +366,307 @@ VARIANTS = {
     "tile_16y": ("tv_spatial", {"tv_spatial.cu": [(_TILE_Y, "constexpr int kTY = 16;")]}),
 }
 
+# tv_temporal's first form: one thread a voxel, 256 a block, each thread
+# loading its 10 phases, running every iteration and storing; @LOAD@,
+# @ITERATIONS@ and @STORE@ make its variants (only 10 phases are built)
+_T_VOXEL = r"""
+namespace voxel {
 
-def volumes(device="cuda") -> torch.Tensor:
+template <int NP>
+__global__ void tv_temporal_voxel_kernel(const float* __restrict__ vol, int64_t n, float lam,
+                                         int n_iter, float* __restrict__ out) {
+  const int64_t v = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (v >= n) return;
+  float x[NP], xl[NP], p[NP], q[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    x[k] = @LOAD@;
+    xl[k] = x[k] / lam;
+    p[k] = 0.0f;
+  }
+  const float tau = 0.25f;
+  for (int it = 0; it < @ITERATIONS@; ++it) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k) q[k] = (p[k] - p[(k + NP - 1) % NP]) - xl[k];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const float g = q[(k + 1) % NP] - q[k];
+      p[k] = (p[k] + tau * g) / (1.0f + tau * fabsf(g));
+    }
+  }
+@STORE@
+}
+
+}  // namespace voxel
+
+extern "C" int tv_temporal_launch(const float* vol, int n_phases, long long n, float lam,
+                                  int n_iter, float* out, void* stream) {
+  if (n_phases != 10) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  voxel::tv_temporal_voxel_kernel<10><<<(unsigned)((n + 255) / 256), 256, 0,
+                                        (cudaStream_t)stream>>>(vol, n, lam, n_iter, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tv_temporal_launch_shipped("""
+
+_T_LOAD = "vol[k * n + v]"
+# values of the path's magnitude (x / lambda ~ 100: the divisions' fast path)
+_T_LOAD_MADE = "0.02f + 1e-6f * (float)((int)(v * 31 + k * 17) & 1023)"
+_T_STORE = """#pragma unroll
+  for (int k = 0; k < NP; ++k) out[k * n + v] = x[k] - lam * (p[k] - p[(k + NP - 1) % NP]);"""
+# the results summed and stored only if the sum is one value it never takes
+# here, so the loop is not dead code and nothing is written
+_T_STORE_NEVER = """  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) acc = acc + (x[k] - lam * (p[k] - p[(k + NP - 1) % NP]));
+  if (acc == 1.5e-42f) out[v] = acc;"""
+
+
+def _t_voxel(load: str, iterations: str, store: str) -> str:
+    return (_T_VOXEL.replace("@LOAD@", load).replace("@ITERATIONS@", iterations)
+            .replace("@STORE@", store))
+
+
+_T_LAUNCH = 'extern "C" int tv_temporal_launch('
+#: the shipped kernel for 10 phases in the SASS
+TEMPORAL_SHIPPED = "tv_temporal_kernelILi10EiE"  # <10, int>
+
+# design (A): a persistent grid (as many blocks as fit on the card at once)
+# whose threads walk voxels v, v + stride, ..., issuing the loads of the next
+# voxel's phases into a second set of registers before iterating over one
+_T_PREFETCH = r"""
+namespace prefetch {
+
+template <int NP>
+__global__ void __launch_bounds__(kThreads)
+    tv_temporal_prefetch_kernel(const float* __restrict__ vol, int n, float lam, int n_iter,
+                                float* __restrict__ out) {
+  const int stride = gridDim.x * kThreads;
+  const float lam_r = reciprocal(lam);
+  const bool lam_in_range = lambda_in_range(lam);
+  int v = blockIdx.x * kThreads + threadIdx.x;
+  float next[NP];
+  if (v < n) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k) next[k] = vol[k * n + v];
+  }
+  for (; v < n; v += stride) {
+    float x[NP], xl[NP], p[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) x[k] = next[k];
+    divide_by_lambda<NP>(x, lam, lam_r, lam_in_range, xl);
+    const int w = v + stride;
+    if (w < n) {
+#pragma unroll
+      for (int k = 0; k < NP; ++k) next[k] = vol[k * n + w];
+    }
+    iterate<NP>(xl, n_iter, p);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) out[k * n + v] = x[k] - lam * (p[k] - p[(k + NP - 1) % NP]);
+  }
+}
+
+}  // namespace prefetch
+
+extern "C" int tv_temporal_launch(const float* vol, int n_phases, long long n, float lam,
+                                  int n_iter, float* out, void* stream) {
+  if (n_phases != 10 || 10 * n + kThreads > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prefetch::tv_temporal_prefetch_kernel<10>,
+                                                kThreads, 0);
+  const long long tiles = (n + kThreads - 1) / kThreads, resident = (long long)per_sm * sms;
+  prefetch::tv_temporal_prefetch_kernel<10>
+      <<<(unsigned)(tiles < resident ? tiles : resident), kThreads, 0, (cudaStream_t)stream>>>(
+          vol, (int)n, lam, n_iter, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tv_temporal_launch_shipped("""
+
+# design (B): a persistent grid whose blocks walk tiles of 256 voxels; one
+# thread of a block copies the next tiles' phase rows into a ring of
+# shared-memory stages by 1-D bulk copies (TMA), each stage completing an
+# mbarrier; x stays in its stage until the tile's stores, so registers hold
+# x / lambda, p and q only. Rows that are not 16-byte aligned (n not a
+# multiple of 4, or the volume's address) are loaded by each thread into
+# its own slots of the stage. One barrier a tile frees the stage.
+_T_BULK = r"""
+namespace bulk {
+
+constexpr int kStages = 3;
+
+__device__ __forceinline__ unsigned smem(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem(bar)) : "memory");
+}
+
+// the one arrival of a stage's phase, with the bytes its copies bring
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem(bar)),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar))
+      : "memory");
+}
+
+template <int NP, typename I>
+__global__ void __launch_bounds__(kThreads)
+    tv_temporal_bulk_kernel(const float* __restrict__ vol, I n, float lam, int n_iter,
+                            float* __restrict__ out, int aligned) {
+  constexpr int S = NP <= 10 ? kStages : 2;
+  __shared__ alignas(16) float stage[S][NP][kThreads];
+  __shared__ alignas(8) uint64_t full[S];
+  const int t = threadIdx.x;
+  const I tiles = (n + kThreads - 1) / kThreads;
+  const float lam_r = reciprocal(lam);
+  const bool lam_in_range = lambda_in_range(lam);
+  if (aligned && t == 0) {
+    for (int s = 0; s < S; ++s) bar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the block's j-th tile into stage j % S
+  auto fill = [&](int j) {
+    const I tile = (I)blockIdx.x + (I)j * (I)gridDim.x;
+    if (!aligned || t != 0 || tile >= tiles) return;
+    const I v0 = tile * kThreads;
+    const unsigned bytes = (unsigned)((n - v0 < kThreads ? n - v0 : (I)kThreads) * 4);
+    uint64_t* bar = &full[j % S];
+    bar_expect(bar, NP * bytes);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) bulk_copy(stage[j % S][k], vol + (k * n + v0), bytes, bar);
+  };
+  for (int j = 0; j < S - 1; ++j) fill(j);
+  for (int j = 0;; ++j) {
+    const I tile = (I)blockIdx.x + (I)j * (I)gridDim.x;
+    if (tile >= tiles) break;
+    fill(j + S - 1);  // into the stage the last tile freed
+    const I v = tile * kThreads + t;
+    float* xs = &stage[j % S][0][t];
+    if (aligned) {
+      bar_wait(&full[j % S], (unsigned)(j / S) & 1u);
+    } else if (v < n) {
+#pragma unroll
+      for (int k = 0; k < NP; ++k) xs[k * kThreads] = vol[k * n + v];
+    }
+    if (v < n) {
+      float x[NP], xl[NP], p[NP];
+#pragma unroll
+      for (int k = 0; k < NP; ++k) x[k] = xs[k * kThreads];
+      divide_by_lambda<NP>(x, lam, lam_r, lam_in_range, xl);
+      iterate<NP>(xl, n_iter, p);
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+        out[k * n + v] = xs[k * kThreads] - lam * (p[k] - p[(k + NP - 1) % NP]);
+    }
+    __syncthreads();  // every thread is done with the stage before it is filled again
+  }
+}
+
+}  // namespace bulk
+
+extern "C" int tv_temporal_launch(const float* vol, int n_phases, long long n, float lam,
+                                  int n_iter, float* out, void* stream) {
+  if (n_phases != 10 || 10 * n + kThreads > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bulk::tv_temporal_bulk_kernel<10, int>,
+                                                kThreads, 0);
+  const long long tiles = (n + kThreads - 1) / kThreads, resident = (long long)per_sm * sms;
+  const int aligned = n % 4 == 0 && (uintptr_t)vol % 16 == 0;
+  bulk::tv_temporal_bulk_kernel<10, int>
+      <<<(unsigned)(tiles < resident ? tiles : resident), kThreads, 0, (cudaStream_t)stream>>>(
+          vol, (int)n, lam, n_iter, out, aligned);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tv_temporal_launch_shipped("""
+
+_T_DIVIDE = "        p[k] = divide(p[k], b, reciprocal(b));"
+_T_CHECK = "      fast = fast && numerator_in_range(p[k]);"
+_T_BOUNDS = "__global__ void __launch_bounds__(kThreads)\n    tv_temporal_kernel("
+_T_BULK_BOUNDS = "__launch_bounds__(kThreads)\n    tv_temporal_bulk_kernel("
+_T_ITERATION = "  for (int it = 0; it < n_iter; ++it) {\n    float q[NP], t[NP];"
+_T_THREADS = "constexpr int kThreads = 256;"
+
+#: name -> (kernel, {source file: [(text, replacement), ...]}, the mangled
+#: name's part that finds the variant's kernel for 10 phases in the SASS)
+TEMPORAL_VARIANTS = {
+    "voxel": ("tv_temporal", {"tv_temporal.cu": [
+        (_T_LAUNCH, _t_voxel(_T_LOAD, "n_iter", _T_STORE))]}, "tv_temporal_voxel_kernelILi10E"),
+    "voxel_loads_only": ("tv_temporal", {"tv_temporal.cu": [
+        (_T_LAUNCH, _t_voxel(_T_LOAD, "0", _T_STORE))]}, "tv_temporal_voxel_kernelILi10E"),
+    "voxel_loop_only": ("tv_temporal", {"tv_temporal.cu": [
+        (_T_LAUNCH, _t_voxel(_T_LOAD_MADE, "n_iter", _T_STORE_NEVER))]},
+        "tv_temporal_voxel_kernelILi10E"),
+    "prefetch": ("tv_temporal", {"tv_temporal.cu": [(_T_LAUNCH, _T_PREFETCH)]},
+                 "tv_temporal_prefetch_kernelILi10E"),
+    "bulk": ("tv_temporal", {"tv_temporal.cu": [(_T_LAUNCH, _T_BULK)]},
+             "tv_temporal_bulk_kernelILi10EiE"),
+    # the shipped kernel with the compiler's divisions in the iteration (its
+    # range check, branch and convergence barrier around each)
+    "compiler_division": ("tv_temporal", {"tv_temporal.cu": [
+        (_T_DIVIDE, "        p[k] = p[k] / b;"), (_T_CHECK, "")]}, TEMPORAL_SHIPPED),
+    "unroll_2": ("tv_temporal", {"tv_temporal.cu": [
+        (_T_ITERATION, "#pragma unroll 2\n" + _T_ITERATION)]}, TEMPORAL_SHIPPED),
+    # the written-out divisions only for |a| >= 2^-32 in the iteration and
+    # values in [2^-20, 2^20] for lambda's
+    "narrow_ranges": ("tv_temporal", {"tv_temporal.cu": [
+        ("constexpr float kNumeratorMin = 0x1p-90f;", "constexpr float kNumeratorMin = 0x1p-32f;"),
+        ("constexpr float kValueMin = 0x1p-90f, kValueMax = 0x1p90f;",
+         "constexpr float kValueMin = 0x1p-20f, kValueMax = 0x1p20f;")]}, TEMPORAL_SHIPPED),
+    "threads_128": ("tv_temporal", {"tv_temporal.cu": [
+        (_T_THREADS, "constexpr int kThreads = 128;")]}, TEMPORAL_SHIPPED),
+    # registers bounded for 5 blocks of 256 an SM (51), and (B) for 5 and 6 (40)
+    "blocks_5": ("tv_temporal", {"tv_temporal.cu": [
+        (_T_BOUNDS, _T_BOUNDS.replace("(kThreads)", "(kThreads, 5)"))]}, TEMPORAL_SHIPPED),
+    **{f"bulk_{b}": ("tv_temporal", {"tv_temporal.cu": [(_T_LAUNCH, _T_BULK.replace(
+        _T_BULK_BOUNDS, _T_BULK_BOUNDS.replace("(kThreads)", f"(kThreads, {b})")))]},
+        "tv_temporal_bulk_kernelILi10EiE") for b in (5, 6)},
+    # the divisions by lambda as true divisions
+    "lambda_true": ("tv_temporal", {"tv_temporal.cu": [
+        ("  bool fast = lam_ok;", "  bool fast = false;")]}, TEMPORAL_SHIPPED),
+}
+#: variants whose results are not the function's (timed, not held)
+TIMING_ONLY = {"voxel_loads_only", "voxel_loop_only"}
+
+
+def volumes(device="cuda", air: bool = False) -> torch.Tensor:
     """The 10 phase volumes [phase, x, y, z] at 1 mm: mu 0.02 /mm in a
     cylinder of radius 100 mm about z, 1e-4 outside, the smoke's insert (mu
     0.08, radius 20 mm, at x = 40 mm) 20 mm up and down along z with the
-    phase, and N(0, 2e-3) noise from seed 0."""
+    phase, and N(0, 2e-3) noise from seed 0. ``air``: exact zeros outside
+    the circle inscribed in the grid's x-y square (AIR_RADIUS_MM; 21.5 % of
+    the voxels), as outside an FDK volume's field of view."""
     n_phases, nx, ny, nz = SHAPE
     dev = torch.device(device)
     x, y, z = (torch.arange(k, device=dev, dtype=torch.float32) - (k - 1) / 2 for k in SHAPE[1:])
@@ -365,7 +681,52 @@ def volumes(device="cuda") -> torch.Tensor:
               + (z[None, None, :] - zc) ** 2)
         out[ph] = torch.where(s2 <= 20.0**2, 0.08, base)
         out[ph] += 2e-3 * torch.randn((nx, ny, nz), generator=gen, device=dev)
+    if air:
+        out[:, r2[..., 0] > AIR_RADIUS_MM**2] = 0.0
     return out
+
+
+def volume_stats(vols: torch.Tensor) -> dict:
+    """Shares of the voxels (one value a phase) that ``tv_temporal`` treats
+    apart: ``air`` 0 in every phase; ``still`` one value in every phase (air
+    included), which skip the loop; ``lambda_out`` some nonzero |v| outside
+    [2^-90, 2^90] (``_narrow``: [2^-20, 2^20]), where the divisions by lambda
+    are true divisions; ``equal_neighbour`` not still but equal in two
+    cyclically adjacent phases, whose first iteration has a zero numerator."""
+    m = vols.abs()
+    still = (vols == vols[0]).all(0)
+    return dict(air=float((m == 0).all(0).float().mean()), still=float(still.float().mean()),
+                lambda_out=float(((m != 0) & ((m < 2.0**-90) | (m > 2.0**90))).any(0)
+                                 .float().mean()),
+                lambda_out_narrow=float(((m != 0) & ((m < 2.0**-20) | (m > 2.0**20))).any(0)
+                                        .float().mean()),
+                equal_neighbour=float(((vols == torch.roll(vols, -1, 0)).any(0) & ~still)
+                                      .float().mean()))
+
+
+def clock_probe(cs, call, seconds: float = 1.5) -> dict:
+    """The card's SM clock (MHz) and power draw (W), sampled by ``nvidia-smi``
+    every 100 ms while ``call`` runs back to back for about ``seconds``: the
+    median of the samples drawn under load (power above the midpoint of the
+    lowest and highest sample) and their count."""
+    n = max(1, int(seconds * 1e3 / cs.as_run_ms([call] * 3)))
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, text=True)
+    time.sleep(0.5)
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    proc.terminate()
+    text, _ = proc.communicate(timeout=30)
+    samples = [tuple(float(v) for v in line.split(",")) for line in text.splitlines()
+               if line.count(",") == 1]
+    if not samples:
+        return {}
+    mid = (min(w for _, w in samples) + max(w for _, w in samples)) / 2
+    busy = [(c, w) for c, w in samples if w >= mid]
+    return dict(sm_mhz=statistics.median(c for c, _ in busy),
+                power_w=statistics.median(w for _, w in busy), samples=len(busy))
 
 
 def launch_split_ms(cs, call) -> dict:
@@ -440,100 +801,104 @@ def rows_of_256(cs, kernels, rooster) -> dict:
     return timings(cs, kernels, rooster, vols, None, iterations=(10,))["x10"]
 
 
-def _sass_functions(lib: Path) -> dict:
-    """``{mangled name: [(address, instruction text), ...]}`` of a library's
-    SASS, or ``{}`` where the toolkit has no ``cuobjdump``."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return {}
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    funcs, current = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
+def smoke_here():
+    """This checkout's ``chip_smoke.py``, whose SASS helpers count the loops
+    of every checkout's kernels (an older checkout's smoke may lack them)."""
+    spec = importlib.util.spec_from_file_location("smoke_here", HOME / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def ptxas_usage(log: str, mangled_part: str) -> list:
+    """The ``ptxas -v`` lines (registers, shared memory, spills) of the entry
+    functions whose mangled name holds ``mangled_part``."""
+    lines, current = [], ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
+                      line)
         if m:
-            current = funcs.setdefault(m.group(1), [])
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m and current is not None:
-            current.append((int(m.group(1), 16), m.group(2)))
-    return funcs
+            current = m.group(1)
+        elif mangled_part in current and re.search(r"registers|spill|smem", line):
+            lines.append(line.strip())
+    return lines
 
 
-def _target(ins: str):
-    m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
-    return int(m.group(1), 16) if m else None
+def temporal_timings(cs, kernels, rooster, vols, want, iterations=TEMPORAL_ITERATIONS,
+                     air=None) -> dict:
+    """Per iteration count: bit-equality (where ``want`` holds the plain
+    version's result), launches a call, profiler and event times of the
+    call; the card's clock and power while the call at 10 iterations runs
+    back to back; with ``air = (volumes, want)`` the same at 10 iterations
+    on those volumes (``air_x10``)."""
+    lam = rooster.RoosterParameters().gamma_time
+    out = {}
+    for n_iter in iterations:
+        def call(n_iter=n_iter):
+            return rooster.temporal_tv(vols, lam, n_iter)
 
-
-def sass_loops(lib: Path, mangled_part: str) -> list:
-    """Every loop (a backward branch) of the first function whose mangled
-    name holds ``mangled_part``: ``{start, end, instructions, fast_path,
-    mufu_rcp}`` (addresses in hex; ``fast_path`` leaves out the short
-    blocks, at most SLOW_BLOCK instructions, that a conditional branch
-    skips and that hold a call: the calls of the slow paths of correctly
-    rounded divisions and square roots; MUFU.RCP begins each division)."""
-    funcs = _sass_functions(lib)
-    name = next((k for k in funcs if mangled_part in k), None)
-    if name is None:
-        return []
-    code = funcs[name]
-    slow = set()  # addresses of the short blocks around a call that a branch skips
-    for addr, ins in code:
-        t = _target(ins)
-        if ins.startswith("@") and t is not None and t > addr:
-            block = [(a, i) for a, i in code if addr < a < t]
-            if len(block) <= SLOW_BLOCK and any("CALL" in i for _, i in block):
-                slow.update(a for a, _ in block)
-    loops = []
-    for addr, ins in code:
-        t = _target(ins)
-        if t is not None and t <= addr:
-            body = [(a, i) for a, i in code if t <= a <= addr]
-            loops.append(dict(function=name, start=f"{t:x}", end=f"{addr:x}",
-                              instructions=len(body),
-                              fast_path=sum(a not in slow for a, _ in body),
-                              mufu_rcp=sum("MUFU.RCP" in i for _, i in body)))
-    return loops
-
-
-def sass_counts(cs, kernels) -> dict:
-    """The loops of ``tv_spatial``'s iteration kernel and of
-    ``tv_temporal_kernel<10>``; for ``tv_temporal``'s largest loop, its
-    instructions per iteration on the fast path (10 divisions an iteration,
-    one MUFU.RCP each) and the issue-rate time of ROOSTER's call (10
-    iterations over 53,824,000 voxels of 10 phases); for ``tv_spatial``'s
-    march, the issue-rate time of one iteration launch if every warp ran
-    the whole loop body once a plane."""
-    paths = kernels.build_kernels(("tv_spatial", "tv_temporal"))
-    out = {"tv_spatial": sass_loops(paths["tv_spatial"], "tv_spatial_kernelILb0E"),
-           "tv_temporal": sass_loops(paths["tv_temporal"], "tv_temporal_kernelILi10E")}
-    if not out["tv_temporal"]:
-        out["note"] = "no cuobjdump in the toolkit, or no such function"
-        return out
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
-    rate = SMS * ISSUE_PER_CLOCK * clock_mhz * 1e6  # warp instructions a second
-    loop = max(out["tv_temporal"], key=lambda lp: lp["instructions"])
-    unrolled = max(1, loop["mufu_rcp"] // 10)
-    per_iter = loop["fast_path"] / unrolled
-    n_phases, nx, ny, nz = SHAPE
-    out["tv_temporal_issue"] = dict(
-        instructions_per_iteration=per_iter, iterations_per_loop_pass=unrolled,
-        clock_mhz=clock_mhz, issue_ms=per_iter * 10 * nx * ny * nz / LANES / rate * 1e3)
-    if out["tv_spatial"]:
-        # the march's loop once a plane for every warp: at most, since only warps 0
-        # and 1 run the halo's block (tiles of 32 z x 8 y, 8 warps a block)
-        loop = max(out["tv_spatial"], key=lambda lp: lp["instructions"])
-        warps = n_phases * -(-nz // 32) * -(-ny // 8) * 8
-        out["tv_spatial_issue"] = dict(instructions_per_plane=loop["fast_path"],
-                                       issue_ms_at_most=loop["fast_path"] * warps * nx / rate
-                                       * 1e3)
+        torch.cuda.synchronize()
+        before = kernels.launch_counts["tv_temporal"]
+        got = call()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts["tv_temporal"] - before
+        n_off = int((got != want[n_iter]).sum()) if want else None
+        del got
+        reps = REPS[n_iter]
+        ms, timer = cs.kernel_ms([call] * (reps + 1), "tv_temporal", launches)
+        out[f"x{n_iter}"] = dict(voxels_differ=n_off, launches=launches, ms=ms, timer=timer,
+                                 events_ms=cs.as_run_ms([call] * (reps + 1)))
+        if n_iter == ITERATIONS[-1]:
+            out[f"x{n_iter}"]["clock"] = clock_probe(cs, call)
+    if air is not None:
+        out["air_x10"] = temporal_timings(cs, kernels, rooster, air[0],
+                                          {n: air[1] for n in ITERATIONS[-1:]} if air[1]
+                                          is not None else None, ITERATIONS[-1:])["x10"]
     return out
 
 
-def variants(cs, kernels, card, rooster, vols, want) -> dict:
-    built = kernel_variants.build_variants(kernels, VARIANTS)
+def temporal_sass(sh, lib: Path, mangled_part: str) -> dict | None:
+    """``tv_temporal``'s iteration loop in ``lib`` and the issue-rate time of
+    ROOSTER's call (10 iterations over the 53,824,000 voxels of 10 phases)."""
+    n_phases, nx, ny, nz = SHAPE
+    return sh.temporal_issue(lib, mangled_part, n_phases, nx * ny * nz, ITERATIONS[-1])
+
+
+def sass_counts(kernels, which) -> dict:
+    """The loops of ``tv_spatial``'s iteration kernel and of ``tv_temporal``'s
+    kernel for 10 phases; ``tv_temporal``'s iteration loop as an issue-rate
+    time (:func:`temporal_sass`); for ``tv_spatial``'s march, the issue-rate
+    time of one iteration launch if every warp ran the whole loop body once
+    a plane."""
+    sh = smoke_here()
+    paths = kernels.build_kernels(which)
+    out = {}
+    if "tv_temporal" in which:
+        # the 32-bit instance for 10 phases, or the one instance of a kernel
+        # that has no index type (this kernel's first form)
+        part = next((k for k in (TEMPORAL_SHIPPED, "tv_temporal_kernelILi10E")
+                     if sh.sass_loops(paths["tv_temporal"], k)), TEMPORAL_SHIPPED)
+        out["tv_temporal"] = sh.sass_loops(paths["tv_temporal"], part)
+        out["tv_temporal_issue"] = temporal_sass(sh, paths["tv_temporal"], part)
+    if "tv_spatial" in which:
+        out["tv_spatial"] = sh.sass_loops(paths["tv_spatial"], "tv_spatial_kernelILb0E")
+        if out["tv_spatial"]:
+            # the march's loop once a plane for every warp: at most, since only warps 0
+            # and 1 run the halo's block (tiles of 32 z x 8 y, 8 warps a block)
+            rate = sh.SMS * sh.ISSUE_PER_CLOCK * sh.max_sm_clock_mhz() * 1e6
+            loop = max(out["tv_spatial"], key=lambda lp: lp["instructions"])
+            n_phases, nx, ny, nz = SHAPE
+            warps = n_phases * -(-nz // 32) * -(-ny // 8) * 8
+            out["tv_spatial_issue"] = dict(instructions_per_plane=loop["fast_path"],
+                                           issue_ms_at_most=loop["fast_path"] * warps * nx
+                                           / rate * 1e3)
+    if not any(out.values()):
+        out["note"] = "no cuobjdump in the toolkit, or no such function"
+    return out
+
+
+def spatial_variants(cs, kernels, card, rooster, vols, want) -> dict:
+    built = kernel_variants.build_variants(kernels, SPATIAL_VARIANTS)
     out = {"shipped": dict(**timings(cs, kernels, rooster, vols, want),
                            rows_of_256=rows_of_256(cs, kernels, rooster))}
     for name, (kernel, fn) in built.items():
@@ -545,28 +910,80 @@ def variants(cs, kernels, card, rooster, vols, want) -> dict:
     return out
 
 
+def temporal_variants(cs, kernels, card, rooster, vols, want, air) -> dict:
+    sh = smoke_here()
+    built = kernel_variants.build_variants(
+        kernels, {name: v[:2] for name, v in TEMPORAL_VARIANTS.items()})
+    out = {"shipped": temporal_timings(cs, kernels, rooster, vols, want, air=air)}
+    for name, (kernel, fn) in built.items():
+        lib = kernels.BUILD_DIR / "variants" / name / f"lib{name}.so"
+        log = (lib.parent / "build_log.txt").read_text()
+        pattern = TEMPORAL_VARIANTS[name][2]
+        with kernel_variants.swapped(kernels, kernel, fn):
+            exact = name not in TIMING_ONLY
+            out[name] = dict(**temporal_timings(cs, kernels, rooster, vols,
+                                                want if exact else None,
+                                                air=(air[0], air[1] if exact else None)),
+                             sass=temporal_sass(sh, lib, pattern),
+                             ptxas=ptxas_usage(log, pattern))
+        cs.say(f"variant {name}: {out[name]}", card)
+    out["shipped again"] = temporal_timings(cs, kernels, rooster, vols, want, air=air)
+    return out
+
+
+def differing(result, path="") -> list:
+    """The paths in ``result`` whose ``voxels_differ`` is not 0 (or None)."""
+    if not isinstance(result, dict):
+        return []
+    here = [path] if result.get("voxels_differ") else []
+    return here + [p for k, v in result.items() for p in differing(v, f"{path}/{k}")]
+
+
 def child(root: Path, with_variants: bool) -> None:
     cs = kernel_variants.enter(root)
     from cbctmc_tpu_torch.engine import kernels
     from cbctmc_tpu_torch.recon import rooster
 
+    only = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--only=")]
+    which = tuple(only) or ("tv_spatial", "tv_temporal")
+    given = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--volumes=")]
     card = cs.card_line()
-    kernels.build_kernels(("tv_spatial",))
-    for line in kernels.build_logs.get("tv_spatial", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            cs.say(f"ptxas tv_spatial: {line.strip()}")
-    vols = volumes()
-    lam = rooster.RoosterParameters().gamma_space
-    want = {n: rooster.spatial_tv_reference(vols, lam, n) for n in ITERATIONS}
-    result = {"root": str(root), "card": card, **timings(cs, kernels, rooster, vols, want),
-              "yardsticks": yardsticks(cs, vols), "sass": sass_counts(cs, kernels)}
-    cs.say(f"{root}: {result}", card)
-    if with_variants:
-        result["variants"] = variants(cs, kernels, card, rooster, vols, want)
-    bad = [k for k, v in result.items() if isinstance(v, dict) and v.get("voxels_differ")]
+    kernels.build_kernels(which)
+    if "tv_spatial" in which:
+        for line in kernels.build_logs.get("tv_spatial", "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                cs.say(f"ptxas tv_spatial: {line.strip()}")
+    if "tv_temporal" in which:
+        for line in ptxas_usage(kernels.build_logs.get("tv_temporal", ""), TEMPORAL_SHIPPED):
+            cs.say(f"ptxas tv_temporal (10 phases): {line}")
+    vols = (torch.from_numpy(np.load(HOME / given[0])).to("cuda") if given else volumes())
+    result = {"root": str(root), "card": card, "volumes": given[0] if given else "made here",
+              "volume_stats": volume_stats(vols), "sass": sass_counts(kernels, which)}
+    if "tv_spatial" in which:
+        lam = rooster.RoosterParameters().gamma_space
+        want = {n: rooster.spatial_tv_reference(vols, lam, n) for n in ITERATIONS}
+        result["tv_spatial"] = dict(**timings(cs, kernels, rooster, vols, want),
+                                    yardsticks=yardsticks(cs, vols))
+        cs.say(f"{root} tv_spatial: {result['tv_spatial']}", card)
+        if with_variants:
+            result["tv_spatial"]["variants"] = spatial_variants(cs, kernels, card, rooster,
+                                                                vols, want)
+        del want
+    if "tv_temporal" in which:
+        lam = rooster.RoosterParameters().gamma_time
+        want = {n: rooster.temporal_tv_reference(vols, lam, n) for n in TEMPORAL_ITERATIONS}
+        air_vols = volumes(air=True)
+        air = (air_vols, rooster.temporal_tv_reference(air_vols, lam, ITERATIONS[-1]))
+        result["tv_temporal"] = temporal_timings(cs, kernels, rooster, vols, want, air=air)
+        cs.say(f"{root} tv_temporal: {result['tv_temporal']}", card)
+        if with_variants:
+            result["tv_temporal"]["variants"] = temporal_variants(cs, kernels, card, rooster,
+                                                                  vols, want, air)
+    cs.say(f"{root}: sass {result['sass']}", card)
+    bad = differing(result)
     kernel_variants.emit(result)
     if bad:
-        raise SystemExit(f"tv_spatial differs from its plain version at {bad}")
+        raise SystemExit(f"differs from its plain version at {bad}")
 
 
 if __name__ == "__main__":

@@ -88,9 +88,11 @@ def swapped(kernels, kernel: str, fn):
 
 
 def main(doc: str, script: str, child) -> int:
-    """``script ROOT [ROOT ...] [--variants]``: ``child(root, with_variants)``
-    in a process of its own for each ROOT in the order given; the variants
-    only in the process of the checkout that holds ``script``."""
+    """``script ROOT [ROOT ...] [--variants] [--flag=value ...]``:
+    ``child(root, with_variants)`` in a process of its own for each ROOT in
+    the order given; the variants only in the process of the checkout that
+    holds ``script``. Other ``--`` flags are handed on to every child, which
+    reads them from ``sys.argv``."""
     import torch
 
     args = sys.argv[1:]
@@ -102,6 +104,7 @@ def main(doc: str, script: str, child) -> int:
         print(f"{Path(script).stem}: no CUDA device, nothing run", file=sys.stderr)
         return 2
     roots = [a for a in args if not a.startswith("--")]
+    flags = [a for a in args if a.startswith("--") and a != "--variants"]
     if not roots:
         print(doc, file=sys.stderr)
         return 2
@@ -109,7 +112,7 @@ def main(doc: str, script: str, child) -> int:
     home = Path(script).parents[1]
     results = []
     for root in roots:
-        cmd = [sys.executable, script, "--child", root]
+        cmd = [sys.executable, script, "--child", root, *flags]
         if with_variants and Path(root).resolve() == home:
             cmd.append("--variants")
         proc = subprocess.run(cmd, capture_output=True, text=True)

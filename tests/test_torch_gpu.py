@@ -738,19 +738,112 @@ def test_tv_spatial_kernel_refuses_too_large(cuda, shape):
         rooster.spatial_tv(torch.empty(shape, device=cuda), 0.3, 1)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_phases", [1, 7, 16])
-def test_tv_temporal_kernel_on_card(cuda, n_phases):
+def _temporal_on_card(vols, n_iter, weight=0.2):
+    """One ``temporal_tv`` launch against the plain version on the card."""
     from cbctmc_tpu_torch.recon import rooster
 
-    rng = np.random.default_rng(n_phases)
-    vols = torch.from_numpy(rng.normal(size=(n_phases, 37, 29, 13)).astype(np.float32)).to(cuda)
     before = kernels.launch_counts["tv_temporal"]
-    got = rooster.temporal_tv(vols, 0.2, 10)
+    got = rooster.temporal_tv(vols, weight, n_iter)
     assert kernels.launch_counts["tv_temporal"] == before + 1
-    want = rooster.temporal_tv_reference(vols, 0.2, 10)
+    want = rooster.temporal_tv_reference(vols, weight, n_iter)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 2, 2), (3, 5, 7), (37, 29, 13), (70, 66, 50)])
+@pytest.mark.parametrize("n_phases", [1, 7, 10, 16])
+@pytest.mark.parametrize("n_iter", [0, 1, 10])
+def test_tv_temporal_kernel_on_card(cuda, n_iter, n_phases, shape):
+    """One launch, every voxel equal to the plain version's: n = 8 and 105
+    voxels a phase (less than a block's 256), 13,949 (rows not 16-byte
+    aligned: n not a multiple of 4) and 231,000 (many 256-voxel tiles a
+    block of the persistent grid, the last one partial)."""
+    rng = np.random.default_rng(n_phases)
+    _temporal_on_card(torch.from_numpy(
+        rng.normal(size=(n_phases, *shape)).astype(np.float32)).to(cuda), n_iter)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iter", [1, 10])
+def test_tv_temporal_kernel_unaligned_volume_on_card(cuda, n_iter):
+    """A volume that starts 4 bytes past an aligned address (a view one
+    float into its storage), n a multiple of 4."""
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.normal(size=10 * 70 * 66 * 50 + 1).astype(np.float32)).to(cuda)
+    _temporal_on_card(flat[1:].view(10, 70, 66, 50), n_iter)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iter", [1, 10])
+def test_tv_temporal_kernel_subnormal_range_on_card(cuda, n_iter):
+    """Volumes scaled into float32's subnormal range (x / lambda, q, g and p
+    below 2^-124, where tau g rounds and a fused p + tau g would differ)."""
+    rng = np.random.default_rng(4)
+    vols = (rng.normal(size=(10, 70, 66, 50)) * 1e-40).astype(np.float32)
+    _temporal_on_card(torch.from_numpy(vols).to(cuda), n_iter)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iter", [0, 1, 10])
+def test_tv_temporal_kernel_air_on_card(cuda, n_iter):
+    """Voxels that skip the loop, one value in every phase: exact zeros (0
+    or -0, whole blocks of them) and nonzero values; beside them, in the
+    same warps, voxels that are 0 in some phases only and voxels that differ
+    from one value in a single phase."""
+    rng = np.random.default_rng(5)
+    vols = rng.normal(size=(10, 70, 66, 50)).astype(np.float32)
+    vols[:, rng.random((70, 66, 50)) < 0.5] = 0.0
+    vols[:, :20] = 0.0
+    vols[:, 30, :, :] = -0.0
+    vols[rng.random((10, 70, 66, 50)) < 0.2] = 0.0
+    vols[:, 40:50] = vols[0, 40:50]
+    vols[3, 45:50][rng.random((5, 66, 50)) < 0.3] += 1.0
+    _temporal_on_card(torch.from_numpy(vols).to(cuda), n_iter)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["every_mantissa", "in_range", "by_lambda", "out_of_range"])
+def test_tv_temporal_division_on_card(cuda, case):
+    """The kernel's divisions (csrc/tv_temporal.cu: the written-out sequence
+    of a correctly rounded division where 1 <= b < 2^30 and 2^-90 <= |a| <=
+    b, as in the iteration, or where b lies in [2^-20, 2^20] and a nonzero
+    |a| in [2^-90, 2^90], as for lambda; a true division elsewhere) equal the
+    card's true division a / b for every value: each of the 2^23 mantissas
+    of b in [1, 2) against random numerators in the iteration's range; 2^24
+    pairs drawn log-uniformly over that range; each mantissa again at random
+    powers of two in lambda's range against numerators there, zeros of both
+    signs and the ends of the range among them; and pairs outside both
+    ranges (subnormal and tiny numerators, b below 2^-20 or at 2^30 and
+    above, |a| > b, infinities, NaN) that take the true division."""
+    cases = ["every_mantissa", "in_range", "by_lambda", "out_of_range"]
+    rng = np.random.default_rng(cases.index(case))
+    sign = rng.choice([-1.0, 1.0], 2**24)
+    if case == "every_mantissa":
+        b = (1.0 + np.arange(2**23) / 2.0**23).astype(np.float32)
+        a = b * np.exp2(rng.uniform(-90.0, 0.0, b.size)) * sign[:b.size]
+    elif case == "in_range":
+        b = np.exp2(rng.uniform(0.0, 30.0, 2**24)).astype(np.float32)
+        b = np.minimum(b, np.float32(2.0**30 - 64))
+        a = np.exp2(rng.uniform(-90.0, np.log2(b.astype(np.float64)))) * sign
+    elif case == "by_lambda":
+        b = (1.0 + np.arange(2**23) / 2.0**23) * np.exp2(rng.integers(-20, 20, 2**23))
+        a = np.exp2(rng.uniform(-90.0, 90.0, b.size)) * sign[:b.size]
+        a[rng.random(b.size) < 0.01] = 0.0
+        a[:4] = [0.0, -0.0, 2.0**-90, -(2.0**90)]
+    else:
+        b = np.exp2(rng.uniform(-30.0, 40.0, 2**20)).astype(np.float32)
+        a = b * np.exp2(rng.uniform(-160.0, 10.0, b.size)) * sign[:b.size]
+        a[:8], b[:8] = [0.0, -0.0, 1e-45, -1e-40, np.inf, np.nan, 3.0, 2.0**-33], \
+            [1.0, 3.0, 1.0, 2.0, 5.0, 1.0, np.inf, 1.0]
+    a = torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    b = torch.from_numpy(np.asarray(b, np.float32)).to(cuda)
+    got = torch.empty_like(a)
+    kernels._launch("tv_temporal:tv_temporal_divide", a.data_ptr(), b.data_ptr(), a.numel(),
+                    got.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    want = a / b
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.gpu

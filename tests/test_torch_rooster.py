@@ -118,8 +118,8 @@ def test_spatial_tv_launch_plan(n_iter):
     assert torch.equal(buffers[None], trooster.spatial_tv_reference(f[None], 0.3, n_iter)[0])
 
 
-@pytest.mark.parametrize("n_phases", [2, 5, 10])
-@pytest.mark.parametrize("n_iter", [1, 10])
+@pytest.mark.parametrize("n_phases", [1, 2, 5, 10, 16])
+@pytest.mark.parametrize("n_iter", [0, 1, 10])
 def test_temporal_tv_matches_jax(n_phases, n_iter):
     import jax.numpy as jnp
 
@@ -127,6 +127,49 @@ def test_temporal_tv_matches_jax(n_phases, n_iter):
     want = np.asarray(jrooster._temporal_tv(jnp.asarray(vols), 0.2, n_iter))
     got = trooster._temporal_tv(torch.from_numpy(vols), 0.2, n_iter).numpy()
     assert _rel_err(got, want) <= TV_RTOL
+
+
+def _temporal_tv_numpy(volumes: np.ndarray, weight: float, n_iter: int):
+    """The JAX ``_temporal_tv`` op for op in numpy float32, and the largest
+    |x / lambda|, |g| and |p| it met."""
+    tau, weight = np.float32(0.25), np.float32(weight)
+    scaled = volumes / weight
+    p = np.zeros_like(volumes)
+    top = {"scaled": np.abs(scaled).max(), "g": 0.0, "p": 0.0}
+    for _ in range(n_iter):
+        div_p = p - np.roll(p, 1, axis=0)
+        g = np.roll(div_p - scaled, -1, axis=0) - (div_p - scaled)
+        p = (p + tau * g) / (np.float32(1.0) + tau * np.abs(g))
+        top["g"], top["p"] = max(top["g"], np.abs(g).max()), max(top["p"], np.abs(p).max())
+    return volumes - weight * (p - np.roll(p, 1, axis=0)), top
+
+
+@pytest.mark.parametrize("n_phases", [1, 10])
+@pytest.mark.parametrize("n_iter", [1, 10])
+def test_temporal_tv_subnormal_range_matches_numpy(n_phases, n_iter):
+    """Volumes scaled into float32's subnormal range, so that x / lambda, q,
+    g and p fall below 2^-124 (where tau g rounds, and a fused p + tau g
+    would round otherwise): the plain version equals an op-for-op numpy
+    float32 transcription of the JAX ``_temporal_tv``, every value. Not
+    compared with JAX itself: XLA on the CPU flushes subnormals to zero
+    (``jnp.asarray([1e-39]) * 0.5`` is 0.0 there)."""
+    rng = np.random.default_rng(n_phases + 7)
+    vols = (rng.normal(size=(n_phases, 6, 5, 7)) * 1e-40).astype(np.float32)
+    want, top = _temporal_tv_numpy(vols, 0.2, n_iter)
+    assert 0.0 < max(top.values()) < 2.0**-124
+    got = trooster.temporal_tv_reference(torch.from_numpy(vols), 0.2, n_iter).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n_iter", [0, 1, 10])
+def test_temporal_tv_on_cpu_is_its_plain_version(n_iter):
+    """The function the kernel is held to on the card is what
+    ``temporal_tv`` computes on a CPU tensor, to the bit."""
+    vols = torch.from_numpy(np.random.default_rng(11).normal(size=(7, 5, 4, 6)).astype(
+        np.float32))
+    got = trooster.temporal_tv(vols, 0.2, n_iter)
+    assert torch.equal(got.view(torch.int32), trooster.temporal_tv_reference(
+        vols, 0.2, n_iter).view(torch.int32))
 
 
 def test_rooster_parameters_and_checkpoint_key_match_jax():
