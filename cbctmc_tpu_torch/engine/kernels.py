@@ -269,7 +269,6 @@ _SIGNATURES = {
     "tv_spatial": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "tv_spatial:tv_spatial_finish": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "tv_temporal": [_P, _I, ctypes.c_longlong, _F, _I, _P, _P],
-    "tv_temporal:tv_temporal_divide": [_P, _P, ctypes.c_longlong, _P, _P],
 }
 
 

@@ -96,12 +96,9 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     voxel may differ);
 13. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
-Usage: ``python3 chip_smoke.py [--read-every-sweep] [--save-tv-volumes]``
-from the repository root, on a machine with one CUDA card (the kernels
-build into ``cbctmc_tpu_torch/_build/``; ``--save-tv-volumes`` writes the
-recon-mc path's 10 phase volumes, 2.15 GB, to
-``smoke_out/tv_phase_volumes.npy`` for ``scripts/compare_tv_kernels.py
---volumes=``).
+Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
+root, on a machine with one CUDA card (the kernels build into
+``cbctmc_tpu_torch/_build/``).
 Exits non-zero without a card.
 """
 
@@ -111,7 +108,6 @@ import dataclasses
 import json
 import logging
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -295,113 +291,6 @@ def as_run_ms(calls) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (len(calls) - 1)
-
-
-# ---------------------------------------------------------------------------
-# SASS: loops counted in the compiled kernels (cuobjdump)
-# ---------------------------------------------------------------------------
-SMS, ISSUE_PER_CLOCK, LANES = 132, 4, 32  # H100 SXM: SMs, warp instructions an SM a clock
-
-
-def _sass_functions(lib: Path) -> dict:
-    """``{mangled name: [(address, instruction text), ...]}`` of a library's
-    SASS, or ``{}`` where the toolkit has no ``cuobjdump``."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return {}
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
-    funcs, current = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            current = funcs.setdefault(m.group(1), [])
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m and current is not None:
-            current.append((int(m.group(1), 16), m.group(2)))
-    return funcs
-
-
-def _branch_target(ins: str):
-    m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
-    return int(m.group(1), 16) if m else None
-
-
-def _fast_path(code: list, start: int, end: int) -> list:
-    """The instructions of one pass through the loop ``start``..``end`` on
-    its fast path: from the top, a forward branch is followed where it is
-    unconditional or where the instructions it skips hold a call (the slow
-    paths of correctly rounded divisions and square roots, and a block of
-    true divisions taken only when a range check fails), else passed."""
-    at = {a: k for k, (a, _) in enumerate(code)}
-    k, path = at[start], []
-    while k < len(code):
-        addr, ins = code[k]
-        path.append((addr, ins))
-        if addr >= end:
-            break
-        t = _branch_target(ins)
-        if t is not None and addr < t <= end and (
-                not ins.startswith("@") or any("CALL" in i for a, i in code if addr < a < t)):
-            k = at[t]
-            continue
-        k += 1
-    return path
-
-
-def sass_loops(lib: Path, mangled_part: str) -> list:
-    """Every loop (a backward branch) of the first function whose mangled
-    name holds ``mangled_part``: ``{start, end, instructions, fast_path,
-    mufu_rcp, innermost}`` (addresses in hex; ``fast_path`` and
-    ``mufu_rcp``: the instructions of one pass on the fast path
-    (:func:`_fast_path`) and the MUFU.RCP among them, one a division;
-    ``innermost``: no other loop lies inside it)."""
-    funcs = _sass_functions(lib)
-    name = next((k for k in funcs if mangled_part in k), None)
-    if name is None:
-        return []
-    code = funcs[name]
-    spans = [(t, addr) for addr, ins in code
-             if (t := _branch_target(ins)) is not None and t <= addr]
-    loops = []
-    for t, addr in spans:
-        body = [(a, i) for a, i in code if t <= a <= addr]
-        fast = _fast_path(code, t, addr)
-        inner = any(t <= s and e <= addr and (s, e) != (t, addr) for s, e in spans)
-        loops.append(dict(function=name, start=f"{t:x}", end=f"{addr:x}",
-                          instructions=len(body), fast_path=len(fast),
-                          mufu_rcp=sum("MUFU.RCP" in i for _, i in fast), innermost=not inner))
-    return loops
-
-
-def max_sm_clock_mhz() -> float:
-    return float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-
-
-def temporal_issue(lib: Path, mangled_part: str, n_phases: int, voxels: int,
-                   n_iter: int) -> dict | None:
-    """The iteration loop of a ``tv_temporal`` kernel (the largest innermost
-    loop that holds the iteration's ``n_phases`` divisions, one MUFU.RCP
-    each): its instructions per iteration on the fast path and the
-    issue-rate time of ``n_iter`` iterations over ``voxels`` voxels (one
-    thread a voxel, 32 a warp) on SMS SMs issuing ISSUE_PER_CLOCK warp
-    instructions a clock at the card's maximum SM clock. None where the
-    toolkit has no ``cuobjdump`` or no such loop was found."""
-    inner = [lp for lp in sass_loops(lib, mangled_part)
-             if lp["innermost"] and lp["mufu_rcp"] >= n_phases]
-    if not inner:
-        return None
-    loop = max(inner, key=lambda lp: lp["instructions"])
-    unrolled = loop["mufu_rcp"] // n_phases
-    per_iter = loop["fast_path"] / unrolled
-    clock_mhz = max_sm_clock_mhz()
-    rate = SMS * ISSUE_PER_CLOCK * clock_mhz * 1e6  # warp instructions a second
-    return dict(instructions_per_iteration=per_iter, loop_instructions=loop["instructions"],
-                iterations_per_loop_pass=unrolled, clock_mhz=clock_mhz,
-                issue_ms=per_iter * n_iter * voxels / LANES / rate * 1e3)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -2325,18 +2214,15 @@ def check_tv_kernels(kernels, card, recon):
     writes them once, or its operations, whichever is longer),
     ``tv_spatial``'s stream floor (:func:`tv_spatial_floor_bytes`) and the
     call's peak device memory, and ``tv_temporal``'s issue-rate time from
-    its compiled loop (:func:`temporal_issue`). ``spatial_tv`` with ``n``
+    its compiled loop (``temporal_issue`` of scripts/compare_tv_kernels.py,
+    printed, not in the kernels line). ``spatial_tv`` with ``n``
     iterations is ``n + 1`` launches: the kernels line's row is the path's
     call of 10 iterations, each number over its 11 launches (a mean
     launch); ``tv_temporal``'s row is its one launch at 10 iterations."""
     from cbctmc_tpu_torch.recon import rooster
 
     par = rooster.RoosterParameters()
-    phases = np.ascontiguousarray(np.moveaxis(recon["volumes"], -1, 0))
-    if "--save-tv-volumes" in sys.argv[1:]:
-        np.save(OUT / "tv_phase_volumes.npy", phases)
-    vols = torch.from_numpy(phases).to(DEVICE)
-    del phases
+    vols = torch.from_numpy(np.ascontiguousarray(np.moveaxis(recon["volumes"], -1, 0))).to(DEVICE)
     n = vols.numel()
     lam = par.gamma_space
     for n_iter in (1, par.n_tv_iterations):
@@ -2379,6 +2265,9 @@ def check_tv_kernels(kernels, card, recon):
 
     # the loop of the kernel's instance for these phases with 32-bit offsets
     # (csrc/tv_temporal.cu), at one iteration
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from compare_tv_kernels import temporal_issue
+
     issue = temporal_issue(kernels.build_kernels(("tv_temporal",))["tv_temporal"],
                            f"tv_temporal_kernelILi{vols.shape[0]}EiE", vols.shape[0],
                            vols[0].numel(), 1)
@@ -2399,11 +2288,12 @@ def check_tv_kernels(kernels, card, recon):
                              1)
         tb_ms, tb_by = bound(2 * n * 4, n * (TV_TEMPORAL_FLOPS * n_iter + 4))
         issue_ms = None if issue is None else issue["issue_ms"] * n_iter
-        issue_text = ("not measured (no cuobjdump)" if issue is None else
-                      f"{issue_ms:.6f} ms ({issue['instructions_per_iteration']:g} "
-                      f"instructions an iteration on the fast path of the loop, which holds "
-                      f"{issue['loop_instructions']} with its slow paths, at "
-                      f"{issue['clock_mhz']:g} MHz)")
+        issue_text = ("not computed (no cuobjdump)" if issue is None else
+                      f"{issue_ms:.6f} ms, computed, not timed: "
+                      f"{issue['instructions_per_iteration']:g} instructions an iteration on "
+                      f"the fast path of the loop, which holds {issue['loop_instructions']} "
+                      f"with its slow paths, one warp instruction a scheduler a clock at the "
+                      f"card's maximum SM clock, {issue['clock_mhz']:g} MHz)")
         say(f"tv_temporal: {n_iter} iteration(s) over {tuple(vols.shape)}: {t_off} voxels not "
             f"bit-equal to the plain version (max |diff| {t_err:.3e}); {t_ms:.5f} ms for its one "
             f"launch by the {t_timer}, {t_ev:.5f} by CUDA events around the call (plain "
@@ -2413,7 +2303,7 @@ def check_tv_kernels(kernels, card, recon):
             raise AssertionError(f"tv_temporal at {n_iter} iterations differs from its plain "
                                  "version")
     temporal = dict(max_abs_err=t_err, ms=t_ms, timer=t_timer, plain_ms=t_plain, bound_ms=tb_ms,
-                    bound_by=tb_by, library_ms=None, issue_ms=issue_ms)
+                    bound_by=tb_by, library_ms=None)
     return spatial, temporal
 
 

@@ -36,9 +36,9 @@ smoke's insert at each phase's height, noise):
   instructions a clock at the card's maximum SM clock (``nvidia-smi``).
 
 ``--only=tv_spatial`` or ``--only=tv_temporal`` measures one kernel;
-``--volumes=PATH`` times them on the phase volumes of a ``.npy`` file (the
-recon-mc path's, as ``chip_smoke.py --save-tv-volumes`` writes them) in
-place of those made here.
+``--volumes=PATH`` times them on the phase volumes of a ``.npy`` file
+(float32, [phase, x, y, z]; for example the recon-mc path's) in place of
+those made here.
 
 With ``--variants``, the process of the checkout that holds this script
 (each time it is named) also builds variants of the kernels
@@ -61,9 +61,9 @@ is one JSON object with every checkout's results.
 
 from __future__ import annotations
 
-import importlib.util
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -655,6 +655,9 @@ TEMPORAL_VARIANTS = {
     # the divisions by lambda as true divisions
     "lambda_true": ("tv_temporal", {"tv_temporal.cu": [
         ("  bool fast = lam_ok;", "  bool fast = false;")]}, TEMPORAL_SHIPPED),
+    # no skip of the loop for a voxel with one value in every phase
+    "no_skip": ("tv_temporal", {"tv_temporal.cu": [
+        ("  if (still && in_range) return;", "  (void)still;")]}, TEMPORAL_SHIPPED),
 }
 #: variants whose results are not the function's (timed, not held)
 TIMING_ONLY = {"voxel_loads_only", "voxel_loop_only"}
@@ -801,13 +804,111 @@ def rows_of_256(cs, kernels, rooster) -> dict:
     return timings(cs, kernels, rooster, vols, None, iterations=(10,))["x10"]
 
 
-def smoke_here():
-    """This checkout's ``chip_smoke.py``, whose SASS helpers count the loops
-    of every checkout's kernels (an older checkout's smoke may lack them)."""
-    spec = importlib.util.spec_from_file_location("smoke_here", HOME / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+# ---------------------------------------------------------------------------
+# SASS: loops counted in the compiled kernels (cuobjdump)
+# ---------------------------------------------------------------------------
+SMS, ISSUE_PER_CLOCK, LANES = 132, 4, 32  # H100 SXM: SMs, warp instructions an SM a clock
+
+
+def _sass_functions(lib: Path) -> dict:
+    """``{mangled name: [(address, instruction text), ...]}`` of a library's
+    SASS, or ``{}`` where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    funcs, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _branch_target(ins: str):
+    m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+    return int(m.group(1), 16) if m else None
+
+
+def _fast_path(code: list, start: int, end: int) -> list:
+    """The instructions of one pass through the loop ``start``..``end`` on
+    its fast path: from the top, a forward branch is followed where it is
+    unconditional or where the instructions it skips hold a call (the slow
+    paths of correctly rounded divisions and square roots, and a block of
+    true divisions taken only when a range check fails), else passed."""
+    at = {a: k for k, (a, _) in enumerate(code)}
+    k, path = at[start], []
+    while k < len(code):
+        addr, ins = code[k]
+        path.append((addr, ins))
+        if addr >= end:
+            break
+        t = _branch_target(ins)
+        if t is not None and addr < t <= end and (
+                not ins.startswith("@") or any("CALL" in i for a, i in code if addr < a < t)):
+            k = at[t]
+            continue
+        k += 1
+    return path
+
+
+def sass_loops(lib: Path, mangled_part: str) -> list:
+    """Every loop (a backward branch) of the first function whose mangled
+    name holds ``mangled_part``: ``{start, end, instructions, fast_path,
+    mufu_rcp, innermost}`` (addresses in hex; ``fast_path`` and
+    ``mufu_rcp``: the instructions of one pass on the fast path
+    (:func:`_fast_path`) and the MUFU.RCP among them, one a division;
+    ``innermost``: no other loop lies inside it)."""
+    funcs = _sass_functions(lib)
+    name = next((k for k in funcs if mangled_part in k), None)
+    if name is None:
+        return []
+    code = funcs[name]
+    spans = [(t, addr) for addr, ins in code
+             if (t := _branch_target(ins)) is not None and t <= addr]
+    loops = []
+    for t, addr in spans:
+        body = [(a, i) for a, i in code if t <= a <= addr]
+        fast = _fast_path(code, t, addr)
+        inner = any(t <= s and e <= addr and (s, e) != (t, addr) for s, e in spans)
+        loops.append(dict(function=name, start=f"{t:x}", end=f"{addr:x}",
+                          instructions=len(body), fast_path=len(fast),
+                          mufu_rcp=sum("MUFU.RCP" in i for _, i in fast), innermost=not inner))
+    return loops
+
+
+def max_sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+
+
+def temporal_issue(lib: Path, mangled_part: str, n_phases: int, voxels: int,
+                   n_iter: int) -> dict | None:
+    """The iteration loop of a ``tv_temporal`` kernel (the largest innermost
+    loop that holds the iteration's ``n_phases`` divisions, one MUFU.RCP
+    each): its instructions per iteration on the fast path and the
+    issue-rate time of ``n_iter`` iterations over ``voxels`` voxels (one
+    thread a voxel, 32 a warp) on SMS SMs issuing ISSUE_PER_CLOCK warp
+    instructions a clock at the card's maximum SM clock. None where the
+    toolkit has no ``cuobjdump`` or no such loop was found."""
+    inner = [lp for lp in sass_loops(lib, mangled_part)
+             if lp["innermost"] and lp["mufu_rcp"] >= n_phases]
+    if not inner:
+        return None
+    loop = max(inner, key=lambda lp: lp["instructions"])
+    unrolled = loop["mufu_rcp"] // n_phases
+    per_iter = loop["fast_path"] / unrolled
+    clock_mhz = max_sm_clock_mhz()
+    rate = SMS * ISSUE_PER_CLOCK * clock_mhz * 1e6  # warp instructions a second
+    return dict(instructions_per_iteration=per_iter, loop_instructions=loop["instructions"],
+                iterations_per_loop_pass=unrolled, clock_mhz=clock_mhz,
+                issue_ms=per_iter * n_iter * voxels / LANES / rate * 1e3)
 
 
 def ptxas_usage(log: str, mangled_part: str) -> list:
@@ -857,11 +958,11 @@ def temporal_timings(cs, kernels, rooster, vols, want, iterations=TEMPORAL_ITERA
     return out
 
 
-def temporal_sass(sh, lib: Path, mangled_part: str) -> dict | None:
+def temporal_sass(lib: Path, mangled_part: str) -> dict | None:
     """``tv_temporal``'s iteration loop in ``lib`` and the issue-rate time of
     ROOSTER's call (10 iterations over the 53,824,000 voxels of 10 phases)."""
     n_phases, nx, ny, nz = SHAPE
-    return sh.temporal_issue(lib, mangled_part, n_phases, nx * ny * nz, ITERATIONS[-1])
+    return temporal_issue(lib, mangled_part, n_phases, nx * ny * nz, ITERATIONS[-1])
 
 
 def sass_counts(kernels, which) -> dict:
@@ -870,22 +971,21 @@ def sass_counts(kernels, which) -> dict:
     time (:func:`temporal_sass`); for ``tv_spatial``'s march, the issue-rate
     time of one iteration launch if every warp ran the whole loop body once
     a plane."""
-    sh = smoke_here()
     paths = kernels.build_kernels(which)
     out = {}
     if "tv_temporal" in which:
         # the 32-bit instance for 10 phases, or the one instance of a kernel
         # that has no index type (this kernel's first form)
         part = next((k for k in (TEMPORAL_SHIPPED, "tv_temporal_kernelILi10E")
-                     if sh.sass_loops(paths["tv_temporal"], k)), TEMPORAL_SHIPPED)
-        out["tv_temporal"] = sh.sass_loops(paths["tv_temporal"], part)
-        out["tv_temporal_issue"] = temporal_sass(sh, paths["tv_temporal"], part)
+                     if sass_loops(paths["tv_temporal"], k)), TEMPORAL_SHIPPED)
+        out["tv_temporal"] = sass_loops(paths["tv_temporal"], part)
+        out["tv_temporal_issue"] = temporal_sass(paths["tv_temporal"], part)
     if "tv_spatial" in which:
-        out["tv_spatial"] = sh.sass_loops(paths["tv_spatial"], "tv_spatial_kernelILb0E")
+        out["tv_spatial"] = sass_loops(paths["tv_spatial"], "tv_spatial_kernelILb0E")
         if out["tv_spatial"]:
             # the march's loop once a plane for every warp: at most, since only warps 0
             # and 1 run the halo's block (tiles of 32 z x 8 y, 8 warps a block)
-            rate = sh.SMS * sh.ISSUE_PER_CLOCK * sh.max_sm_clock_mhz() * 1e6
+            rate = SMS * ISSUE_PER_CLOCK * max_sm_clock_mhz() * 1e6
             loop = max(out["tv_spatial"], key=lambda lp: lp["instructions"])
             n_phases, nx, ny, nz = SHAPE
             warps = n_phases * -(-nz // 32) * -(-ny // 8) * 8
@@ -911,7 +1011,6 @@ def spatial_variants(cs, kernels, card, rooster, vols, want) -> dict:
 
 
 def temporal_variants(cs, kernels, card, rooster, vols, want, air) -> dict:
-    sh = smoke_here()
     built = kernel_variants.build_variants(
         kernels, {name: v[:2] for name, v in TEMPORAL_VARIANTS.items()})
     out = {"shipped": temporal_timings(cs, kernels, rooster, vols, want, air=air)}
@@ -924,7 +1023,7 @@ def temporal_variants(cs, kernels, card, rooster, vols, want, air) -> dict:
             out[name] = dict(**temporal_timings(cs, kernels, rooster, vols,
                                                 want if exact else None,
                                                 air=(air[0], air[1] if exact else None)),
-                             sass=temporal_sass(sh, lib, pattern),
+                             sass=temporal_sass(lib, pattern),
                              ptxas=ptxas_usage(log, pattern))
         cs.say(f"variant {name}: {out[name]}", card)
     out["shipped again"] = temporal_timings(cs, kernels, rooster, vols, want, air=air)

@@ -5,6 +5,10 @@ without the JAX package's dependencies:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 Without a card they skip."""
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -757,8 +761,8 @@ def _temporal_on_card(vols, n_iter, weight=0.2):
 def test_tv_temporal_kernel_on_card(cuda, n_iter, n_phases, shape):
     """One launch, every voxel equal to the plain version's: n = 8 and 105
     voxels a phase (less than a block's 256), 13,949 (rows not 16-byte
-    aligned: n not a multiple of 4) and 231,000 (many 256-voxel tiles a
-    block of the persistent grid, the last one partial)."""
+    aligned: n not a multiple of 4) and 231,000 (many blocks of 256 voxels,
+    the last one partial)."""
     rng = np.random.default_rng(n_phases)
     _temporal_on_card(torch.from_numpy(
         rng.normal(size=(n_phases, *shape)).astype(np.float32)).to(cuda), n_iter)
@@ -803,47 +807,47 @@ def test_tv_temporal_kernel_air_on_card(cuda, n_iter):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["every_mantissa", "in_range", "by_lambda", "out_of_range"])
-def test_tv_temporal_division_on_card(cuda, case):
-    """The kernel's divisions (csrc/tv_temporal.cu: the written-out sequence
-    of a correctly rounded division where 1 <= b < 2^30 and 2^-90 <= |a| <=
-    b, as in the iteration, or where b lies in [2^-20, 2^20] and a nonzero
-    |a| in [2^-90, 2^90], as for lambda; a true division elsewhere) equal the
-    card's true division a / b for every value: each of the 2^23 mantissas
-    of b in [1, 2) against random numerators in the iteration's range; 2^24
-    pairs drawn log-uniformly over that range; each mantissa again at random
-    powers of two in lambda's range against numerators there, zeros of both
-    signs and the ends of the range among them; and pairs outside both
-    ranges (subnormal and tiny numerators, b below 2^-20 or at 2^30 and
-    above, |a| > b, infinities, NaN) that take the true division."""
-    cases = ["every_mantissa", "in_range", "by_lambda", "out_of_range"]
-    rng = np.random.default_rng(cases.index(case))
-    sign = rng.choice([-1.0, 1.0], 2**24)
-    if case == "every_mantissa":
-        b = (1.0 + np.arange(2**23) / 2.0**23).astype(np.float32)
-        a = b * np.exp2(rng.uniform(-90.0, 0.0, b.size)) * sign[:b.size]
-    elif case == "in_range":
-        b = np.exp2(rng.uniform(0.0, 30.0, 2**24)).astype(np.float32)
-        b = np.minimum(b, np.float32(2.0**30 - 64))
-        a = np.exp2(rng.uniform(-90.0, np.log2(b.astype(np.float64)))) * sign
-    elif case == "by_lambda":
-        b = (1.0 + np.arange(2**23) / 2.0**23) * np.exp2(rng.integers(-20, 20, 2**23))
-        a = np.exp2(rng.uniform(-90.0, 90.0, b.size)) * sign[:b.size]
-        a[rng.random(b.size) < 0.01] = 0.0
-        a[:4] = [0.0, -0.0, 2.0**-90, -(2.0**90)]
-    else:
-        b = np.exp2(rng.uniform(-30.0, 40.0, 2**20)).astype(np.float32)
-        a = b * np.exp2(rng.uniform(-160.0, 10.0, b.size)) * sign[:b.size]
-        a[:8], b[:8] = [0.0, -0.0, 1e-45, -1e-40, np.inf, np.nan, 3.0, 2.0**-33], \
-            [1.0, 3.0, 1.0, 2.0, 5.0, 1.0, np.inf, 1.0]
-    a = torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
-    b = torch.from_numpy(np.asarray(b, np.float32)).to(cuda)
-    got = torch.empty_like(a)
-    kernels._launch("tv_temporal:tv_temporal_divide", a.data_ptr(), b.data_ptr(), a.numel(),
-                    got.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    want = a / b
-    torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+@pytest.mark.parametrize("weight, scale", [(1e-7, 1.0), (1e7, 1.0), (0.2, 1e30), (0.2, 1e-30)])
+def test_tv_temporal_kernel_out_of_range_on_card(cuda, weight, scale):
+    """Inputs outside the ranges where the kernel divides by its written-out
+    sequence, which it must detect and divide truly instead: lambda below
+    2^-20 and above 2^20, |v| above 2^90 (and v / lambda above 2^30), and
+    nonzero |v| below 2^-90 (numerators below 2^-90 in the iteration)."""
+    rng = np.random.default_rng(6)
+    vols = (rng.normal(size=(10, 37, 29, 13)) * scale).astype(np.float32)
+    for n_iter in (1, 10):
+        _temporal_on_card(torch.from_numpy(vols).to(cuda), n_iter, weight)
+
+
+@functools.lru_cache(maxsize=None)
+def _division_check():
+    """scripts/check_tv_temporal_division.py and its check kernel, built."""
+    spec = importlib.util.spec_from_file_location(
+        "check_tv_temporal_division",
+        Path(__file__).resolve().parents[1] / "scripts" / "check_tv_temporal_division.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module, module.build()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ea, eb, negative", [
+    (-1, 0, False), (-1, 0, True), (-6, -13, False), (-90, 29, False), (89, -20, True),
+    (29, 29, False)])
+def test_tv_temporal_division_on_card(cuda, ea, eb, negative):
+    """The kernel's divisions (csrc/tv_temporal.cu ``reciprocal`` and
+    ``divide``, the compiler's correctly rounded sequence written out) give
+    the nearest float to a / b and equal the card's ``__fdiv_rn``, counted in
+    a kernel built from a copy of the source: every mantissa of b in [2^eb,
+    2^(eb + 1)) against 4 mantissas of a in [2^ea, 2^(ea + 1)) each. The
+    binade pairs lie inside the ranges where the kernel takes the sequence
+    and at their corners; the check of every mantissa pair is the script's
+    (run without arguments). The ranges themselves are held through
+    ``temporal_tv`` by the out-of-range, subnormal and air tests."""
+    module, fn = _division_check()
+    got = module.count(fn, ea, eb, step=1 << 21, negative=negative)
+    assert got["checked"] == 4 << 23
+    assert (got["differ"], got["wrong"]) == (0, 0), got
 
 
 @pytest.mark.gpu
