@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels: the engine's, with their plain
 PyTorch versions, the build of all of them, and the launch counters.
 
-Thirteen kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
+Sixteen kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
 what it replaces, what bounds it and how its design answers that). Two are
 the phases of the engine's outer iteration, the only device work
 :func:`cbctmc_tpu_torch.engine.transport.run_projection` issues on the card
@@ -53,6 +53,19 @@ versions live beside the code that calls them:
   (:func:`cbctmc_tpu_torch.recon.rooster.spatial_tv` /
   :func:`~cbctmc_tpu_torch.recon.rooster.temporal_tv`).
 
+Three serve the demons registration that fits the 4D simulation's
+correspondence model (:mod:`cbctmc_tpu_torch.registration.demons`), one
+iteration's steps:
+
+- ``demons_force``: the moving image pulled through the field and the
+  Thirion force (:func:`~cbctmc_tpu_torch.registration.demons.demons_force`;
+  its entry ``warp_volume`` the pull alone);
+- ``demons_blur``: one axis's pass of the separable Gaussian blur
+  (:func:`~cbctmc_tpu_torch.registration.demons.blur_axis`);
+- ``demons_jacobian``: the fold check, the Jacobian determinant of the new
+  field and the select of the old value where it folds
+  (:func:`~cbctmc_tpu_torch.registration.demons.jacobian_select`).
+
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ctypes, at first use, into
 ``cbctmc_tpu_torch/_build/`` (:func:`build_kernels` starts one ``nvcc`` per
@@ -91,7 +104,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_resolve",
            "tally", "philox_block", "primary_trace", "backproject", "joseph_project",
-           "joseph_splat", "tv_spatial", "tv_temporal")
+           "joseph_splat", "tv_spatial", "tv_temporal", "demons_force", "demons_blur",
+           "demons_jacobian")
 #: the control word (csrc/engine.cuh CTRL_LAUNCHES_*) in which each phase
 #: kernel counts its launches that did work
 PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13}
@@ -269,6 +283,10 @@ _SIGNATURES = {
     "tv_spatial": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "tv_spatial:tv_spatial_finish": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     "tv_temporal": [_P, _I, ctypes.c_longlong, _F, _I, _P, _P],
+    "demons_force": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "demons_force:warp_volume": [_P, _P, _I, _I, _I, _P, _P],
+    "demons_blur": [_P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _I, _P, _P],
+    "demons_jacobian": [_P, _P, _I, _I, _I, _F, _P, _P],
 }
 
 

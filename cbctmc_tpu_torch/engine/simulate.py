@@ -122,7 +122,11 @@ class MCScanner:
         engine_config: EngineConfig | None = None,
         apply_engine_frame_rotation: bool = True,
         device: str | torch.device | None = None,
+        tables: DeviceTables | None = None,
     ):
+        """``tables``: the device tables of ``table_set`` and ``spectrum``
+        when the caller already built them (the scanners of one 4D scan
+        share them); built here otherwise."""
         self.device = resolve_device(device)
         self.parameters = parameters or SimulationParameters()
         self.table_set = table_set or default_material_set()
@@ -145,7 +149,7 @@ class MCScanner:
         self.volume, self.woodcock = make_scene(
             self.table_set, mats0, dens, spacing_cm, device=self.device
         )
-        self.tables: DeviceTables = build_device_tables(
+        self.tables: DeviceTables = tables or build_device_tables(
             self.table_set, self.spectrum, device=self.device
         )
 

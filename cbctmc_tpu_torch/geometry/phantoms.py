@@ -1,7 +1,8 @@
 """The CatPhan604 QA phantom as an analytic voxel geometry (the benchmark
-scene of the MC engine) and the one-voxel air scene of flat-field scans.
-The port's copy of the JAX package's ``CatPhan604Geometry``,
-``AirGeometry`` and their helpers."""
+scene of the MC engine), the one-voxel air scene of flat-field scans and the
+CIRS thorax motion phantom of the 4D simulation. The port's copy of the JAX
+package's ``CatPhan604Geometry``, ``AirGeometry``,
+``CIRSPhantomGeometry`` and their helpers."""
 
 from __future__ import annotations
 
@@ -131,3 +132,147 @@ class CatPhan604Geometry(_CylindricalPhantom):
         CATPHAN604_SENSITOMETRY_ROIS,
         CATPHAN604_SYMMETRY_ROIS,
     )
+
+
+class CIRSPhantomGeometry(MCGeometry):
+    """CIRS thorax-like motion phantom helpers: a spherical soft-tissue
+    insert with a cylindrical cutout, and an aluminium line-pair insert for
+    in-phantom MTF measurements (reference: MCCIRSPhantomGeometry,
+    cbctmc/mc/geometry.py:642-878). A base geometry (from a CT of the
+    physical phantom) can be loaded with :meth:`MCGeometry.load`; the
+    insert methods below also work on any geometry."""
+
+    DEFAULT_INSERT_CENTER = (238, 141, 71)
+
+    @classmethod
+    def synthetic_thorax(cls, shape=(350, 260, 142),
+                         image_spacing=(1.0, 1.0, 1.0),
+                         table_set: MaterialTableSet | None = None,
+                         ) -> "CIRSPhantomGeometry":
+        """Analytic CIRS-008A-like thorax base: an elliptical plastic-water
+        body with two lung-equivalent compartments (0.207 x water, the
+        lung override of the reference's CIRS geometry, geometry.py:742-745)
+        and a vertebral bone insert. The reference ships this base as a
+        pickled CT-derived asset (assets/geometries/base_cirs_geometry);
+        this synthetic stand-in reproduces its layout so the insert and
+        line-pair inserts land inside the right lung at the reference's
+        default insert centre (238, 141, 71)."""
+        table_set = table_set or default_material_set()
+        air = table_set.material("air")
+        h2o = table_set.material("h2o")
+        bone = table_set.material("bone_050")
+
+        nx, ny, nz = shape
+        sx, sy, sz = image_spacing
+        materials = np.full(shape, air.number, np.uint8)
+        densities = np.full(shape, air.density, np.float32)
+
+        # layout in physical mm relative to the volume centre, so any
+        # shape/spacing yields a valid thorax (the default 350x260x142 @
+        # 1 mm grid puts the reference insert centre (238, 141, 71) inside
+        # the right lung)
+        cx_mm = (nx - 1) / 2 * sx
+        cy_mm = ny / 2 * sy
+        x = np.arange(nx, dtype=np.float32)[:, None] * sx - cx_mm
+        y = np.arange(ny, dtype=np.float32)[None, :] * sy - cy_mm
+
+        half_w = min(165.0, cx_mm * 0.95)
+        half_h = min(115.0, cy_mm * 0.9)
+
+        # body: ellipse (up to 330 x 230 mm) of plastic water
+        body = (x / half_w) ** 2 + (y / half_h) ** 2 <= 1.0
+        body3 = np.repeat(body[:, :, None], nz, axis=2)
+        materials[body3] = h2o.number
+        densities[body3] = h2o.density
+
+        # lungs: two circular compartments at lung-equivalent density
+        for side in (-1.0, 1.0):
+            lung = (x - side * half_w * 0.42) ** 2 + (
+                y - half_h * 0.07
+            ) ** 2 <= (half_w * 0.34) ** 2
+            lung3 = np.repeat(lung[:, :, None], nz, axis=2) & body3
+            materials[lung3] = h2o.number
+            densities[lung3] = 0.207 * h2o.density
+
+        # vertebral insert (posterior midline)
+        spine = x**2 + (y - half_h * 0.7) ** 2 <= min(14.0, half_h * 0.12) ** 2
+        spine3 = np.repeat(spine[:, :, None], nz, axis=2) & body3
+        materials[spine3] = bone.number
+        densities[spine3] = bone.density
+
+        geometry = cls(
+            materials=materials, densities=densities,
+            image_spacing=image_spacing,
+        )
+        geometry.table_set = table_set
+        return geometry
+
+    @staticmethod
+    def create_spherical_mask(radius, shape, center):
+        x = (np.arange(shape[0], dtype=np.float32) - center[0]) ** 2
+        y = (np.arange(shape[1], dtype=np.float32) - center[1]) ** 2
+        z = (np.arange(shape[2], dtype=np.float32) - center[2]) ** 2
+        return (
+            x[:, None, None] + y[None, :, None] + z[None, None, :]
+        ) <= radius**2
+
+    @classmethod
+    def create_cirs_insert(cls, shape, insert_center, radius: float = 15.0,
+                           cutout_radius: float = 1.5):
+        """Sphere of `radius` voxels with a cylindrical cutout above the
+        centre (the dosimeter channel)."""
+        mask = cls.create_spherical_mask(radius, shape, insert_center)
+        cyl_center = np.asarray(insert_center) + np.array([0, 0, radius / 2])
+        cutout = cylinder_mask(
+            shape, tuple(cyl_center), cutout_radius, radius
+        )
+        mask[cutout] = False
+        return mask
+
+    def place_insert(self, shift=(0, 0, 0), insert_center=None,
+                     material: str = "soft_tissue") -> "CIRSPhantomGeometry":
+        insert_center = np.asarray(
+            insert_center or self.DEFAULT_INSERT_CENTER
+        ) + np.asarray(shift)
+        mask = self.create_cirs_insert(self.image_shape, insert_center)
+        out = self.copy()
+        table_set = getattr(self, "table_set", None) or default_material_set()
+        mat = table_set.material(material)
+        out.materials[mask] = mat.number
+        out.densities[mask] = mat.density
+        out.__class__ = CIRSPhantomGeometry
+        return out
+
+    def place_line_pair_insert(self, gap: float = 4.0,
+                               insert_center=None,
+                               width: int = 20) -> "CIRSPhantomGeometry":
+        """Upsample x by 4 (0.25 mm) and place aluminium/lung-density line
+        pairs around the insert position (reference: geometry.py:797-862)."""
+        table_set = getattr(self, "table_set", None) or default_material_set()
+        alu = table_set.material("aluminium")
+        h2o = table_set.material("h2o")
+
+        out = self.copy()
+        out.materials = np.repeat(out.materials, 4, axis=0)
+        out.densities = np.repeat(out.densities, 4, axis=0)
+        out.image_spacing = (self.image_spacing[0] / 4.0,) + tuple(
+            self.image_spacing[1:]
+        )
+
+        spacing_x = out.image_spacing[0]
+        gap_vox = int(gap // spacing_x)
+        n_line_pairs = 4
+        center = np.asarray(insert_center or self.DEFAULT_INSERT_CENTER, float)
+        start = int(center[0] / spacing_x - n_line_pairs / 2 * 2 * gap_vox)
+        cy, cz = int(center[1]), int(center[2])
+
+        for i in range(n_line_pairs):
+            offset = start + i * 2 * gap_vox
+            sl_yz = (slice(cy - width, cy + width), slice(cz - width, cz + width))
+            out.materials[(slice(offset, offset + gap_vox), *sl_yz)] = alu.number
+            out.densities[(slice(offset, offset + gap_vox), *sl_yz)] = alu.density
+            lo = offset + gap_vox
+            out.materials[(slice(lo, lo + gap_vox), *sl_yz)] = h2o.number
+            out.densities[(slice(lo, lo + gap_vox), *sl_yz)] = 0.207 * h2o.density
+        out.__class__ = CIRSPhantomGeometry
+        return out

@@ -4,7 +4,7 @@ NVIDIA card and hold every hand-written kernel against its plain version.
 
 Phases (each raises on failure; nothing lets the run exit 0 after one):
 
-1. print the card (``nvidia-smi`` name, power limit); build the thirteen kernels
+1. print the card (``nvidia-smi`` name, power limit); build the sixteen kernels
    from ``cbctmc_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. ``probe_gather("cuda")`` must be True; Philox in a kernel
    (``csrc/philox.cuh``) against the plain version: Random123's three
@@ -78,7 +78,7 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     of the file (the volume read back, no voxel may differ from the
     in-memory FDK of the same stack); a moving phantom (the CatPhan mu volume
     with a sphere moving along z with the breathing phase) projected by
-    ``project_forward`` onto 160 views at their own phases, written as a
+    ``project_forward`` onto 80 views at their own phases, written as a
     stack, and ``reconstruct_4d`` of it (10 phases, one outer iteration, two
     CG steps) on the shear-warp pair and on the Joseph pair, each volume
     read back (the checkpoint removed; the insert's z centroid over the
@@ -89,12 +89,29 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     identity within 1e-4) on one full view against their plain versions
     with ``grid_sample`` / ``index_add_`` as yardsticks (the plain step
     ranges' counts equal to the march's samples inside), both timed also at
-    the path's launch shape of 16 views, and ``tv_spatial``
+    the path's launch shape of 8 views, and ``tv_spatial``
     (at 1 and at the path's 10 iterations, with its stream floor and the
     call's peak device memory) and ``tv_temporal`` (at 1 and 10, with the
     issue-rate time of its compiled loop) over the 10 phase volumes (no
     voxel may differ);
-13. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+13. the ``run-mc`` path at full width (:func:`run_mc_path`): the CIRS thorax
+    (350, 260, 142) at 1 mm with its insert, 10 breathing phases warped by the
+    JAX demo's analytic motion (20 mm along z), ``CorrespondenceModel.
+    build_default`` (demons registration of 9 phases, 3 levels x 100
+    iterations through the ``demons_force``, ``demons_blur`` and
+    ``demons_jacobian`` kernels, 8 launches an iteration, the counters zeroed
+    before and read after), ``MCSimulation4D`` of phase 2 (60 views over one
+    4 s breathing cycle at 15 fps, 2e7 histories a view, 5 quantisation bins,
+    the air flat at 1e9) and ``MCSimulation`` of phase 2 at 8 views, seeded;
+    checked: each phase registered (the insert box's mean difference under half
+    the unregistered one, no fold), the model's warp puts each phase's insert
+    within 1 voxel, the 4D artifacts complete and finite, the 8 most displaced
+    views' MC primary closer to their own geometry's deterministic primary than
+    to the reference's, the 3D layout and its seed; walls by step; then the
+    three kernels against their plain versions on the path's inputs at the
+    full and the coarsest level and over a 5-iteration level (no value may
+    differ), with device times, bounds and yardsticks;
+14. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -154,10 +171,11 @@ RECON_SPACING_MM = 1.0
 CYLINDER_VIEWS = 90  # a full chunk of 64 and a ragged one of 26
 CYLINDER_MU = 0.02  # water-like [1/mm]
 # the recon-mc path (reconstruct_3d, reconstruct_4d) on the same grid and panel
-# 16 views per phase: with 4 views a phase (40 views) two CG steps barely move the
-# insert at this grid (PERF.md, section 6)
-ROOSTER_VIEWS = 160  # over 360 deg (the reference scans 894)
-ROOSTER_CYCLES = 16  # breathing cycles over the views: 10 views per cycle, one per phase
+# 8 views per phase (16 until the run-mc path joined the smoke, which the run
+# had to make room for): with 4 views a phase (40 views) two CG steps barely
+# move the insert at this grid; at 16 it separates by +-16.5 mm (PERF.md)
+ROOSTER_VIEWS = 80  # over 360 deg (the reference scans 894)
+ROOSTER_CYCLES = 8  # breathing cycles over the views: 10 views per cycle, one per phase
 ROOSTER_PHASES = 10
 ROOSTER_ITERATIONS = 1  # outer iterations (the reference runs 10)
 ROOSTER_CG_STEPS = 2  # CG steps per outer iteration (the reference runs 4)
@@ -209,6 +227,30 @@ SPLAT_INSIDE_FLOPS = 41
 TV_SPATIAL_ITER_FLOPS = 27
 TV_SPATIAL_FINISH_FLOPS = 7
 TV_TEMPORAL_FLOPS = 9
+# the run-mc path: the JAX 4D demo (scripts/run_4d_demo.py) at the reference's
+# 1 mm CIRS grid
+THORAX_SHAPE = (350, 260, 142)  # CIRSPhantomGeometry.synthetic_thorax()'s default, 1 mm
+INSERT_CENTER = (238, 141, 71)  # the reference's insert centre [voxels]
+MOTION_WIDTHS_MM = (80.0, 80.0, 60.0)  # the motion field's Gaussian envelope around the insert
+MOTION_AMPLITUDE_MM = 20.0  # along z at a breathing amplitude of 1
+MC_PHASES = 10  # the 4D CT's phases, amplitude sin^4(pi p / 10)
+REFERENCE_PHASE = 2
+MC4D_VIEWS = 60  # over 360 deg: one 4 s breathing cycle at 15 fps (the reference scans 894)
+MC4D_HISTORIES = 20_000_000  # per view (the reference ~1.2e10)
+MC4D_QUANTIZATION = 5
+MC_AIR_HISTORIES = 1_000_000_000  # the reference 5e10, the demo 1e9
+MC3D_VIEWS = 8
+MC3D_AIR_HISTORIES = 100_000_000
+MOTION_VIEWS = 8  # the most displaced views held to their own geometry's primary
+MOTION_MIN_MM = 5.0
+MOTION_BIN = 8  # detector binning of the motion check
+DEMONS_CHECK_ITERATIONS = 5
+# operations per voxel of the demons kernels (csrc/demons_*.cu): the force's
+# 3 coordinate sums, 3 fractions, 3 complements, 7 lerps of 3, the masked
+# difference 2, the denominator 3, the scale 2, the update 3; the fold
+# check's 9 differences, 9 halvings, 9 identity sums, 14 for the determinant
+DEMONS_FORCE_FLOPS = 40
+DEMONS_JACOBIAN_FLOPS = 41
 
 
 def card_line() -> str:
@@ -1995,9 +2037,9 @@ def check_joseph_kernels(kernels, card, recon):
     the march's own count.
 
     Then both kernels are held to the same bounds at the path's launch
-    shape, one phase's 16 views of the 4D scan a launch (the Joseph ROOSTER
-    run's), and timed there, with their bounds from those views' step
-    ranges."""
+    shape, one phase's views of the 4D scan a launch (ROOSTER_VIEWS / 10, the
+    Joseph ROOSTER run's), and timed there, with their bounds from those
+    views' step ranges."""
     import torch.nn.functional as F
 
     from cbctmc_tpu_torch.recon import joseph
@@ -2307,6 +2349,555 @@ def check_tv_kernels(kernels, card, recon):
     return spatial, temporal
 
 
+# ---------------------------------------------------------------------------
+# the run-mc path: a 4D MC simulation of the CIRS thorax
+# ---------------------------------------------------------------------------
+def motion_field(amplitude: float) -> np.ndarray:
+    """The JAX demo's analytic breathing motion at 1 mm: a pull field moving
+    the insert's region along +z by ``amplitude`` x MOTION_AMPLITUDE_MM,
+    inside a Gaussian envelope around the insert (run_4d_demo.py:100-112)."""
+    axes = [((np.arange(n, dtype=np.float32) - c) / w) ** 2
+            for n, c, w in zip(THORAX_SHAPE, INSERT_CENTER, MOTION_WIDTHS_MM)]
+    envelope = np.exp(-(axes[0][:, None, None] + axes[1][None, :, None]
+                        + axes[2][None, None, :]))
+    dvf = np.zeros((3, *THORAX_SHAPE), np.float32)
+    dvf[2] = -amplitude * MOTION_AMPLITUDE_MM * envelope
+    return dvf
+
+
+def insert_box(volume):
+    cx, cy = INSERT_CENTER[:2]
+    return volume[cx - 20:cx + 20, cy - 20:cy + 20, :]
+
+
+def insert_z(densities) -> float:
+    """The insert's z centroid [voxels]: the soft-tissue sphere is the densest
+    structure in the right lung's box (the demo's measure)."""
+    zs = np.nonzero(insert_box(densities) > 0.9)[2]
+    return float(zs.mean()) if zs.size else float("nan")
+
+
+class LogWalls(logging.Handler):
+    """Keeps the records of the run-mc modules' INFO logs: the per-state
+    walls of MCSimulation4D and the stacks' writes."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append((record.msg, record.args))
+
+
+def run_mc_path(kernels, card):
+    """The ``run-mc`` layer at full width: the CIRS thorax (350, 260, 142) at
+    1 mm with its insert, 10 breathing phases warped by the demo's motion,
+    the correspondence model built by ``CorrespondenceModel.build_default``
+    (``register_phases`` with the default demons schedule: 9 registrations of
+    100 iterations at (88, 65, 36), (175, 130, 71) and (350, 260, 142)),
+    ``MCSimulation4D`` of phase 2 (60 views over one 4 s breathing cycle at
+    15 fps, 2e7 histories a view, 5 quantisation bins, the air flat at
+    1e9) and ``MCSimulation.run_simulation`` of phase 2 at 8 views, seeded.
+    The launch counters are zeroed just before ``build_default`` and read
+    just after ``MCSimulation4D``. Checks the registration (each phase's
+    insert box closer than half the unregistered difference, no fold), the
+    model (each phase's predicted warp puts the insert within 1 voxel of
+    the phase's), the 4D artifacts, that the motion reaches the projections
+    and the 3D artifacts; reports the walls by step."""
+    from cbctmc_tpu_torch.engine.simulate import SimulationParameters
+    from cbctmc_tpu_torch.engine.transport import production_engine_config
+    from cbctmc_tpu_torch.geometry.phantoms import CIRSPhantomGeometry
+    from cbctmc_tpu_torch.pipeline import simulation
+    from cbctmc_tpu_torch.pipeline.correspondence import CorrespondenceModel
+    from cbctmc_tpu_torch.pipeline.respiratory import RespiratorySignal
+    from cbctmc_tpu_torch.registration import demons
+
+    folder = OUT / "run_mc"
+    folder.mkdir(parents=True, exist_ok=True)
+    walls = {}
+    t0 = time.monotonic()
+    base = CIRSPhantomGeometry.synthetic_thorax(shape=THORAX_SHAPE).place_insert(
+        insert_center=INSERT_CENTER)
+    amp = np.sin(np.pi * np.arange(MC_PHASES) / MC_PHASES) ** 4
+    damp = np.gradient(amp)
+    phases = [base.warp(motion_field(a)) for a in amp]
+    images = np.stack([g.densities for g in phases])
+    walls["phases_build"] = time.monotonic() - t0
+    truth_z = [insert_z(img) for img in images]
+    reference = phases[REFERENCE_PHASE]
+    say(f"run-mc path: CIRS thorax {THORAX_SHAPE} at 1 mm, insert at {INSERT_CENTER}, "
+        f"{MC_PHASES} phases of amplitude sin^4(pi p / {MC_PHASES}) x {MOTION_AMPLITUDE_MM} mm "
+        f"(insert z centroids {np.round(truth_z, 3).tolist()}), built in "
+        f"{walls['phases_build']:.2f} s", card)
+
+    # the registration's levels, each timed between synchronisations, and
+    # the first registration's inputs and output at each level kept for the
+    # kernels' check
+    levels, captured, fields = [], {}, {}
+    real_level, real_phases = demons._demons_level, demons.register_phases
+
+    def timed_level(fixed, moving, dvf, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = real_level(fixed, moving, dvf, *args, **kwargs)
+        torch.cuda.synchronize()
+        levels.append((tuple(fixed.shape), time.monotonic() - t))
+        if tuple(fixed.shape) not in captured:
+            captured[tuple(fixed.shape)] = (fixed, moving, dvf, args[4], out)
+        return out
+
+    def kept_phases(*args, **kwargs):
+        fields["dvf"] = real_phases(*args, **kwargs)
+        fields["wall"] = time.monotonic() - t_reg
+        return fields["dvf"]
+
+    demons._demons_level, demons.register_phases = timed_level, kept_phases
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        t_reg = time.monotonic()
+        model = CorrespondenceModel.build_default(
+            images=images, signals=np.stack([amp, damp]), reference_phase=REFERENCE_PHASE,
+            device=DEVICE)
+        walls["build_default"] = time.monotonic() - t_reg
+    finally:
+        demons._demons_level, demons.register_phases = real_level, real_phases
+    walls["registration"] = fields["wall"]
+    walls["fit"] = walls["build_default"] - fields["wall"]
+
+    params = SimulationParameters(n_histories=MC4D_HISTORIES, n_projections=MC4D_VIEWS,
+                                  angle_between_projections=360.0 / MC4D_VIEWS)
+    cfg = production_engine_config(**ENGINE_OVERRIDES)
+    signal = RespiratorySignal.create_sin4(total_seconds=MC4D_VIEWS / 15.0,
+                                           period=MC4D_VIEWS / 15.0)
+    sim4d = simulation.MCSimulation4D(correspondence_model=model, geometry=reference,
+                                      parameters=params, engine_config=cfg,
+                                      n_pixels_half_fan_x=HALF_FAN_COLUMNS,
+                                      air_n_histories=MC_AIR_HISTORIES, device=DEVICE)
+    log_walls = LogWalls()
+    sim_log = logging.getLogger("cbctmc_tpu_torch.pipeline.simulation")
+    sim_log.setLevel(logging.INFO)
+    sim_log.addHandler(log_walls)
+    out4d = folder / "sim4d"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        artifacts = sim4d.run_simulation(respiratory_signal=signal, output_folder=out4d,
+                                         respiratory_signal_quantization=MC4D_QUANTIZATION,
+                                         force_rerun=True)
+        torch.cuda.synchronize()
+        walls["mc4d"] = time.monotonic() - t
+        peak_4d = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.launch_counts)
+    finally:
+        sim_log.removeHandler(log_walls)
+    states = [args for msg, args in log_walls.records if msg.startswith("Simulated")]
+    writes = {args[0]: args[1] for msg, args in log_walls.records if msg.startswith("Wrote")}
+
+    # the launches: 9 registrations of 3 levels x 100 iterations, 8 launches each
+    p = demons.DemonsParameters()
+    iterations = (MC_PHASES - 1) * p.n_levels * p.iterations
+    want = {"demons_force": iterations, "demons_blur": 6 * iterations,
+            "demons_jacobian": iterations}
+    got = {k: launches[k] for k in want}
+    shapes = sorted({s for s, _ in levels}, key=lambda s: s[0])
+    level_walls = {str(s): [round(w, 4) for sh, w in levels if sh == s] for s in shapes}
+    say(f"run-mc registration: build_default {walls['build_default']:.2f} s, of which "
+        f"register_phases {walls['registration']:.2f} s and the fit {walls['fit']:.2f} s; walls "
+        f"of each demons level (100 iterations, between synchronisations) by shape "
+        f"{level_walls}; launches {got}, expected {want}", card)
+    if got != want:
+        raise AssertionError(f"run-mc path: demons launches {got}, expected {want}")
+    state_text = "; ".join(
+        f"({s:.4f}, {ds:.4f}) {n} views: warp {w:.2f} s, geometry files {g:.2f} s, scanner "
+        f"set-up {su:.2f} s, transport {tr:.2f} s" for n, s, ds, w, g, su, tr in states)
+    say(f"run-mc MCSimulation4D: {MC4D_VIEWS} views x {MC4D_HISTORIES} histories over "
+        f"{len(states)} motion states, wall {walls['mc4d']:.2f} s (the air flat at "
+        f"{MC_AIR_HISTORIES} histories included), peak device memory {peak_4d / 1e9:.2f} GB; "
+        f"per state {state_text}; stack writes "
+        f"{ {k: round(v, 3) for k, v in writes.items()} } s", card)
+    walls["mc4d_states"] = states
+    walls["mc4d_writes"] = writes
+
+    check_registration(card, images, fields["dvf"], model, reference, amp, damp, truth_z)
+    check_4d_artifacts(card, out4d, artifacts, params)
+    check_motion_in_projections(card, out4d, reference, cfg)
+    walls["mc3d"] = check_3d_run(card, folder / "sim3d", reference, cfg)
+    return launches, captured, walls
+
+
+def check_registration(card, images, dvf, model, reference, amp, damp, truth_z):
+    """Each non-reference phase registered to the reference, and the model.
+
+    Printed per phase, the criteria the 4D slice was specified with: the
+    mean |warped reference - phase| over the insert's 40 x 40 x full-z box
+    below half the unregistered difference (tests/test_respiratory_4d.py's
+    criterion), and the model's prediction at the phase's signal, applied
+    to the reference with ``MCGeometry.warp``, putting the insert's z
+    centroid within 1 voxel of the phase's. The demons schedule that both
+    packages run (the port's equals the JAX package's: the kernels bit-equal
+    to their plain versions, those held to JAX on the CPU) meets neither for
+    the phases of the largest motion on this scene:
+    ``scripts/check_run_mc_registration.py`` shows why (the motion pulls air
+    in through the volume's bottom face, which an edge-clamped pull cannot
+    produce, and a 6-16 voxel shift of a 15-voxel sphere is at the edge of
+    the force's capture range). What the smoke requires: no fold (det J > 0);
+    the registration closer to the phase than no registration over the box
+    above the pulled-in slices; the model's insert closer to the phase's
+    than the reference's is, where the phase's insert moves, else within 1
+    voxel."""
+    from cbctmc_tpu_torch.registration import demons
+
+    ref = torch.from_numpy(images[REFERENCE_PHASE]).to(DEVICE)
+    gap_ref = insert_box(-motion_field(amp[REFERENCE_PHASE])[2]).max()
+    rows, failed, missed = [], [], []
+    for i in range(MC_PHASES):
+        if i == REFERENCE_PHASE:
+            continue
+        field = torch.from_numpy(dvf[i]).to(DEVICE)
+        warped = demons.warp_volume(ref, field).cpu().numpy()
+        gap = int(np.ceil(max(gap_ref, insert_box(-motion_field(amp[i])[2]).max())))
+        ratios = []
+        for z in (slice(None), slice(gap, None)):
+            before = float(np.abs(insert_box(images[REFERENCE_PHASE] - images[i])[:, :, z]).mean())
+            after = float(np.abs(insert_box(warped - images[i])[:, :, z]).mean())
+            ratios.append((after, before))
+        det_min = float(demons.jacobian_determinant(field).min())
+        (a_all, b_all), (a_in, b_in) = ratios
+        rows.append(f"{i}: all z {a_all:.5f} / {b_all:.5f}, z >= {gap} {a_in:.5f} / {b_in:.5f}, "
+                    f"det J min {det_min:.3f}")
+        # a phase of the reference's amplitude (phase 8 mirrors phase 2) is its image
+        if not (a_all < 0.5 * b_all or a_all == b_all == 0.0):
+            missed.append(i)
+        if not ((a_in < b_in or a_in == b_in == 0.0) and det_min > 0.0):
+            failed.append(i)
+    t = time.monotonic()
+    predicted = []
+    for i in range(MC_PHASES):
+        z = insert_z(reference.warp(model.predict(np.array([amp[i], damp[i]]))).densities)
+        predicted.append(z)
+    predict_s = (time.monotonic() - t) / MC_PHASES
+    off = np.abs(np.asarray(predicted) - np.asarray(truth_z))
+    moved = np.abs(np.asarray(truth_z) - truth_z[REFERENCE_PHASE])
+    model_failed = [i for i in range(MC_PHASES)
+                    if not (off[i] < moved[i] if moved[i] > 0 else off[i] <= 1.0)]
+    say(f"run-mc registration quality (mean |warped reference - phase| / |reference - phase| "
+        f"over the insert's box, all z and above the slices the motion pulls in from below "
+        f"the volume): {'; '.join(rows)}; the model's predicted insert z "
+        f"{np.round(predicted, 3).tolist()} against the phases' {np.round(truth_z, 3).tolist()} "
+        f"(off {np.round(off, 3).tolist()} voxels; predict + warp {predict_s:.2f} s a phase); "
+        f"the slice's stated criteria, not required: below half over the whole box missed by "
+        f"phases {missed}, the model's insert within 1 voxel missed by phases "
+        f"{[i for i in range(MC_PHASES) if off[i] > 1.0]}", card)
+    if failed or model_failed:
+        raise AssertionError(f"run-mc registration: phases {failed} not registered (or folded), "
+                             f"the model's insert off at phases {model_failed}")
+
+
+def check_4d_artifacts(card, out4d, artifacts, params):
+    import yaml
+
+    from cbctmc_tpu_torch.pipeline import simulation
+    from cbctmc_tpu_torch.pipeline.respiratory import RespiratorySignal
+
+    with open(out4d / "projection_geometries.yaml") as f:
+        entries = yaml.safe_load(f)
+    quantized = np.loadtxt(out4d / "signal_quantized.txt")
+    unique = RespiratorySignal.get_unique_signals(quantized[:, 0], quantized[:, 1])
+    files = sorted(out4d.glob("geometry_*.pkl.gz"))
+    named = {e["geometry_filename"] for e in entries.values()}
+    stacks = {}
+    for name in ("total", "unscattered", "scattered", "normalized"):
+        stacks[name] = simulation._read_projection_stack(artifacts[name])
+    n_pz, n_px = params.n_detector_pixels[1], HALF_FAN_COLUMNS
+    total = stacks["total"]
+    centre = total[:, n_pz // 4:3 * n_pz // 4, : n_px // 2]
+    say(f"run-mc 4D artifacts: {len(entries)} entries in projection_geometries.yaml, "
+        f"{len(files)} geometry files for {len(unique)} unique states, stacks "
+        f"{ {k: v.shape for k, v in stacks.items()} }, total inside the aperture "
+        f"{float(centre.mean()):.6e} eV/cm^2/history, air flat "
+        f"{(out4d / 'air' / 'projections_total.mha').is_file()}", card)
+    ok = (len(entries) == MC4D_VIEWS and len(files) == len(unique)
+          and {f.name for f in files} == named
+          and (out4d / "air" / "projections_total.mha").is_file()
+          and all(v.shape == (MC4D_VIEWS, n_pz, n_px) and np.isfinite(v).all()
+                  for v in stacks.values())
+          and (centre.sum(axis=(1, 2)) > 0).all())
+    if not ok:
+        raise AssertionError("run-mc 4D artifacts incomplete or not finite")
+
+
+def check_motion_in_projections(card, out4d, reference, cfg):
+    """The MOTION_VIEWS views whose state moves the insert most (at least
+    MOTION_MIN_MM): each view's MC primary channel (binned MOTION_BIN x
+    MOTION_BIN) must be closer, in variance-weighted squared difference, to
+    the deterministic primary of its own warped geometry than to that of
+    the reference geometry (one ``primary_trace`` launch a view each)."""
+    import yaml
+
+    from cbctmc_tpu_torch.engine import primary
+    from cbctmc_tpu_torch.engine.ct import build_scan
+    from cbctmc_tpu_torch.engine.simulate import MCScanner, crop_half_fan
+    from cbctmc_tpu_torch.geometry.mc_geometry import MCGeometry
+    from cbctmc_tpu_torch.pipeline import simulation
+
+    with open(out4d / "projection_geometries.yaml") as f:
+        entries = yaml.safe_load(f)
+    angles = sorted(entries)
+    z_ref = insert_z(reference.densities)
+    shift = {name: insert_z(MCGeometry.load(out4d / name).densities) - z_ref
+             for name in {e["geometry_filename"] for e in entries.values()}}
+    order = sorted(range(len(angles)),
+                   key=lambda i: -abs(shift[entries[angles[i]]["geometry_filename"]]))
+    chosen = sorted(order[:MOTION_VIEWS])
+    moved = [abs(shift[entries[angles[i]]["geometry_filename"]]) for i in chosen]
+    if min(moved) < MOTION_MIN_MM:
+        raise AssertionError(f"run-mc motion check: the {MOTION_VIEWS} most displaced views "
+                             f"move the insert {moved} mm, under {MOTION_MIN_MM}")
+    t = time.monotonic()
+    scanner = MCScanner(reference.materials, reference.densities, reference.image_spacing,
+                        parameters=dataclasses.replace(
+                            simulation.SimulationParameters(), n_projections=MC4D_VIEWS,
+                            angle_between_projections=360.0 / MC4D_VIEWS),
+                        engine_config=cfg, device=DEVICE)
+    geo, ts, spectrum = scanner.scan_geometry, scanner.table_set, scanner.spectrum
+    quadrature = primary.SpectrumQuadrature.build(ts, spectrum, 2)
+    fractions = primary.photon_fractions(geo)
+    view_angles = [angles[i] for i in chosen]
+    source, detector = build_scan(geo, view_angles, device=DEVICE)
+    pvs = {"reference": primary.uniform_clearance_volume(scanner.volume, device=DEVICE)}
+    del scanner
+
+    def volume_of(name):
+        if name not in pvs:
+            from cbctmc_tpu_torch.engine.simulate import geometry_to_engine_frame
+            from cbctmc_tpu_torch.engine.transport import make_voxel_volume
+
+            g = MCGeometry.load(out4d / name)
+            mats, dens, spacing_cm = geometry_to_engine_frame(g.materials, g.densities,
+                                                              g.image_spacing)
+            vol = make_voxel_volume(mats.astype(np.int32) - 1, dens, spacing_cm, device=DEVICE)
+            pvs[name] = primary.uniform_clearance_volume(vol, device=DEVICE)
+        return pvs[name]
+
+    mc = simulation._read_projection_stack(out4d / "projections_unscattered.mha")
+    k = MOTION_BIN
+
+    def binned(x, how):
+        v, u = x.shape[0] // k * k, x.shape[1] // k * k
+        r = x[:v, :u].reshape(v // k, k, u // k, k)
+        return r.mean(axis=(1, 3)) if how == "mean" else r.sum(axis=(1, 3))
+
+    rows, failed = [], []
+    for j, (i, angle) in enumerate(zip(chosen, view_angles)):
+        name = entries[angle]["geometry_filename"]
+        chi = {}
+        for label, pv in (("own", volume_of(name)), ("reference", pvs["reference"])):
+            mean, var = primary.deterministic_primary(pv, ts, spectrum, geo, source, detector,
+                                                      projection_index=j, fractions=fractions,
+                                                      quadrature=quadrature, device=DEVICE)
+            mean = crop_half_fan(mean, HALF_FAN_COLUMNS)
+            var = crop_half_fan(var, HALF_FAN_COLUMNS)
+            sig2 = binned(var.astype(np.float64), "sum") / MC4D_HISTORIES / (k * k) ** 2
+            lit = sig2 > 1e-6 * np.median(sig2[sig2 > 0])
+            diff = binned(mc[i].astype(np.float64), "mean") - binned(mean, "mean")
+            chi[label] = float((diff[lit] ** 2 / sig2[lit]).sum() / lit.sum())
+        rows.append(f"view {i} ({angle:.1f} deg, insert {shift[name]:+.2f} mm): own "
+                    f"{chi['own']:.3f}, reference {chi['reference']:.3f}")
+        if not chi["own"] < chi["reference"]:
+            failed.append(i)
+    say(f"run-mc motion in the projections: the {MOTION_VIEWS} most displaced views' MC "
+        f"primary ({k} x {k} bins) against the deterministic primary of their own and of the "
+        f"reference geometry, mean (MC - primary)^2 / variance a bin: {'; '.join(rows)} "
+        f"({time.monotonic() - t:.2f} s)", card)
+    if failed:
+        raise AssertionError(f"run-mc motion check: views {failed} are not closer to their own "
+                             "geometry's primary")
+
+
+def check_3d_run(card, out3d, reference, cfg) -> float:
+    """``MCSimulation.run_simulation`` of phase 2 at MC3D_VIEWS views, seeded:
+    the reference's artifact layout, and the seed's stream (a second run of
+    the first view with the same seed equals it within the tally's atomics,
+    another seed does not)."""
+    from cbctmc_tpu_torch.engine.simulate import MCScanner, crop_half_fan
+    from cbctmc_tpu_torch.pipeline import simulation
+
+    params = simulation.SimulationParameters(n_histories=MC4D_HISTORIES, n_projections=MC3D_VIEWS,
+                                             angle_between_projections=360.0 / MC3D_VIEWS)
+    sim = simulation.MCSimulation(geometry=reference, parameters=params, engine_config=cfg,
+                                  n_pixels_half_fan_x=HALF_FAN_COLUMNS,
+                                  air_n_histories=MC3D_AIR_HISTORIES, device=DEVICE)
+    t = time.monotonic()
+    artifacts = sim.run_simulation(out3d, seed=7, force_rerun=True)
+    wall = time.monotonic() - t
+    layout = ["projections_total.mha", "projections_unscattered.mha",
+              "projections_scattered.mha", "projections_total_normalized.mha",
+              "air/projections_total.mha", "geometry_materials.nii.gz",
+              "geometry_densities.nii.gz", "geometry.pkl.gz"]
+    missing = [n for n in layout if not (out3d / n).is_file()]
+    total = simulation._read_projection_stack(artifacts["total"])
+    scanner = MCScanner(reference.materials, reference.densities, reference.image_spacing,
+                        parameters=params, engine_config=cfg, device=DEVICE)
+    first = scanner.projection_angles()[:1]
+    same = crop_half_fan(scanner.simulate(angles_deg=first, seed=7, progress=False)[0]
+                         .sum(axis=1), HALF_FAN_COLUMNS)[0]
+    other = crop_half_fan(scanner.simulate(angles_deg=first, seed=8, progress=False)[0]
+                          .sum(axis=1), HALF_FAN_COLUMNS)[0]
+    del scanner
+    same_off = float(np.abs(same - total[0]).max() / total[0].max())
+    other_off = float(np.abs(other - total[0]).max() / total[0].max())
+    say(f"run-mc MCSimulation (3D): {MC3D_VIEWS} views x {MC4D_HISTORIES} histories, seed 7, "
+        f"wall {wall:.2f} s (its air flat at {MC3D_AIR_HISTORIES}); missing artifacts "
+        f"{missing}; stack {total.shape}; view 0 again with seed 7 off by {same_off:.3e} of "
+        f"its max, with seed 8 by {other_off:.3e}", card)
+    shape = (MC3D_VIEWS, params.n_detector_pixels[1], HALF_FAN_COLUMNS)
+    if (missing or total.shape != shape or not np.isfinite(total).all()
+            or not same_off < 1e-4 < other_off):
+        raise AssertionError("run-mc 3D run: layout incomplete, or the run is not seeded")
+    return wall
+
+
+def _demons_row(kernel, plain, name, launches, n_bytes, n_ops, reps=10):
+    """One kernels-line row: the profiler's time of one launch (CUDA events
+    where it records none), the plain version's by CUDA events, the bound."""
+    ms, timer = kernel_ms([kernel] * (reps + 1), name, 1)
+    plain_ms = _events_ms(plain, 3)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return dict(ms=ms, timer=timer, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_demons_kernels(kernels, card, captured):
+    """The three demons kernels against their plain versions on the card, on
+    the path's own inputs at the full level and at the coarsest (88, 65, 36):
+    no value may differ; then one whole level of DEMONS_CHECK_ITERATIONS
+    iterations through the kernels against its plain run (bit-equal); then
+    device times at the full level with bounds and yardsticks (the force:
+    3-D ``grid_sample`` of the same samples; a blur pass: ``conv3d`` with
+    the 1-D kernel; the fold check: none) and one iteration's device time by
+    kernel."""
+    import torch.nn.functional as F
+
+    from cbctmc_tpu_torch.registration import demons
+
+    p = demons.DemonsParameters()
+    kf, kd = demons._gaussian_kernel1d(p.sigma_fluid), demons._gaussian_kernel1d(p.sigma_diffusion)
+    full = max(captured, key=lambda s: s[0])
+    coarse = min(captured, key=lambda s: s[0])
+    diffs, errs = {}, dict.fromkeys(("demons_force", "demons_blur", "demons_jacobian"), 0.0)
+
+    def compare(shape, name, got, want):
+        diffs[(shape, name)] = diffs.get((shape, name), 0) + int((got != want).sum())
+        kernel = "demons_force" if name == "warp_volume" else name
+        errs[kernel] = max(errs[kernel], float((got - want).abs().max()))
+
+    for shape in (coarse, full):
+        fixed, moving, dvf_in, mask, dvf = captured[shape]
+        grads = demons.level_gradients(fixed)
+        update = demons.demons_force(moving, fixed, mask, dvf, grads, p.tau)
+        compare(shape, "demons_force", update,
+                demons.demons_force_reference(moving, fixed, mask, dvf, grads, p.tau))
+        compare(shape, "warp_volume", demons.warp_volume(moving, dvf),
+                demons.warp_volume_reference(moving, dvf))
+        for taps, src, add in ((kf, update, None), (kd, dvf_in, update), (kf, fixed, None)):
+            for axis in range(src.ndim - 3, src.ndim):
+                compare(shape, "demons_blur", demons.blur_axis(src, taps, axis, add),
+                        demons.blur_axis_reference(src, taps, axis, add))
+        compare(shape, "demons_jacobian", demons.jacobian_select(dvf, dvf_in, p.jacobian_min),
+                demons.jacobian_select_reference(dvf, dvf_in, p.jacobian_min))
+        diffs[(shape, "folded voxels")] = int(
+            (demons.jacobian_determinant(dvf) < p.jacobian_min).sum())
+    fixed, moving, dvf_in, mask, dvf = captured[full]
+    args = (fixed, moving, dvf_in, DEMONS_CHECK_ITERATIONS, p.tau, kf, kd, mask, p.jacobian_min,
+            True)
+    level = demons._demons_level(*args)
+    level_plain = demons._demons_level(*args, plain=True)
+    torch.cuda.synchronize()
+    n_level = int((level != level_plain).sum())
+    say(f"demons kernels against their plain versions on the path's inputs (values that "
+        f"differ; the fold check's inputs: the level's field and the one it started from): "
+        f"{ {f'{k[1]} {k[0]}': v for k, v in diffs.items()} }; a whole level of "
+        f"{DEMONS_CHECK_ITERATIONS} iterations at {full}: {n_level} values differ (max |diff| "
+        f"{float((level - level_plain).abs().max()):.3e})", card)
+    if n_level or any(v for k, v in diffs.items() if k[1] != "folded voxels"):
+        raise AssertionError("a demons kernel differs from its plain version")
+
+    # device times at the full level
+    n = fixed.numel()
+    grads = demons.level_gradients(fixed)
+    update = demons.demons_force(moving, fixed, mask, dvf, grads, p.tau)
+    force = _demons_row(lambda: demons.demons_force(moving, fixed, mask, dvf, grads, p.tau),
+                        lambda: demons.demons_force_reference(moving, fixed, mask, dvf, grads,
+                                                              p.tau),
+                        "demons_force_kernel", 1, 52 * n, DEMONS_FORCE_FLOPS * n)
+    # the yardstick: grid_sample of the same samples (grid made outside the timing)
+    grid = demons._voxel_grid(fixed.shape, fixed.device) + dvf
+    sizes = torch.tensor(fixed.shape, dtype=torch.float32, device=fixed.device)
+    norm = (grid / (sizes - 1)[:, None, None, None] * 2 - 1).flip(0).permute(1, 2, 3, 0)[None]
+    vol5 = moving[None, None]
+    force["library_ms"] = _events_ms(lambda: F.grid_sample(
+        vol5, norm.contiguous(), mode="bilinear", padding_mode="border", align_corners=True), 10)
+    err = float((F.grid_sample(vol5, norm.contiguous(), mode="bilinear", padding_mode="border",
+                               align_corners=True)[0, 0] - demons.warp_volume(moving, dvf))
+                .abs().max())
+    force["max_abs_err"] = errs["demons_force"]
+
+    passes = {}
+    for axis in (1, 2, 3):
+        passes[axis] = _demons_row(
+            lambda axis=axis: demons.blur_axis(update, kf, axis),
+            lambda axis=axis: demons.blur_axis_reference(update, kf, axis),
+            "demons_blur_kernel", 1, 24 * n, 3 * (4 * (len(kf) // 2) + 1) * n)
+    folded_pass = _demons_row(lambda: demons.blur_axis(dvf_in, kd, 1, update),
+                              lambda: demons.blur_axis_reference(dvf_in, kd, 1, update),
+                              "demons_blur_kernel", 1, 36 * n, 3 * (4 * (len(kd) // 2) + 2) * n)
+    # the row: the x pass (the profiler drops some windows late in the
+    # process; each pass names its timer), beside its yardstick, conv3d with
+    # the 1-D kernel along x on the edge-padded field
+    blur = dict(passes[1])
+    padded = F.pad(update[:, None], (0, 0, 0, 0, len(kf) // 2, len(kf) // 2),
+                   mode="replicate")
+    weight = torch.from_numpy(kf).to(update.device).reshape(1, 1, -1, 1, 1)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        blur["library_ms"] = _events_ms(lambda: F.conv3d(padded, weight), 10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    blur["max_abs_err"] = errs["demons_blur"]
+    jac = _demons_row(lambda: demons.jacobian_select(dvf, dvf_in, p.jacobian_min),
+                      lambda: demons.jacobian_select_reference(dvf, dvf_in, p.jacobian_min),
+                      "demons_jacobian_kernel", 1, 36 * n, DEMONS_JACOBIAN_FLOPS * n)
+    jac["max_abs_err"] = errs["demons_jacobian"]
+
+    # one iteration at the full level by kernel
+    def iteration():
+        demons._demons_level(fixed, moving, dvf, 1, p.tau, kf, kd, mask, p.jacobian_min, True)
+
+    per_kernel = {}
+    for name, k in (("demons_force_kernel", 1), ("demons_blur_kernel", 6),
+                    ("demons_jacobian_kernel", 1)):
+        per_kernel[name] = kernel_ms([iteration] * 6, name, k)[0]
+    it_ms = sum(per_kernel.values())
+    it_bound = bound((52 + 24 * 3 + 36 + 24 * 2 + 36) * n, 0)[0]
+    say(f"demons kernels at {tuple(fixed.shape)}: demons_force {force['ms']:.5f} ms "
+        f"({force['timer']}; plain {force['plain_ms']:.5f}; bound {force['bound_ms']:.6f} by "
+        f"{force['bound_by']}; grid_sample of the same samples {force['library_ms']:.5f}, "
+        f"|grid_sample - pull| max {err:.3e}); demons_blur passes x / y / z at radius 3, C = 3: "
+        f"{passes[1]['ms']:.5f} / {passes[2]['ms']:.5f} / {passes[3]['ms']:.5f} ms (by the "
+        f"{' / '.join(r['timer'] for r in passes.values())}; plain "
+        f"{passes[1]['plain_ms']:.5f} / {passes[2]['plain_ms']:.5f} / "
+        f"{passes[3]['plain_ms']:.5f}; bound {blur['bound_ms']:.6f} by {blur['bound_by']}; "
+        f"conv3d along x {blur['library_ms']:.5f}), the folded x pass at radius 4 "
+        f"{folded_pass['ms']:.5f} (bound {folded_pass['bound_ms']:.6f}); demons_jacobian "
+        f"{jac['ms']:.5f} ms (plain {jac['plain_ms']:.5f}; bound {jac['bound_ms']:.6f} by "
+        f"{jac['bound_by']}); one iteration's device time by kernel "
+        f"{ {k: round(v, 5) for k, v in per_kernel.items()} } = {it_ms:.5f} ms (bound "
+        f"{it_bound:.6f} ms)", card)
+    return {"demons_force": force, "demons_blur": blur, "demons_jacobian": jac}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -2356,6 +2947,12 @@ def main() -> int:
     results["joseph_project"], results["joseph_splat"] = check_joseph_kernels(kernels, card,
                                                                               recon)
     results["tv_spatial"], results["tv_temporal"] = check_tv_kernels(kernels, card, recon)
+    t_run_mc = time.monotonic()
+    run_mc_launches, captured, run_mc = run_mc_path(kernels, card)
+    for name in ("demons_force", "demons_blur", "demons_jacobian"):
+        launches[name] = run_mc_launches[name]
+    results.update(check_demons_kernels(kernels, card, captured))
+    run_mc["phase"] = time.monotonic() - t_run_mc
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -2373,6 +2970,9 @@ def main() -> int:
         "joseph_splat": ("joseph_splat.cu", "cbctmc_tpu/recon/joseph.py:130"),
         "tv_spatial": ("tv_spatial.cu", "cbctmc_tpu/recon/rooster.py:71"),
         "tv_temporal": ("tv_temporal.cu", "cbctmc_tpu/recon/rooster.py:102"),
+        "demons_force": ("demons_force.cu", "cbctmc_tpu/registration/demons.py:54"),
+        "demons_blur": ("demons_blur.cu", "cbctmc_tpu/registration/demons.py:36"),
+        "demons_jacobian": ("demons_jacobian.cu", "cbctmc_tpu/registration/demons.py:102"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"cbctmc_tpu_torch/csrc/{meta[name][0]}",
@@ -2383,7 +2983,8 @@ def main() -> int:
     say(f"end to end: {info.histories_per_second:.6e} hist/s (2 views x {MAIN_HISTORIES}), "
         f"long runs median {long_rate:.6e} hist/s, device busy {busy} per outer "
         f"iteration, set-up {setup_s:.2f} s; recon-mc walls "
-        f"{ {k: round(v, 3) for k, v in recon['walls'].items()} } s; whole script "
+        f"{ {k: round(v, 3) for k, v in recon['walls'].items()} } s; run-mc walls "
+        f"{ {k: round(v, 3) for k, v in run_mc.items() if isinstance(v, float)} } s; whole script "
         f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

@@ -44,6 +44,10 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.analysis.metrics",
     "cbctmc_tpu_torch.analysis.peaks",
     "cbctmc_tpu_torch.analysis.binning",
+    "cbctmc_tpu_torch.registration.demons",
+    "cbctmc_tpu_torch.pipeline.respiratory",
+    "cbctmc_tpu_torch.pipeline.correspondence",
+    "cbctmc_tpu_torch.pipeline.simulation",
 ]
 
 _PROBE = """
@@ -222,6 +226,36 @@ def test_recon_mc_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         "reconstruct_4d": lambda **kw: reconstruction.reconstruct_4d(
             stack, phase_signal=np.asarray(phase), output_folder=tmp_path, dimension=(6, 4, 6),
             geometry=cone, parameters=par, **kw),
+    }[entry]
+    call(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["register", "register_phases", "MCSimulation",
+                                   "MCSimulation4D"])
+def test_run_mc_entry_points_default_to_cuda(entry, monkeypatch):
+    """The run-mc slice's entry points run on the card unless the caller
+    passes device="cpu"; without a card they raise."""
+    from cbctmc_tpu_torch.geometry.mc_geometry import MCGeometry
+    from cbctmc_tpu_torch.pipeline.correspondence import CorrespondenceModel
+    from cbctmc_tpu_torch.pipeline.simulation import MCSimulation, MCSimulation4D
+    from cbctmc_tpu_torch.registration import demons
+
+    vol = np.zeros((8, 8, 8), np.float32)
+    vol[2:5, 3:6, 2:6] = 1.0
+    geometry = MCGeometry(np.ones((4, 4, 4), np.uint8), np.ones((4, 4, 4), np.float32))
+    fields = np.zeros((3, 3, 4, 4, 4), np.float32)
+    model = CorrespondenceModel().fit(fields, np.array([[0.0, 0.5, 1.0], [1.0, 0.0, -1.0]]))
+    params = demons.DemonsParameters(iterations=1, n_levels=1)
+    call = {
+        "register": lambda **kw: demons.register(np.roll(vol, 1, 0), vol, params, **kw),
+        "register_phases": lambda **kw: demons.register_phases(
+            np.stack([vol, np.roll(vol, 1, 0)]), reference_index=0, parameters=params, **kw),
+        "MCSimulation": lambda **kw: MCSimulation(geometry=geometry, **kw),
+        "MCSimulation4D": lambda **kw: MCSimulation4D(correspondence_model=model,
+                                                      geometry=geometry, **kw),
     }[entry]
     call(device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

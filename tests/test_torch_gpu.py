@@ -890,3 +890,145 @@ def test_rooster_on_card_matches_cpu(cuda, method, projector):
     want = rooster.rooster_reconstruct(proj, geom, angles, phase, grid=grid, parameters=par,
                                        device="cpu")
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# the demons registration's three kernels
+# ---------------------------------------------------------------------------
+# the coarsest level of the full-width pyramid, the minimum level size, and
+# sizes that are not multiples of a block (256) in any grouping
+DEMONS_SHAPES = [(8, 8, 8), (88, 65, 36), (37, 29, 13), (9, 8, 257)]
+
+
+def _demons_inputs(shape, cuda, seed, masked=True, amplitude=2.0):
+    from cbctmc_tpu_torch.registration import demons
+
+    rng = np.random.default_rng(seed)
+    fixed = rng.random(shape).astype(np.float32)
+    moving = np.roll(fixed, 2, axis=0) + rng.normal(scale=0.05, size=shape).astype(np.float32)
+    mask = (rng.random(shape) if masked else np.ones(shape)).astype(np.float32)
+    dvf = rng.normal(size=(3, *shape)).astype(np.float32)
+    dvf = demons._blur3d(torch.from_numpy(dvf), demons._gaussian_kernel1d(1.25)) * amplitude
+    to = lambda a: torch.as_tensor(a).contiguous().to(cuda)  # noqa: E731
+    return to(fixed), to(moving), to(mask), to(dvf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DEMONS_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_demons_force_kernel_on_card(cuda, shape, masked):
+    """The force and the pull alone, one launch each, every value equal to
+    the plain version's; the field reaches past every face (edge clamps)."""
+    from cbctmc_tpu_torch.registration import demons
+
+    fixed, moving, mask, dvf = _demons_inputs(shape, cuda, 1, masked, amplitude=8.0)
+    grads = demons.level_gradients(fixed)
+    before = kernels.launch_counts["demons_force"]
+    got = demons.demons_force(moving, fixed, mask, dvf, grads, 2.0)
+    warped = demons.warp_volume(moving, dvf)
+    assert kernels.launch_counts["demons_force"] == before + 2
+    want = demons.demons_force_reference(moving, fixed, mask, dvf, grads, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(warped, demons.warp_volume_reference(moving, dvf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DEMONS_SHAPES)
+@pytest.mark.parametrize("sigma", [1.0, 1.25])  # radius 3 and 4
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("folded", [False, True])
+def test_demons_blur_kernel_on_card(cuda, shape, sigma, channels, folded):
+    """Each axis's pass, one launch, every value equal to the plain
+    version's, with and without the folded addend."""
+    from cbctmc_tpu_torch.registration import demons
+
+    rng = np.random.default_rng(channels)
+    full = (channels, *shape) if channels == 3 else shape
+    x = torch.from_numpy(rng.normal(size=full).astype(np.float32)).to(cuda)
+    add = torch.from_numpy(rng.normal(size=full).astype(np.float32)).to(cuda) if folded else None
+    taps = demons._gaussian_kernel1d(sigma)
+    for axis in range(x.ndim - 3, x.ndim):
+        before = kernels.launch_counts["demons_blur"]
+        got = demons.blur_axis(x, taps, axis, add)
+        assert kernels.launch_counts["demons_blur"] == before + 1
+        want = demons.blur_axis_reference(x, taps, axis, add)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), axis
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DEMONS_SHAPES + [(2, 2, 2), (2, 3, 5)])
+def test_demons_jacobian_kernel_on_card(cuda, shape):
+    """The fold check, one launch, equal to the plain version on a field
+    large enough to fold in places (both branches taken), the one-sided
+    differences of every face included."""
+    from cbctmc_tpu_torch.registration import demons
+
+    _, _, _, new = _demons_inputs(shape, cuda, 2, amplitude=6.0)
+    old = torch.from_numpy(np.random.default_rng(3).normal(size=new.shape).astype(
+        np.float32)).to(cuda)
+    before = kernels.launch_counts["demons_jacobian"]
+    got = demons.jacobian_select(new, old, 0.05)
+    assert kernels.launch_counts["demons_jacobian"] == before + 1
+    want = demons.jacobian_select_reference(new, old, 0.05)
+    torch.cuda.synchronize()
+    folded = demons.jacobian_determinant(new) < 0.05
+    assert torch.equal(got, want)
+    if min(shape) > 2:
+        assert 0 < int(folded.sum()) < folded.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_jacobian", [False, True])
+def test_demons_level_on_card_matches_plain(cuda, use_jacobian):
+    """Five iterations of a level through the kernels (8 launches each)
+    equal the plain versions on the card to the bit."""
+    from cbctmc_tpu_torch.registration import demons
+
+    fixed, moving, mask, dvf = _demons_inputs((88, 65, 36), cuda, 4, amplitude=1.0)
+    kf, kd = demons._gaussian_kernel1d(1.0), demons._gaussian_kernel1d(1.25)
+    kernels.reset_launch_counts()
+    got = demons._demons_level(fixed, moving, dvf, 5, 2.0, kf, kd, mask, 0.05, use_jacobian)
+    assert kernels.launch_counts["demons_force"] == 5
+    assert kernels.launch_counts["demons_blur"] == 30
+    assert kernels.launch_counts["demons_jacobian"] == (5 if use_jacobian else 0)
+    want = demons._demons_level(fixed, moving, dvf, 5, 2.0, kf, kd, mask, 0.05, use_jacobian,
+                                plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_demons_wrappers_refuse_a_device_mix(cuda):
+    from cbctmc_tpu_torch.registration import demons
+
+    fixed, moving, mask, dvf = _demons_inputs((8, 8, 8), cuda, 5)
+    grads = demons.level_gradients(fixed)
+    with pytest.raises(ValueError, match="on cpu"):
+        demons.demons_force(moving, fixed, mask.cpu(), dvf, grads, 2.0)
+    with pytest.raises(ValueError, match="on cpu"):
+        demons.warp_volume(moving, dvf.cpu())
+    with pytest.raises(ValueError, match="on cpu"):
+        demons.blur_axis(dvf, demons._gaussian_kernel1d(1.0), 1, dvf.cpu())
+    with pytest.raises(ValueError, match="on cpu"):
+        demons.jacobian_select(dvf, dvf.cpu(), 0.05)
+    with pytest.raises(ValueError, match="on cuda"):
+        demons.jacobian_select(dvf.cpu(), dvf, 0.05)
+
+
+@pytest.mark.gpu
+def test_register_on_card_matches_cpu(cuda):
+    """A whole registration on the card (kernels, cuBLAS resizes) against
+    the plain versions on the CPU: the resizes' products sum in other
+    orders, which the iterations carry: 1e-4 of the field's largest value."""
+    from cbctmc_tpu_torch.registration import demons
+
+    shape = (32, 32, 32)
+    coords = np.indices(shape).astype(np.float32)
+    blob = lambda c: np.exp(-(((coords - np.array(c, np.float32)[:, None, None, None]) ** 2)  # noqa: E731
+                              .sum(0) / 30.0)).astype(np.float32)
+    params = demons.DemonsParameters(iterations=30, n_levels=2)
+    got = demons.register(blob((19, 16, 16)), blob((16, 16, 16)), params, device=cuda)
+    want = demons.register(blob((19, 16, 16)), blob((16, 16, 16)), params, device="cpu")
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
