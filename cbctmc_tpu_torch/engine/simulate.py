@@ -107,6 +107,27 @@ def geometry_to_engine_frame(
     return np.ascontiguousarray(mats), np.ascontiguousarray(dens), spacing_cm
 
 
+# the device tables of the last few (table set, spectrum, device) that
+# scanners were built with; an entry holds its table set and spectrum, so
+# their ids stay theirs while it lives
+_SHARED_TABLES: dict = {}
+_SHARED_TABLES_KEPT = 4
+
+
+def shared_device_tables(table_set: MaterialTableSet, spectrum: Spectrum,
+                         device: torch.device) -> DeviceTables:
+    """``build_device_tables`` once per table set, spectrum and device: the
+    scanners of one set and spectrum (one per motion state of a 4D scan)
+    share the build, ~6 s of host work at the production tables."""
+    key = (id(table_set), id(spectrum), str(device))
+    if key not in _SHARED_TABLES:
+        if len(_SHARED_TABLES) >= _SHARED_TABLES_KEPT:
+            del _SHARED_TABLES[next(iter(_SHARED_TABLES))]
+        _SHARED_TABLES[key] = (table_set, spectrum,
+                               build_device_tables(table_set, spectrum, device=device))
+    return _SHARED_TABLES[key][2]
+
+
 class MCScanner:
     """Reusable simulator for one geometry + parameter set, on one device
     (``cuda`` unless the caller passes ``device="cpu"``)."""
@@ -122,11 +143,7 @@ class MCScanner:
         engine_config: EngineConfig | None = None,
         apply_engine_frame_rotation: bool = True,
         device: str | torch.device | None = None,
-        tables: DeviceTables | None = None,
     ):
-        """``tables``: the device tables of ``table_set`` and ``spectrum``
-        when the caller already built them (the scanners of one 4D scan
-        share them); built here otherwise."""
         self.device = resolve_device(device)
         self.parameters = parameters or SimulationParameters()
         self.table_set = table_set or default_material_set()
@@ -149,8 +166,8 @@ class MCScanner:
         self.volume, self.woodcock = make_scene(
             self.table_set, mats0, dens, spacing_cm, device=self.device
         )
-        self.tables: DeviceTables = tables or build_device_tables(
-            self.table_set, self.spectrum, device=self.device
+        self.tables: DeviceTables = shared_device_tables(
+            self.table_set, self.spectrum, self.device
         )
 
         p = self.parameters

@@ -22,6 +22,8 @@ from typing import Sequence
 
 import numpy as np
 
+from cbctmc_tpu_torch.geometry.mc_geometry import _ArrayUnpickler
+
 logger = logging.getLogger(__name__)
 
 
@@ -164,7 +166,9 @@ class CorrespondenceModel:
     @classmethod
     def load(cls, filepath) -> "CorrespondenceModel":
         with open(filepath, "rb") as f:
-            data = pickle.load(f)
+            data = _ArrayUnpickler(f).load()
+        if not isinstance(data, dict):
+            raise TypeError(f"{filepath}: not a correspondence-model dict payload")
         model = cls()
         for key, value in data.items():
             setattr(model, key, value)

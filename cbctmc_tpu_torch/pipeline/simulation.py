@@ -51,12 +51,9 @@ from cbctmc_tpu_torch.engine.simulate import (
     air_normalize,
     crop_half_fan,
 )
-from cbctmc_tpu_torch.engine.tables import DeviceTables, build_device_tables
 from cbctmc_tpu_torch.engine.transport import EngineConfig
 from cbctmc_tpu_torch.geometry.mc_geometry import MCGeometry
 from cbctmc_tpu_torch.geometry.phantoms import AirGeometry
-from cbctmc_tpu_torch.physics.materials import default_material_set
-from cbctmc_tpu_torch.physics.spectrum import default_spectrum
 from cbctmc_tpu_torch.pipeline.correspondence import CorrespondenceModel
 from cbctmc_tpu_torch.pipeline.respiratory import RespiratorySignal
 from cbctmc_tpu_torch.utils.io import read_image, write_image
@@ -105,20 +102,9 @@ class MCSimulation:
     n_pixels_half_fan_x: int = 1024
     air_n_histories: int = DEFAULT_AIR_HISTORIES
     device: str | torch.device | None = None
-    _tables: DeviceTables | None = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-
-    def device_tables(self) -> DeviceTables:
-        """The engine's tables of the default material set and spectrum, built
-        once and shared by this simulation's scanners (the JAX package
-        rebuilds them in each scanner: the same tables, ~6 s of host work
-        each at the production tables)."""
-        if self._tables is None:
-            self._tables = build_device_tables(default_material_set(), default_spectrum(),
-                                               device=self.device)
-        return self._tables
 
     @staticmethod
     def already_simulated(output_folder) -> bool:
@@ -148,7 +134,7 @@ class MCSimulation:
         scanner = MCScanner(
             air.materials, air.densities, air.image_spacing,
             parameters=params, engine_config=self.engine_config,
-            device=self.device, tables=self.device_tables(),
+            device=self.device,
         )
         images, _ = scanner.simulate(progress=False)
         total = crop_half_fan(images.sum(axis=1), self.n_pixels_half_fan_x)
@@ -210,7 +196,6 @@ class MCSimulation:
             parameters=self.parameters,
             engine_config=self.engine_config,
             device=self.device,
-            tables=self.device_tables(),
         )
         images, info = scanner.simulate(seed=seed)
         logger.info(
@@ -275,7 +260,7 @@ class MCSimulation4D:
     (reference: mc/simulation.py:430-710). Runs on ``device`` (``cuda``
     unless the caller passes ``"cpu"``; without a card construction
     raises); one ``MCScanner`` per motion state, released before the next
-    state's is built, all sharing one build of the device tables."""
+    state's is built."""
 
     correspondence_model: CorrespondenceModel
     geometry: MCGeometry
@@ -447,7 +432,7 @@ class MCSimulation4D:
             scanner = MCScanner(
                 warped.materials, warped.densities, warped.image_spacing,
                 parameters=p, engine_config=self.engine_config,
-                device=self.device, tables=base_sim.device_tables(),
+                device=self.device,
             )
             t3 = time.monotonic()
             images, _ = scanner.simulate(angles_deg=angles, progress=False)

@@ -103,9 +103,12 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     before and read after), ``MCSimulation4D`` of phase 2 (60 views over one
     4 s breathing cycle at 15 fps, 2e7 histories a view, 5 quantisation bins,
     the air flat at 1e9) and ``MCSimulation`` of phase 2 at 8 views, seeded;
-    checked: each phase registered (the insert box's mean difference under half
-    the unregistered one, no fold), the model's warp puts each phase's insert
-    within 1 voxel, the 4D artifacts complete and finite, the 8 most displaced
+    checked: each phase registered (above the slices the motion pulls in
+    through the volume's bottom face, the insert box's mean difference under
+    0.8 of the unregistered one; no fold), the model's warp puts each phase's
+    insert within 2 voxels (the slice's stated 0.5 over the whole box and 1
+    voxel are printed: the reference's algorithm misses them on this scene),
+    the 4D artifacts complete and finite, the 8 most displaced
     views' MC primary closer to their own geometry's deterministic primary than
     to the reference's, the 3D layout and its seed; walls by step; then the
     three kernels against their plain versions on the path's inputs at the
@@ -241,6 +244,12 @@ MC4D_QUANTIZATION = 5
 MC_AIR_HISTORIES = 1_000_000_000  # the reference 5e10, the demo 1e9
 MC3D_VIEWS = 8
 MC3D_AIR_HISTORIES = 100_000_000
+# the registration's limits, between what the schedule reaches on this scene
+# (above the pulled-in slices 0.17-0.69 of the unregistered difference; the
+# model's insert 0.00-1.60 voxels off) and what a failed registration or fit
+# gives (~1; the insert's own motion, 6-16 voxels)
+REGISTERED_ABOVE_MAX = 0.8
+MODEL_INSERT_MAX_VOXELS = 2.0
 MOTION_VIEWS = 8  # the most displaced views held to their own geometry's primary
 MOTION_MIN_MM = 5.0
 MOTION_BIN = 8  # detector binning of the motion check
@@ -2399,11 +2408,9 @@ def run_mc_path(kernels, card):
     15 fps, 2e7 histories a view, 5 quantisation bins, the air flat at
     1e9) and ``MCSimulation.run_simulation`` of phase 2 at 8 views, seeded.
     The launch counters are zeroed just before ``build_default`` and read
-    just after ``MCSimulation4D``. Checks the registration (each phase's
-    insert box closer than half the unregistered difference, no fold), the
-    model (each phase's predicted warp puts the insert within 1 voxel of
-    the phase's), the 4D artifacts, that the motion reaches the projections
-    and the 3D artifacts; reports the walls by step."""
+    just after ``MCSimulation4D``. Checks the registration and the model
+    (:func:`check_registration`), the 4D artifacts, that the motion reaches
+    the projections and the 3D artifacts; reports the walls by step."""
     from cbctmc_tpu_torch.engine.simulate import SimulationParameters
     from cbctmc_tpu_torch.engine.transport import production_engine_config
     from cbctmc_tpu_torch.geometry.phantoms import CIRSPhantomGeometry
@@ -2529,23 +2536,21 @@ def run_mc_path(kernels, card):
 def check_registration(card, images, dvf, model, reference, amp, damp, truth_z):
     """Each non-reference phase registered to the reference, and the model.
 
-    Printed per phase, the criteria the 4D slice was specified with: the
-    mean |warped reference - phase| over the insert's 40 x 40 x full-z box
-    below half the unregistered difference (tests/test_respiratory_4d.py's
-    criterion), and the model's prediction at the phase's signal, applied
-    to the reference with ``MCGeometry.warp``, putting the insert's z
-    centroid within 1 voxel of the phase's. The demons schedule that both
-    packages run (the port's equals the JAX package's: the kernels bit-equal
-    to their plain versions, those held to JAX on the CPU) meets neither for
-    the phases of the largest motion on this scene:
-    ``scripts/check_run_mc_registration.py`` shows why (the motion pulls air
-    in through the volume's bottom face, which an edge-clamped pull cannot
-    produce, and a 6-16 voxel shift of a 15-voxel sphere is at the edge of
-    the force's capture range). What the smoke requires: no fold (det J > 0);
-    the registration closer to the phase than no registration over the box
-    above the pulled-in slices; the model's insert closer to the phase's
-    than the reference's is, where the phase's insert moves, else within 1
-    voxel."""
+    Required, for every phase: no fold (det J > 0); the mean |warped
+    reference - phase| over the insert's 40 x 40 box, above the slices the
+    motion pulls in through the volume's bottom face, under
+    REGISTERED_ABOVE_MAX of the unregistered difference there; the model's
+    prediction at the phase's signal, applied to the reference with
+    ``MCGeometry.warp``, putting the insert's z centroid within
+    MODEL_INSERT_MAX_VOXELS of the phase's. Printed, not required: the
+    criteria the 4D slice was specified with, the whole box's difference
+    under half the unregistered one (tests/test_respiratory_4d.py's
+    criterion) and the insert within 1 voxel. The demons schedule misses
+    them at phases 3-7 on this scene in both packages: the JAX package's
+    ``register`` on the CPU reads what the port reads on the card
+    (``scripts/compare_demons_demo_grid.py --grid=1``); the pulled-in slices
+    are air in the phase, which an edge-clamped pull cannot make
+    (``scripts/check_run_mc_registration.py``)."""
     from cbctmc_tpu_torch.registration import demons
 
     ref = torch.from_numpy(images[REFERENCE_PHASE]).to(DEVICE)
@@ -2569,7 +2574,8 @@ def check_registration(card, images, dvf, model, reference, amp, damp, truth_z):
         # a phase of the reference's amplitude (phase 8 mirrors phase 2) is its image
         if not (a_all < 0.5 * b_all or a_all == b_all == 0.0):
             missed.append(i)
-        if not ((a_in < b_in or a_in == b_in == 0.0) and det_min > 0.0):
+        if not ((a_in < REGISTERED_ABOVE_MAX * b_in or a_in == b_in == 0.0)
+                and det_min > 0.0):
             failed.append(i)
     t = time.monotonic()
     predicted = []
@@ -2578,16 +2584,15 @@ def check_registration(card, images, dvf, model, reference, amp, damp, truth_z):
         predicted.append(z)
     predict_s = (time.monotonic() - t) / MC_PHASES
     off = np.abs(np.asarray(predicted) - np.asarray(truth_z))
-    moved = np.abs(np.asarray(truth_z) - truth_z[REFERENCE_PHASE])
-    model_failed = [i for i in range(MC_PHASES)
-                    if not (off[i] < moved[i] if moved[i] > 0 else off[i] <= 1.0)]
+    model_failed = [i for i in range(MC_PHASES) if not off[i] <= MODEL_INSERT_MAX_VOXELS]
     say(f"run-mc registration quality (mean |warped reference - phase| / |reference - phase| "
         f"over the insert's box, all z and above the slices the motion pulls in from below "
-        f"the volume): {'; '.join(rows)}; the model's predicted insert z "
-        f"{np.round(predicted, 3).tolist()} against the phases' {np.round(truth_z, 3).tolist()} "
-        f"(off {np.round(off, 3).tolist()} voxels; predict + warp {predict_s:.2f} s a phase); "
-        f"the slice's stated criteria, not required: below half over the whole box missed by "
-        f"phases {missed}, the model's insert within 1 voxel missed by phases "
+        f"the volume, required under {REGISTERED_ABOVE_MAX}): {'; '.join(rows)}; the model's "
+        f"predicted insert z {np.round(predicted, 3).tolist()} against the phases' "
+        f"{np.round(truth_z, 3).tolist()} (off {np.round(off, 3).tolist()} voxels, required "
+        f"within {MODEL_INSERT_MAX_VOXELS}; predict + warp {predict_s:.2f} s a phase); the "
+        f"slice's stated criteria, printed, not required: below half over the whole box missed "
+        f"by phases {missed}, the model's insert within 1 voxel missed by phases "
         f"{[i for i in range(MC_PHASES) if off[i] > 1.0]}", card)
     if failed or model_failed:
         raise AssertionError(f"run-mc registration: phases {failed} not registered (or folded), "

@@ -2,15 +2,13 @@
 """Probe the demons registration of the smoke's run-mc path on one card: how
 well the default schedule registers each breathing phase of the CIRS thorax
 (350, 260, 142) at 1 mm to the reference phase, by iteration count, and
-where in the insert's box the difference that remains lies; and what one
-motion state's ``MCScanner`` set-up spends on the tables, the scene and the
-workspace.
+where in the insert's box the difference that remains lies.
 
 Usage (on a machine with one CUDA card, from the repository root)::
 
-    python3 scripts/check_run_mc_registration.py [PHASE ...] [--iterations=10,30,100]
+    python3 scripts/check_run_mc_registration.py [PHASE ...]
 
-For each phase (default 0, 3, 4, 5) and iteration count, ``register``
+For each phase (default 0, 3, 4, 5) and 10, 30 and 100 iterations, ``register``
 (the reference to the phase, the default parameters otherwise) and the
 mean |warped reference - phase| over the insert's 40 x 40 box against the
 unregistered difference (the smoke's criterion: below half), over the
@@ -32,17 +30,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as smoke  # noqa: E402
-from cbctmc_tpu_torch.engine.simulate import geometry_to_engine_frame  # noqa: E402
-from cbctmc_tpu_torch.engine.tables import build_device_tables  # noqa: E402
-from cbctmc_tpu_torch.engine.transport import (  # noqa: E402
-    EngineWorkspace,
-    make_scene,
-    production_engine_config,
-)
 from cbctmc_tpu_torch.geometry.phantoms import CIRSPhantomGeometry  # noqa: E402
-from cbctmc_tpu_torch.physics.materials import default_material_set  # noqa: E402
-from cbctmc_tpu_torch.physics.spectrum import default_spectrum  # noqa: E402
 from cbctmc_tpu_torch.registration import demons  # noqa: E402
+
+ITERATIONS = (10, 30, 100)
 
 
 def box_ratio(warped, phase, reference, z_lo, z_hi):
@@ -56,12 +47,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("check_run_mc_registration: no CUDA device", file=sys.stderr)
         return 2
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    phases = [int(a) for a in args] or [0, 3, 4, 5]
-    iterations = [10, 30, 100]
-    for a in sys.argv[1:]:
-        if a.startswith("--iterations="):
-            iterations = [int(x) for x in a.split("=", 1)[1].split(",")]
+    phases = [int(a) for a in sys.argv[1:]] or [0, 3, 4, 5]
     print(smoke.card_line(), flush=True)
     base = CIRSPhantomGeometry.synthetic_thorax(shape=smoke.THORAX_SHAPE).place_insert(
         insert_center=smoke.INSERT_CENTER)
@@ -78,7 +64,7 @@ def main() -> int:
         gap = int(np.ceil(smoke.insert_box(shift).max()))
         sphere = smoke.insert_box(phase) > 0.9
         truth = smoke.insert_z(phase) - z_ref
-        for n in iterations:
+        for n in ITERATIONS:
             t = time.monotonic()
             dvf = demons.register(reference, phase, demons.DemonsParameters(iterations=n))
             wall = time.monotonic() - t
@@ -95,25 +81,6 @@ def main() -> int:
                   f"{low[1]:.5f}, z >= {gap} {rest[0]:.5f} / {rest[1]:.5f} "
                   f"({rest[0] / max(rest[1], 1e-12):.3f}); field's mean z displacement over "
                   f"the phase's insert {dz:+.3f} voxels; det J min {det:.3f}", flush=True)
-
-    # one motion state's MCScanner set-up, by part
-    ts, spectrum = default_material_set(), default_spectrum()
-    t = time.monotonic()
-    tables = build_device_tables(ts, spectrum, device="cuda")
-    torch.cuda.synchronize()
-    t_tables = time.monotonic() - t
-    mats, dens, spacing_cm = geometry_to_engine_frame(base.materials, base.densities,
-                                                      base.image_spacing)
-    t = time.monotonic()
-    volume, woodcock = make_scene(ts, mats.astype(np.int32) - 1, dens, spacing_cm, device="cuda")
-    torch.cuda.synchronize()
-    t_scene = time.monotonic() - t
-    t = time.monotonic()
-    EngineWorkspace(tables, woodcock, volume, 1848, 768, production_engine_config(), "cuda")
-    torch.cuda.synchronize()
-    t_space = time.monotonic() - t
-    print(f"MCScanner set-up by part on {smoke.THORAX_SHAPE}: device tables {t_tables:.2f} s, "
-          f"scene {t_scene:.2f} s, workspace {t_space:.2f} s", flush=True)
     return 0
 
 

@@ -10,8 +10,9 @@ orchestration replaces its scanner with a stub (the artifacts' names, the
 bookkeeping files and the stacks' layout do not depend on the transport,
 and the JAX engine's compile would take minutes), so file names,
 ``projection_geometries.yaml``, ``signal*.txt`` and the geometry files are
-byte-equal and the stacks equal in shape and metadata. The device tables
-are built once for the module (the CPU takes ~7 s a build)."""
+byte-equal and the stacks equal in shape and metadata. The scanners share
+one build of the device tables (``simulate.shared_device_tables``; the CPU
+takes ~7 s a build)."""
 
 import gzip
 import pickle
@@ -28,7 +29,7 @@ from cbctmc_tpu.pipeline import respiratory as jrespiratory
 from cbctmc_tpu.pipeline import simulation as jsimulation
 from cbctmc_tpu.utils.io import read_image as jread_image
 
-from cbctmc_tpu_torch.engine import simulate, tables
+from cbctmc_tpu_torch.engine import simulate
 from cbctmc_tpu_torch.engine.simulate import SimulationParameters
 from cbctmc_tpu_torch.engine.transport import EngineConfig
 from cbctmc_tpu_torch.geometry.mc_geometry import MCGeometry
@@ -40,21 +41,6 @@ from cbctmc_tpu_torch.pipeline.respiratory import RespiratorySignal
 from cbctmc_tpu_torch.utils.io import read_image
 
 torch.set_num_threads(2)
-
-_TABLES = {}
-
-
-@pytest.fixture
-def cached_tables(monkeypatch):
-    def build(table_set, spectrum, device=None):
-        key = str(device)
-        if key not in _TABLES:
-            _TABLES[key] = tables.build_device_tables(table_set, spectrum, device=device)
-        return _TABLES[key]
-
-    monkeypatch.setattr(simulate, "build_device_tables", build)
-    monkeypatch.setattr(simulation, "build_device_tables", build)
-
 
 # ---------------------------------------------------------------------------
 # respiratory signal and correspondence model (numpy): equal to the bit
@@ -114,6 +100,24 @@ def test_correspondence_model_matches_jax_and_loads_a_jax_model(tmp_path):
                                   theirs.predict(np.array([0.4, 0.1])))
     assert ours.save(tmp_path / "ours.pkl").name == \
         theirs.save(tmp_path / "ours.pkl").name
+
+
+def test_correspondence_model_load_refuses_a_pickled_instance(tmp_path):
+    """Loading goes through the geometry's restricted unpickler: a pickled
+    instance of the JAX package's model, or a dict holding a JAX array, is
+    refused before its module is imported; a payload not a dict is too."""
+    import jax.numpy as jnp
+
+    fields, signals = _fields_and_signals()
+    theirs = jcorrespondence.CorrespondenceModel().fit(fields, signals, reference_phase=2)
+    cases = [(theirs, pickle.UnpicklingError), ({"coefficients": jnp.zeros(3)},
+                                                pickle.UnpicklingError),
+             ([theirs.coefficients], TypeError)]
+    for i, (payload, error) in enumerate(cases):
+        path = tmp_path / f"model_{i}.pkl"
+        path.write_bytes(pickle.dumps(payload))
+        with pytest.raises(error):
+            CorrespondenceModel.load(path)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +257,7 @@ def _same_stack_layout(ours, theirs):
     return a
 
 
-def test_mc_simulation_artifacts_match_jax(tmp_path, monkeypatch, cached_tables):
+def test_mc_simulation_artifacts_match_jax(tmp_path, monkeypatch):
     (mats, dens), kw, config = _tiny_setup()
     monkeypatch.setattr(jsimulation, "MCScanner", _StubScanner)
     ours_dir, theirs_dir = tmp_path / "ours", tmp_path / "theirs"
@@ -296,7 +300,7 @@ def _model(shape):
     return fields, signals
 
 
-def test_mc_simulation_4d_artifacts_match_jax(tmp_path, monkeypatch, cached_tables):
+def test_mc_simulation_4d_artifacts_match_jax(tmp_path, monkeypatch):
     (mats, dens), kw, config = _tiny_setup(n_projections=4)
     monkeypatch.setattr(jsimulation, "MCScanner", _StubScanner)
     fields, signals = _model(mats.shape)
@@ -334,7 +338,7 @@ def test_mc_simulation_4d_artifacts_match_jax(tmp_path, monkeypatch, cached_tabl
     assert total.shape == (4, 16, 24) and (total.sum(axis=(1, 2)) > 0).all()
 
 
-def test_motion_states_restart_the_random_streams(tmp_path, monkeypatch, cached_tables):
+def test_motion_states_restart_the_random_streams(tmp_path, monkeypatch):
     """The reference's hazard, reproduced: each motion state's scan runs with
     the parameters' seed and numbers its views from 0, so the first view of
     every state draws from the same Philox key."""
