@@ -60,8 +60,8 @@ iteration's steps:
 - ``demons_force``: the moving image pulled through the field and the
   Thirion force (:func:`~cbctmc_tpu_torch.registration.demons.demons_force`;
   its entry ``warp_volume`` the pull alone);
-- ``demons_blur``: one axis's pass of the separable Gaussian blur
-  (:func:`~cbctmc_tpu_torch.registration.demons.blur_axis`);
+- ``demons_blur``: the separable 3-D Gaussian blur, its three passes in
+  one launch (:func:`~cbctmc_tpu_torch.registration.demons.blur3d`);
 - ``demons_jacobian``: the fold check, the Jacobian determinant of the new
   field and the select of the old value where it folds
   (:func:`~cbctmc_tpu_torch.registration.demons.jacobian_select`).
@@ -285,7 +285,7 @@ _SIGNATURES = {
     "tv_temporal": [_P, _I, ctypes.c_longlong, _F, _I, _P, _P],
     "demons_force": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "demons_force:warp_volume": [_P, _P, _I, _I, _I, _P, _P],
-    "demons_blur": [_P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _I, _P, _P],
+    "demons_blur": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_F), _I, _P, _P],
     "demons_jacobian": [_P, _P, _I, _I, _I, _F, _P, _P],
 }
 

@@ -18,6 +18,7 @@ package's ``engine/simulate.py``:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import time
 from typing import Sequence, Tuple
@@ -108,24 +109,56 @@ def geometry_to_engine_frame(
 
 
 # the device tables of the last few (table set, spectrum, device) that
-# scanners were built with; an entry holds its table set and spectrum, so
-# their ids stay theirs while it lives
+# scanners were built with, keyed on the digest of the set's and the
+# spectrum's contents
 _SHARED_TABLES: dict = {}
 _SHARED_TABLES_KEPT = 4
 
 
+def _feed_digest(h, value) -> None:
+    """Add ``value`` (a dataclass, list, tuple, array or scalar) to the
+    hash ``h``: every array's dtype, shape and bytes, every scalar's
+    ``repr``, each tagged with its field's name or its place."""
+    if isinstance(value, np.ndarray):
+        h.update(f"a{value.dtype.str}{value.shape}".encode())
+        h.update(np.ascontiguousarray(value))
+    elif dataclasses.is_dataclass(value):
+        h.update(f"d{type(value).__name__}".encode())
+        for field in dataclasses.fields(value):
+            h.update(f"{field.name}=".encode())
+            _feed_digest(h, getattr(value, field.name))
+    elif isinstance(value, (list, tuple)):
+        h.update(f"l{len(value)}".encode())
+        for item in value:
+            _feed_digest(h, item)
+    else:
+        h.update(f"s{value!r}".encode())
+    h.update(b";")
+
+
+def tables_key(table_set: MaterialTableSet, spectrum: Spectrum) -> str:
+    """A digest of everything ``build_device_tables`` can read from the
+    table set and the spectrum: equal contents give equal keys, an edit in
+    place a new one."""
+    h = hashlib.blake2b(digest_size=20)
+    _feed_digest(h, table_set)
+    _feed_digest(h, spectrum)
+    return h.hexdigest()
+
+
 def shared_device_tables(table_set: MaterialTableSet, spectrum: Spectrum,
                          device: torch.device) -> DeviceTables:
-    """``build_device_tables`` once per table set, spectrum and device: the
-    scanners of one set and spectrum (one per motion state of a 4D scan)
-    share the build, ~6 s of host work at the production tables."""
-    key = (id(table_set), id(spectrum), str(device))
+    """``build_device_tables`` once per table set, spectrum and device, by
+    their contents (:func:`tables_key`): the scanners of one set and
+    spectrum (one per motion state of a 4D scan) share the build, ~6 s of
+    host work at the production tables, and a set or spectrum edited in
+    place after a build gets tables of its own."""
+    key = (tables_key(table_set, spectrum), str(device))
     if key not in _SHARED_TABLES:
         if len(_SHARED_TABLES) >= _SHARED_TABLES_KEPT:
             del _SHARED_TABLES[next(iter(_SHARED_TABLES))]
-        _SHARED_TABLES[key] = (table_set, spectrum,
-                               build_device_tables(table_set, spectrum, device=device))
-    return _SHARED_TABLES[key][2]
+        _SHARED_TABLES[key] = build_device_tables(table_set, spectrum, device=device)
+    return _SHARED_TABLES[key]
 
 
 class MCScanner:

@@ -5,9 +5,9 @@ Thirion demons forces with Gaussian fluid and diffusion regularisation on a
 coarse-to-fine pyramid; displacement fields pull in voxel units,
 ``warped(x) = moving(x + dvf(x))``. An iteration runs as three hand kernels
 (``csrc/demons_force.cu``, ``csrc/demons_blur.cu``,
-``csrc/demons_jacobian.cu``), eight launches: the force, three passes of the
-fluid blur of the update, three of the diffusion blur of field plus update
-(the sum folded into the first pass), and the fold check. Each wrapper
+``csrc/demons_jacobian.cu``), four launches: the force, the fluid blur of
+the update, the diffusion blur of field plus update (the sum folded into its
+loads), and the fold check; a 3-D blur is one launch. Each wrapper
 checks its tensors; on a CPU tensor it runs its plain version (the
 ``*_reference`` functions beside it, the JAX code op for op), on a CUDA
 tensor it launches its kernel or raises. The kernels equal their plain
@@ -163,8 +163,9 @@ def demons_force(moving, fixed, mask, dvf, grads, tau: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def blur_axis_reference(volume: torch.Tensor, taps, axis: int,
                         addend: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of :func:`blur_axis`: the edge-padded one-channel
-    convolution of ``_blur3d``, the taps summed in order."""
+    """One pass of :func:`blur3d_reference`: the edge-padded one-channel
+    convolution of the JAX package's ``_blur3d`` along ``axis``, the taps
+    summed in order (of ``volume + addend`` when given)."""
     src = volume if addend is None else volume + addend
     n = src.shape[axis]
     r = len(taps) // 2
@@ -176,43 +177,41 @@ def blur_axis_reference(volume: torch.Tensor, taps, axis: int,
     return acc
 
 
-def blur_axis(volume: torch.Tensor, taps, axis: int,
-              addend: torch.Tensor | None = None) -> torch.Tensor:
-    """One pass of the separable Gaussian blur of ``volume`` (``[x, y, z]`` or
-    ``[C, x, y, z]``) along ``axis`` (one of its last three), the edge
-    replicated, ``taps`` an odd float32 kernel; with ``addend`` the blur of
+def blur3d_reference(volume: torch.Tensor, taps,
+                     addend: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of :func:`blur3d`: :func:`blur_axis_reference` along
+    the three trailing axes in the order x, y, z (the JAX package's
+    ``_blur3d`` op for op), the sum folded into the first pass."""
+    out = volume
+    for axis in range(volume.ndim - 3, volume.ndim):
+        out = blur_axis_reference(out, taps, axis, addend)
+        addend = None
+    return out
+
+
+def blur3d(volume: torch.Tensor, taps, addend: torch.Tensor | None = None) -> torch.Tensor:
+    """The separable Gaussian blur of ``volume`` (``[x, y, z]`` or
+    ``[C, x, y, z]``) along its three trailing axes in the order x, y, z,
+    each pass with the edge replicated, ``taps`` an odd float32 kernel of
+    radius 1 to ``MAX_BLUR_RADIUS``; with ``addend`` the blur of
     ``volume + addend``. One ``demons_blur`` launch on a CUDA tensor."""
     _check(volume, "volume", torch.float32)
     if volume.ndim not in (3, 4):
-        raise ValueError("blur_axis takes [x, y, z] or [C, x, y, z]")
+        raise ValueError("blur3d takes [x, y, z] or [C, x, y, z]")
     if addend is not None:
         _check(addend, "addend", torch.float32, volume.shape, volume.device)
     taps = [float(w) for w in np.asarray(taps, np.float32)]
     if len(taps) % 2 != 1 or not 1 <= len(taps) // 2 <= MAX_BLUR_RADIUS:
         raise ValueError(f"taps: an odd kernel of radius 1 to {MAX_BLUR_RADIUS}")
-    spatial = volume.ndim - 3
-    if not spatial <= axis < volume.ndim:
-        raise ValueError(f"axis {axis}: not one of the last three of {tuple(volume.shape)}")
-    if volume.device.type == "cpu":
-        return blur_axis_reference(volume, taps, axis, addend)
-    channels = volume.shape[0] if spatial else 1
     if volume.numel() > 2**31 - 1:
-        raise ValueError("blur_axis: the kernel indexes in int32")
+        raise ValueError("blur3d: the kernel indexes in int32")
+    if volume.device.type == "cpu":
+        return blur3d_reference(volume, taps, addend)
+    channels = volume.shape[0] if volume.ndim == 4 else 1
     out = torch.empty_like(volume)
     _launch("demons_blur", volume.data_ptr(), None if addend is None else addend.data_ptr(),
-            channels, *volume.shape[spatial:], axis - spatial, (ctypes.c_float * len(taps))(*taps),
-            len(taps), out.data_ptr(), _stream(volume))
-    return out
-
-
-def _blur3d(volume: torch.Tensor, kernel, addend: torch.Tensor | None = None,
-            blur=blur_axis) -> torch.Tensor:
-    """Separable Gaussian blur along the three trailing axes (of
-    ``volume + addend`` when given, the sum folded into the first pass)."""
-    out = volume
-    for axis in range(volume.ndim - 3, volume.ndim):
-        out = blur(out, kernel, axis, addend)
-        addend = None
+            channels, *volume.shape[-3:], (ctypes.c_float * len(taps))(*taps), len(taps),
+            out.data_ptr(), _stream(volume))
     return out
 
 
@@ -284,13 +283,13 @@ def _demons_level(fixed, moving, dvf, iterations, tau, k_fluid, k_diff, mask, ja
     ``mask`` (ones when unmasked) and updates that would fold the transform
     (det J < jac_min) are rejected voxel-wise. ``plain`` runs the plain
     versions of the three kernels on whatever device the tensors lie."""
-    force, blur, select = ((demons_force_reference, blur_axis_reference, jacobian_select_reference)
-                           if plain else (demons_force, blur_axis, jacobian_select))
+    force, blur, select = ((demons_force_reference, blur3d_reference, jacobian_select_reference)
+                           if plain else (demons_force, blur3d, jacobian_select))
     tau, jac_min = float(np.float32(tau)), float(np.float32(jac_min))
     grads = level_gradients(fixed)
     for _ in range(iterations):
-        update = _blur3d(force(moving, fixed, mask, dvf, grads, tau), k_fluid, blur=blur)
-        new_dvf = _blur3d(dvf, k_diff, addend=update, blur=blur)
+        update = blur(force(moving, fixed, mask, dvf, grads, tau), k_fluid)
+        new_dvf = blur(dvf, k_diff, update)
         dvf = select(new_dvf, dvf, jac_min) if use_jacobian else new_dvf
     return dvf
 
@@ -406,7 +405,7 @@ def register(
         f_level = _resize3(fixed_n, shape)
         m_level = _resize3(moving_n, shape)
         if mask_full is not None:
-            mask_level = torch.clamp(_blur3d(_resize3(mask_full, shape), k_fluid), 0.0, 1.0)
+            mask_level = torch.clamp(blur3d(_resize3(mask_full, shape), k_fluid), 0.0, 1.0)
         else:
             mask_level = torch.ones(shape, dtype=torch.float32, device=dev)
         dvf = _demons_level(f_level, m_level, dvf, p.iterations, p.tau, k_fluid, k_diff,

@@ -99,7 +99,7 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     JAX demo's analytic motion (20 mm along z), ``CorrespondenceModel.
     build_default`` (demons registration of 9 phases, 3 levels x 100
     iterations through the ``demons_force``, ``demons_blur`` and
-    ``demons_jacobian`` kernels, 8 launches an iteration, the counters zeroed
+    ``demons_jacobian`` kernels, 4 launches an iteration, the counters zeroed
     before and read after), ``MCSimulation4D`` of phase 2 (60 views over one
     4 s breathing cycle at 15 fps, 2e7 histories a view, 5 quantisation bins,
     the air flat at 1e9) and ``MCSimulation`` of phase 2 at 8 views, seeded;
@@ -2501,10 +2501,11 @@ def run_mc_path(kernels, card):
     states = [args for msg, args in log_walls.records if msg.startswith("Simulated")]
     writes = {args[0]: args[1] for msg, args in log_walls.records if msg.startswith("Wrote")}
 
-    # the launches: 9 registrations of 3 levels x 100 iterations, 8 launches each
+    # the launches: 9 registrations of 3 levels x 100 iterations, 4 launches
+    # each (the force, the fluid blur, the diffusion blur, the fold check)
     p = demons.DemonsParameters()
     iterations = (MC_PHASES - 1) * p.n_levels * p.iterations
-    want = {"demons_force": iterations, "demons_blur": 6 * iterations,
+    want = {"demons_force": iterations, "demons_blur": 2 * iterations,
             "demons_jacobian": iterations}
     got = {k: launches[k] for k in want}
     shapes = sorted({s for s, _ in levels}, key=lambda s: s[0])
@@ -2773,15 +2774,46 @@ def _demons_row(kernel, plain, name, launches, n_bytes, n_ops, reps=10):
                 library_ms=None)
 
 
+def blur_flops(taps, channels: int) -> int:
+    """Products and sums a voxel of a 3-D blur: three passes of 2r + 1
+    products and 2r sums a channel."""
+    return channels * 3 * (2 * len(taps) - 1)
+
+
+def conv3d_blur_ms(volume, taps, blurred, reps: int = 10) -> tuple:
+    """The yardstick of a 3-D blur of ``volume`` ``[C, x, y, z]``: three
+    ``conv3d`` calls, the 1-D kernel along x, y and z in turn, on the volume
+    edge-padded by the radius on the three axes (outside the timing), TF32
+    off. Returns (CUDA-event ms a blur, max |result - blurred|)."""
+    import torch.nn.functional as F
+
+    r = len(taps) // 2
+    padded = F.pad(volume[:, None], (r,) * 6, mode="replicate")
+    w = torch.from_numpy(np.asarray(taps, np.float32)).to(volume.device)
+    wx, wy, wz = w.reshape(1, 1, -1, 1, 1), w.reshape(1, 1, 1, -1, 1), w.reshape(1, 1, 1, 1, -1)
+
+    def call():
+        return F.conv3d(F.conv3d(F.conv3d(padded, wx), wy), wz)
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ms = _events_ms(call, reps)
+        err = float((call()[:, 0] - blurred).abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return ms, err
+
+
 def check_demons_kernels(kernels, card, captured):
     """The three demons kernels against their plain versions on the card, on
     the path's own inputs at the full level and at the coarsest (88, 65, 36):
     no value may differ; then one whole level of DEMONS_CHECK_ITERATIONS
     iterations through the kernels against its plain run (bit-equal); then
     device times at the full level with bounds and yardsticks (the force:
-    3-D ``grid_sample`` of the same samples; a blur pass: ``conv3d`` with
-    the 1-D kernel; the fold check: none) and one iteration's device time by
-    kernel."""
+    3-D ``grid_sample`` of the same samples; a 3-D blur: three ``conv3d``
+    calls, :func:`conv3d_blur_ms`; the fold check: none) and one iteration's
+    device time by kernel."""
     import torch.nn.functional as F
 
     from cbctmc_tpu_torch.registration import demons
@@ -2806,9 +2838,8 @@ def check_demons_kernels(kernels, card, captured):
         compare(shape, "warp_volume", demons.warp_volume(moving, dvf),
                 demons.warp_volume_reference(moving, dvf))
         for taps, src, add in ((kf, update, None), (kd, dvf_in, update), (kf, fixed, None)):
-            for axis in range(src.ndim - 3, src.ndim):
-                compare(shape, "demons_blur", demons.blur_axis(src, taps, axis, add),
-                        demons.blur_axis_reference(src, taps, axis, add))
+            compare(shape, "demons_blur", demons.blur3d(src, taps, add),
+                    demons.blur3d_reference(src, taps, add))
         compare(shape, "demons_jacobian", demons.jacobian_select(dvf, dvf_in, p.jacobian_min),
                 demons.jacobian_select_reference(dvf, dvf_in, p.jacobian_min))
         diffs[(shape, "folded voxels")] = int(
@@ -2848,28 +2879,17 @@ def check_demons_kernels(kernels, card, captured):
                 .abs().max())
     force["max_abs_err"] = errs["demons_force"]
 
-    passes = {}
-    for axis in (1, 2, 3):
-        passes[axis] = _demons_row(
-            lambda axis=axis: demons.blur_axis(update, kf, axis),
-            lambda axis=axis: demons.blur_axis_reference(update, kf, axis),
-            "demons_blur_kernel", 1, 24 * n, 3 * (4 * (len(kf) // 2) + 1) * n)
-    folded_pass = _demons_row(lambda: demons.blur_axis(dvf_in, kd, 1, update),
-                              lambda: demons.blur_axis_reference(dvf_in, kd, 1, update),
-                              "demons_blur_kernel", 1, 36 * n, 3 * (4 * (len(kd) // 2) + 2) * n)
-    # the row: the x pass (the profiler drops some windows late in the
-    # process; each pass names its timer), beside its yardstick, conv3d with
-    # the 1-D kernel along x on the edge-padded field
-    blur = dict(passes[1])
-    padded = F.pad(update[:, None], (0, 0, 0, 0, len(kf) // 2, len(kf) // 2),
-                   mode="replicate")
-    weight = torch.from_numpy(kf).to(update.device).reshape(1, 1, -1, 1, 1)
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        blur["library_ms"] = _events_ms(lambda: F.conv3d(padded, weight), 10)
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+    # the 3-D blurs of an iteration: the fluid blur of the update (C = 3,
+    # radius 3) and the diffusion blur of field + update (radius 4, folded)
+    blur = _demons_row(lambda: demons.blur3d(update, kf),
+                       lambda: demons.blur3d_reference(update, kf),
+                       "demons_blur_kernel", 1, 24 * n, blur_flops(kf, 3) * n)
+    folded = _demons_row(lambda: demons.blur3d(dvf_in, kd, update),
+                         lambda: demons.blur3d_reference(dvf_in, kd, update),
+                         "demons_blur_kernel", 1, 36 * n, (blur_flops(kd, 3) + 3) * n)
+    blur["library_ms"], conv_err = conv3d_blur_ms(update, kf, demons.blur3d(update, kf))
+    blur.update(folded_ms=folded["ms"], folded_timer=folded["timer"],
+                folded_plain_ms=folded["plain_ms"], folded_bound_ms=folded["bound_ms"])
     blur["max_abs_err"] = errs["demons_blur"]
     jac = _demons_row(lambda: demons.jacobian_select(dvf, dvf_in, p.jacobian_min),
                       lambda: demons.jacobian_select_reference(dvf, dvf_in, p.jacobian_min),
@@ -2881,21 +2901,20 @@ def check_demons_kernels(kernels, card, captured):
         demons._demons_level(fixed, moving, dvf, 1, p.tau, kf, kd, mask, p.jacobian_min, True)
 
     per_kernel = {}
-    for name, k in (("demons_force_kernel", 1), ("demons_blur_kernel", 6),
+    for name, k in (("demons_force_kernel", 1), ("demons_blur_kernel", 2),
                     ("demons_jacobian_kernel", 1)):
         per_kernel[name] = kernel_ms([iteration] * 6, name, k)[0]
     it_ms = sum(per_kernel.values())
-    it_bound = bound((52 + 24 * 3 + 36 + 24 * 2 + 36) * n, 0)[0]
+    it_bound = bound((52 + 24 + 36 + 36) * n, 0)[0]
     say(f"demons kernels at {tuple(fixed.shape)}: demons_force {force['ms']:.5f} ms "
         f"({force['timer']}; plain {force['plain_ms']:.5f}; bound {force['bound_ms']:.6f} by "
         f"{force['bound_by']}; grid_sample of the same samples {force['library_ms']:.5f}, "
-        f"|grid_sample - pull| max {err:.3e}); demons_blur passes x / y / z at radius 3, C = 3: "
-        f"{passes[1]['ms']:.5f} / {passes[2]['ms']:.5f} / {passes[3]['ms']:.5f} ms (by the "
-        f"{' / '.join(r['timer'] for r in passes.values())}; plain "
-        f"{passes[1]['plain_ms']:.5f} / {passes[2]['plain_ms']:.5f} / "
-        f"{passes[3]['plain_ms']:.5f}; bound {blur['bound_ms']:.6f} by {blur['bound_by']}; "
-        f"conv3d along x {blur['library_ms']:.5f}), the folded x pass at radius 4 "
-        f"{folded_pass['ms']:.5f} (bound {folded_pass['bound_ms']:.6f}); demons_jacobian "
+        f"|grid_sample - pull| max {err:.3e}); demons_blur, the fluid blur at radius 3, C = 3: "
+        f"{blur['ms']:.5f} ms ({blur['timer']}; plain {blur['plain_ms']:.5f}; bound "
+        f"{blur['bound_ms']:.6f} by {blur['bound_by']}; three conv3d {blur['library_ms']:.5f}, "
+        f"|conv3d - blur| max {conv_err:.3e}), the folded diffusion blur at radius 4 "
+        f"{folded['ms']:.5f} ({folded['timer']}; plain {folded['plain_ms']:.5f}; bound "
+        f"{folded['bound_ms']:.6f}); demons_jacobian "
         f"{jac['ms']:.5f} ms (plain {jac['plain_ms']:.5f}; bound {jac['bound_ms']:.6f} by "
         f"{jac['bound_by']}); one iteration's device time by kernel "
         f"{ {k: round(v, 5) for k, v in per_kernel.items()} } = {it_ms:.5f} ms (bound "

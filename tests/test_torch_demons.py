@@ -41,20 +41,26 @@ def _smooth_field(rng, shape, amplitude):
     return (smooth * amplitude).astype(np.float32)
 
 
+# dims below 2r + 1, ragged against the kernel's 16 y x 32 z tile, and longer
+# than one x chunk of the coarsest level
+BLUR_SHAPES = [SHAPE, (37, 29, 13), (8, 8, 8), (2, 5, 142), (88, 65, 36), (9, 300, 33)]
+
+
+@pytest.mark.parametrize("shape", BLUR_SHAPES)
 @pytest.mark.parametrize("sigma", [1.0, 1.25])
 @pytest.mark.parametrize("channels", [1, 3])
-def test_blur_matches_jax(sigma, channels):
+def test_blur_matches_jax(shape, sigma, channels):
     rng = _rng(1)
-    x = rng.random((channels, *SHAPE) if channels == 3 else SHAPE).astype(np.float32)
+    x = rng.random((channels, *shape) if channels == 3 else shape).astype(np.float32)
     k = demons._gaussian_kernel1d(sigma)
     np.testing.assert_array_equal(k, jdemons._gaussian_kernel1d(sigma))
     want = np.asarray(jdemons._blur3d(jnp.asarray(x), jnp.asarray(k)))
-    got = demons._blur3d(_t(x), k).numpy()
+    got = demons.blur3d(_t(x), k).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    # the folded sum of the diffusion blur's first pass is the sum's blur, to the bit
+    # the folded sum of the diffusion blur is the sum's blur, to the bit
     y = rng.random(x.shape).astype(np.float32)
-    np.testing.assert_array_equal(demons._blur3d(_t(x), k, addend=_t(y)).numpy(),
-                                  demons._blur3d(_t(x) + _t(y), k).numpy())
+    np.testing.assert_array_equal(demons.blur3d(_t(x), k, addend=_t(y)).numpy(),
+                                  demons.blur3d(_t(x) + _t(y), k).numpy())
 
 
 def test_trilinear_and_warp_match_jax():
@@ -234,12 +240,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         demons.warp_volume(torch.zeros((6, 1, 4)), torch.zeros((3, 6, 1, 4)))
     with pytest.raises(ValueError):
         demons.jacobian_select(dvf.transpose(1, 2), dvf, 0.05)
+    taps = demons._gaussian_kernel1d(1.0)
     with pytest.raises(ValueError):
-        demons.blur_axis(vol, np.ones(4, np.float32) / 4, 0)
+        demons.blur3d(vol, np.ones(4, np.float32) / 4)  # even taps
     with pytest.raises(ValueError):
-        demons.blur_axis(vol, np.ones(19, np.float32) / 19, 0)
+        demons.blur3d(vol, np.ones(19, np.float32) / 19)  # radius 9
     with pytest.raises(ValueError):
-        demons.blur_axis(dvf, demons._gaussian_kernel1d(1.0), 0)  # the channel axis
+        demons.blur3d(dvf[None], taps)  # 5-D
+    with pytest.raises(ValueError):
+        demons.blur3d(dvf, taps, addend=dvf[:2].contiguous())
+    with pytest.raises(TypeError):
+        demons.blur3d(vol, taps, addend=vol.double())
+    with pytest.raises(ValueError):  # 2^31 values (shape only: no memory behind it)
+        demons.blur3d(torch.empty((2**11, 2**10, 2**10), device="meta"), taps)
     grads = demons.level_gradients(vol)
     with pytest.raises(ValueError):
         demons.demons_force(vol, vol, vol, dvf, grads[:3].contiguous(), 2.0)

@@ -908,7 +908,7 @@ def _demons_inputs(shape, cuda, seed, masked=True, amplitude=2.0):
     moving = np.roll(fixed, 2, axis=0) + rng.normal(scale=0.05, size=shape).astype(np.float32)
     mask = (rng.random(shape) if masked else np.ones(shape)).astype(np.float32)
     dvf = rng.normal(size=(3, *shape)).astype(np.float32)
-    dvf = demons._blur3d(torch.from_numpy(dvf), demons._gaussian_kernel1d(1.25)) * amplitude
+    dvf = demons.blur3d(torch.from_numpy(dvf), demons._gaussian_kernel1d(1.25)) * amplitude
     to = lambda a: torch.as_tensor(a).contiguous().to(cuda)  # noqa: E731
     return to(fixed), to(moving), to(mask), to(dvf)
 
@@ -933,28 +933,34 @@ def test_demons_force_kernel_on_card(cuda, shape, masked):
     assert torch.equal(warped, demons.warp_volume_reference(moving, dvf))
 
 
+# dims below 2r + 1, ragged against the 16 y x 32 z tile, and longer than
+# one x chunk (the wrapper cuts x into chunks to fill the card)
+BLUR_SHAPES = [(37, 29, 13), (8, 8, 8), (2, 5, 142), (88, 65, 36), (9, 300, 33)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", DEMONS_SHAPES)
-@pytest.mark.parametrize("sigma", [1.0, 1.25])  # radius 3 and 4
+@pytest.mark.parametrize("shape", BLUR_SHAPES)
+@pytest.mark.parametrize("radius", [1, 3, 4, 8])
 @pytest.mark.parametrize("channels", [1, 3])
 @pytest.mark.parametrize("folded", [False, True])
-def test_demons_blur_kernel_on_card(cuda, shape, sigma, channels, folded):
-    """Each axis's pass, one launch, every value equal to the plain
-    version's, with and without the folded addend."""
+def test_demons_blur_kernel_on_card(cuda, shape, radius, channels, folded):
+    """The 3-D blur, one launch, every value equal to the plain version's
+    (three passes of ``blur_axis_reference``), with and without the folded
+    addend."""
     from cbctmc_tpu_torch.registration import demons
 
-    rng = np.random.default_rng(channels)
+    rng = np.random.default_rng(channels + radius)
     full = (channels, *shape) if channels == 3 else shape
     x = torch.from_numpy(rng.normal(size=full).astype(np.float32)).to(cuda)
     add = torch.from_numpy(rng.normal(size=full).astype(np.float32)).to(cuda) if folded else None
-    taps = demons._gaussian_kernel1d(sigma)
-    for axis in range(x.ndim - 3, x.ndim):
-        before = kernels.launch_counts["demons_blur"]
-        got = demons.blur_axis(x, taps, axis, add)
-        assert kernels.launch_counts["demons_blur"] == before + 1
-        want = demons.blur_axis_reference(x, taps, axis, add)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), axis
+    taps = demons._gaussian_kernel1d(radius / 3)
+    assert len(taps) == 2 * radius + 1
+    before = kernels.launch_counts["demons_blur"]
+    got = demons.blur3d(x, taps, add)
+    assert kernels.launch_counts["demons_blur"] == before + 1
+    want = demons.blur3d_reference(x, taps, add)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -982,7 +988,7 @@ def test_demons_jacobian_kernel_on_card(cuda, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("use_jacobian", [False, True])
 def test_demons_level_on_card_matches_plain(cuda, use_jacobian):
-    """Five iterations of a level through the kernels (8 launches each)
+    """Five iterations of a level through the kernels (4 launches each)
     equal the plain versions on the card to the bit."""
     from cbctmc_tpu_torch.registration import demons
 
@@ -991,7 +997,7 @@ def test_demons_level_on_card_matches_plain(cuda, use_jacobian):
     kernels.reset_launch_counts()
     got = demons._demons_level(fixed, moving, dvf, 5, 2.0, kf, kd, mask, 0.05, use_jacobian)
     assert kernels.launch_counts["demons_force"] == 5
-    assert kernels.launch_counts["demons_blur"] == 30
+    assert kernels.launch_counts["demons_blur"] == 10
     assert kernels.launch_counts["demons_jacobian"] == (5 if use_jacobian else 0)
     want = demons._demons_level(fixed, moving, dvf, 5, 2.0, kf, kd, mask, 0.05, use_jacobian,
                                 plain=True)
@@ -1010,7 +1016,7 @@ def test_demons_wrappers_refuse_a_device_mix(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         demons.warp_volume(moving, dvf.cpu())
     with pytest.raises(ValueError, match="on cpu"):
-        demons.blur_axis(dvf, demons._gaussian_kernel1d(1.0), 1, dvf.cpu())
+        demons.blur3d(dvf, demons._gaussian_kernel1d(1.0), dvf.cpu())
     with pytest.raises(ValueError, match="on cpu"):
         demons.jacobian_select(dvf, dvf.cpu(), 0.05)
     with pytest.raises(ValueError, match="on cuda"):

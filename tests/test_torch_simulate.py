@@ -78,3 +78,75 @@ def test_host_helpers_match_jax_package():
     np.testing.assert_array_equal(ours[0], theirs[0])
     np.testing.assert_array_equal(ours[1], theirs[1])
     assert ours[2] == theirs[2]
+
+
+def test_shared_tables_follow_in_place_edits(monkeypatch):
+    """``shared_device_tables`` keys on contents: equal table sets and
+    spectra share one build, and an edit in place of either, after a build,
+    gets a build of its own (the build stubbed: it is counted, not run)."""
+    import copy
+
+    from cbctmc_tpu_torch.physics.spectrum import default_spectrum
+
+    builds = []
+    monkeypatch.setattr(simulate, "_SHARED_TABLES", {})
+    monkeypatch.setattr(simulate, "build_device_tables",
+                        lambda ts, sp, device=None: builds.append(object()) or builds[-1])
+    table_set = copy.deepcopy(default_material_set())
+    spectrum = copy.deepcopy(default_spectrum())
+    cpu = torch.device("cpu")
+    first = simulate.shared_device_tables(table_set, spectrum, cpu)
+    assert simulate.shared_device_tables(table_set, spectrum, cpu) is first
+    # equal contents, other objects: the same build
+    assert simulate.shared_device_tables(copy.deepcopy(table_set), copy.deepcopy(spectrum),
+                                         cpu) is first
+    assert len(builds) == 1
+    peak = int(np.argmax(spectrum.probabilities))
+    spectrum.probabilities[peak] *= 2.0
+    edited_spectrum = simulate.shared_device_tables(table_set, spectrum, cpu)
+    assert edited_spectrum is not first and len(builds) == 2
+    mfp, density = float(table_set.materials[1].mfp_total[10]), table_set.materials[1].density
+    table_set.materials[1].mfp_total[10] *= 1.5
+    edited_set = simulate.shared_device_tables(table_set, spectrum, cpu)
+    assert edited_set is not edited_spectrum and len(builds) == 3
+    table_set.materials[1].density = density + 0.25
+    assert simulate.shared_device_tables(table_set, spectrum, cpu) is not edited_set
+    assert len(builds) == 4
+    # the edits undone: the contents of the first build again
+    table_set.materials[1].density = density
+    table_set.materials[1].mfp_total[10] = mfp
+    spectrum.probabilities[peak] /= 2.0
+    assert simulate.tables_key(table_set, spectrum) == simulate.tables_key(
+        default_material_set(), default_spectrum())
+    assert simulate.shared_device_tables(table_set, spectrum, cpu) is first
+    assert len(builds) == 4
+
+
+def test_scanner_after_a_spectrum_edit_gets_fresh_tables(monkeypatch):
+    """A spectrum edited in place after a first scanner was built with it:
+    the next scanner's device tables are those of the edited spectrum (the
+    JAX package rebuilds them for every scanner), and a copy of the edited
+    spectrum shares them."""
+    import copy
+
+    from cbctmc_tpu_torch.engine.tables import build_device_tables
+    from cbctmc_tpu_torch.physics.spectrum import build_walker_alias, default_spectrum
+
+    monkeypatch.setattr(simulate, "_SHARED_TABLES", {})
+    mats, dens = _water_slab_scene(default_material_set())
+    spectrum = copy.deepcopy(default_spectrum())
+
+    def scanner(sp):
+        return MCScanner(mats, dens, (5.0, 5.0, 5.0), spectrum=sp,
+                         engine_config=production_engine_config(n_lanes=4096), device="cpu")
+
+    before = scanner(spectrum).tables
+    spectrum.probabilities[: spectrum.n_bins // 2] = 0.0
+    spectrum.cutoff[:], spectrum.alias[:] = build_walker_alias(spectrum.probabilities)
+    after = scanner(spectrum).tables
+    assert after is not before
+    assert not torch.equal(after.spectrum_cutoff, before.spectrum_cutoff)
+    fresh = build_device_tables(default_material_set(), spectrum, device="cpu")
+    assert torch.equal(after.spectrum_cutoff, fresh.spectrum_cutoff)
+    assert torch.equal(after.spectrum_alias, fresh.spectrum_alias)
+    assert scanner(copy.deepcopy(spectrum)).tables is after
