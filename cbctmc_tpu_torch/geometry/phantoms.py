@@ -1,8 +1,10 @@
 """The CatPhan604 QA phantom as an analytic voxel geometry (the benchmark
-scene of the MC engine), the one-voxel air scene of flat-field scans and the
-CIRS thorax motion phantom of the 4D simulation. The port's copy of the JAX
-package's ``CatPhan604Geometry``, ``AirGeometry``,
-``CIRSPhantomGeometry`` and their helpers."""
+scene of the MC engine and of the CT-number acceptance), the one-voxel air
+scene of flat-field scans, the water cylinder of the noise fit, the
+aluminium line-pair phantoms of the MTF and the CIRS thorax motion phantom
+of the 4D simulation. The port's copy of the JAX package's
+``CatPhan604Geometry``, ``AirGeometry``, ``WaterPhantomGeometry``,
+``LinePairPhantomGeometry``, ``CIRSPhantomGeometry`` and their helpers."""
 
 from __future__ import annotations
 
@@ -70,6 +72,10 @@ CATPHAN604_SENSITOMETRY_ROIS: Dict[str, CylinderROI] = {
     "water": CylinderROI("h2o", 0.0, 0.0, 30.0, 40.0),
 }
 
+WATER_PHANTOM_ROIS: Dict[str, CylinderROI] = {
+    "water": CylinderROI("h2o", 0.0, 0.0, 30.0, 40.0),
+}
+
 
 def _roi_center(roi: CylinderROI, shape, spacing_iso: float = 1.0):
     phi = np.deg2rad(roi.angle)
@@ -93,12 +99,15 @@ class AirGeometry(MCGeometry):
 
 class _CylindricalPhantom(MCGeometry):
     ROI_GROUPS: Tuple[Dict[str, CylinderROI], ...] = ()
+    STAT_ROIS: Dict[str, CylinderROI] = {}
+    DEFAULT_STAT_MARGINS = (1.0, 1.0)  # (radius, height) [mm]
 
     def __init__(
         self,
         shape: Tuple[int, int, int] = (500, 500, 500),
         image_spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
         table_set: MaterialTableSet | None = None,
+        reference_mu: Dict[str, float] | None = None,
     ):
         if len(set(image_spacing)) > 1:
             raise ValueError("Phantom spacing must be isotropic")
@@ -109,6 +118,10 @@ class _CylindricalPhantom(MCGeometry):
         air = table_set.material("air")
         materials = np.full(shape, air.number, np.uint8)
         densities = np.full(shape, air.density, np.float32)
+        mus = None
+        if reference_mu:
+            mus = np.full(shape, reference_mu.get("air", 0.0), np.float32)
+
         for group in self.ROI_GROUPS:
             for roi in group.values():
                 mat = table_set.material(roi.material)
@@ -120,10 +133,50 @@ class _CylindricalPhantom(MCGeometry):
                 )
                 materials[mask] = mat.number
                 densities[mask] = mat.density
+                if mus is not None:
+                    mus[mask] = reference_mu.get(roi.material, 0.0)
 
         super().__init__(
-            materials=materials, densities=densities, image_spacing=image_spacing
+            materials=materials,
+            densities=densities,
+            mus=mus,
+            image_spacing=image_spacing,
         )
+
+    @classmethod
+    def calculate_roi_statistics(
+        cls,
+        image: np.ndarray,
+        radius_margin: float | None = None,
+        height_margin: float | None = None,
+    ) -> Dict[str, Dict[str, float]]:
+        """Per-insert statistics of a reconstructed volume centred on the
+        phantom (the CT-number / noise acceptance metric). The ROIs are
+        placed in voxel units of the image (1 mm a voxel)."""
+        if radius_margin is None:
+            radius_margin = cls.DEFAULT_STAT_MARGINS[0]
+        if height_margin is None:
+            height_margin = cls.DEFAULT_STAT_MARGINS[1]
+        results = {}
+        for name, roi in cls.STAT_ROIS.items():
+            mask = cylinder_mask(
+                image.shape,
+                _roi_center(roi, image.shape),
+                roi.radius - radius_margin,
+                roi.length - 2 * height_margin,
+            )
+            values = image[mask]
+            results[name] = {
+                "min": float(values.min()),
+                "max": float(values.max()),
+                "mean": float(values.mean()),
+                "p25": float(np.percentile(values, 25)),
+                "p50": float(np.percentile(values, 50)),
+                "p75": float(np.percentile(values, 75)),
+                "std": float(values.std()),
+                "evaluated_voxels": int(values.size),
+            }
+        return results
 
 
 class CatPhan604Geometry(_CylindricalPhantom):
@@ -132,6 +185,75 @@ class CatPhan604Geometry(_CylindricalPhantom):
         CATPHAN604_SENSITOMETRY_ROIS,
         CATPHAN604_SYMMETRY_ROIS,
     )
+    STAT_ROIS = CATPHAN604_SENSITOMETRY_ROIS
+
+
+class WaterPhantomGeometry(_CylindricalPhantom):
+    """Water cylinder of the n_histories noise fit (reference:
+    MCWaterPhantomGeometry, geometry.py:1106-1200)."""
+
+    ROI_GROUPS = ({"h2o": CylinderROI("h2o", 0.0, 0.0, 100.0, 150.0)},)
+    STAT_ROIS = WATER_PHANTOM_ROIS
+    DEFAULT_STAT_MARGINS = (1.0, 5.0)
+
+    def __init__(
+        self,
+        shape=(500, 500, 500),
+        image_spacing=(1.0, 1.0, 1.0),
+        radius: float | None = None,
+        length: float | None = None,
+        table_set: MaterialTableSet | None = None,
+    ):
+        if radius is not None or length is not None:
+            body = self.ROI_GROUPS[0]["h2o"]
+            roi = CylinderROI(
+                "h2o", 0.0, 0.0, radius or body.radius, length or body.length
+            )
+            self.ROI_GROUPS = ({"h2o": roi},)
+        super().__init__(shape=shape, image_spacing=image_spacing, table_set=table_set)
+
+
+class LinePairPhantomGeometry(WaterPhantomGeometry):
+    """Water cylinder with aluminium line pairs along x at its centre, for
+    the MTF (reference: MCLinePairPhantomGeometry, geometry.py:1203-1255)."""
+
+    def __init__(
+        self,
+        line_gap: float,
+        line_material: str = "aluminium",
+        radius: float | None = None,
+        length: float | None = None,
+        shape=(500, 500, 500),
+        image_spacing=(1.0, 1.0, 1.0),
+        n_lines: int = 4,
+        line_depth: float = 20.0,
+        table_set: MaterialTableSet | None = None,
+    ):
+        super().__init__(
+            shape=shape, image_spacing=image_spacing, radius=radius, length=length,
+            table_set=table_set,
+        )
+        spacing = image_spacing[0]
+        if line_gap % spacing != 0:
+            raise ValueError("Line gap must be a multiple of the image spacing")
+        gap_vox = int(line_gap / spacing)
+        depth_vox = int(line_depth / spacing)
+        self.line_gap_voxels = gap_vox
+        self.n_lines = n_lines
+
+        mask = np.zeros(((2 * n_lines - 1) * gap_vox, depth_vox, depth_vox), bool)
+        for i in range(0, mask.shape[0], 2 * gap_vox):
+            mask[i : i + gap_vox] = True
+
+        pad = []
+        for full, small in zip(self.image_shape, mask.shape):
+            before = (full - small) // 2
+            pad.append((before, full - small - before))
+        mask = np.pad(mask, pad)
+
+        mat = self.table_set.material(line_material)
+        self.materials[mask] = mat.number
+        self.densities[mask] = mat.density
 
 
 class CIRSPhantomGeometry(MCGeometry):

@@ -114,7 +114,25 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     three kernels against their plain versions on the path's inputs at the
     full and the coarsest level and over a 5-iteration level (no value may
     differ), with device times, bounds and yardsticks;
-14. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+14. the validation workflows at the reference's scenes (:func:`validation_path`),
+    the launch counters zeroed before and read after: the CatPhan scan of
+    ``scripts/torch_validation_records.py`` on the main path's scanner (64
+    views over 360 deg from 270 at 1.2e8 histories, interleaved parts of 10;
+    the air flat at 2e9) and its acceptance post-processing (crop 1024, bin
+    4, ``air_normalize``, two own-simulation WPC fits of 6 orders, FDK onto
+    (256, 256, 60), the primary-only, total and scatter-corrected ROI
+    tables); ``simulate_and_reconstruct_water`` on the (400, 400, 120) water
+    phantom at 16 views, binning 4, 6e7 and 5.4e8 histories;
+    ``run_line_pair_simulations`` of the 1, 2, 3 and 4 mm line pairs at
+    MTF_VIEWS views, 1e8 histories, binning 2; checked: every ROI mean
+    finite, each WPC fit's objective at its coefficients no larger than at
+    the uncorrected volume (its feasible point c = e_1), ``backproject``
+    launched once per FDK chunk, ``refill`` / ``flight_resolve`` (counted on
+    the device) those of the runs' iterations and no other kernel launched,
+    the water std finite and lower at 5.4e8 than at 6e7, four finite MTF
+    values with the coarsest 1.0; the three MAREs, the photon statistics and
+    the walls printed;
+15. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -260,6 +278,23 @@ DEMONS_CHECK_ITERATIONS = 5
 # check's 9 differences, 9 halvings, 9 identity sums, 14 for the determinant
 DEMONS_FORCE_FLOPS = 40
 DEMONS_JACOBIAN_FLOPS = 41
+# the validation workflows (scripts/torch_validation_records.py) at the
+# records' scenes, detector and grids, cut in depth (the records: 894 CatPhan
+# views, 40 noise views at three counts, 45 MTF views)
+VALIDATION_VIEWS = 64  # CatPhan views over 360 deg from 270
+VALIDATION_HISTORIES = 120_000_000  # per view, the record's
+VALIDATION_AIR_HISTORIES = 2_000_000_000  # scripts/run_catphan_simulation.py's air flat
+VALIDATION_SEED = 42
+NOISE_SHAPE = (400, 400, 120)  # the noise record's water phantom
+NOISE_VIEWS = 16
+NOISE_COUNTS = (60_000_000, 540_000_000)  # the record's lowest and highest
+NOISE_BINNING = 4
+MTF_GAPS = (1.0, 2.0, 3.0, 4.0)  # mm, the record's
+# the fewest of 16, 24 and 32 views at which every gap's profile alternates
+# (one more maximum than minima, at least the 4 bars' maxima; PERF.md section 6)
+MTF_VIEWS = 32
+MTF_HISTORIES = 100_000_000
+MTF_BINNING = 2
 
 
 def card_line() -> str:
@@ -2922,6 +2957,156 @@ def check_demons_kernels(kernels, card, captured):
     return {"demons_force": force, "demons_blur": blur, "demons_jacobian": jac}
 
 
+def wpc_objective(powers, masks, targets, coefficients) -> float:
+    """``fit_wpc_coefficients``' objective: each ROI's mean squared error of
+    the corrected volume, summed over the ROIs."""
+    vol = np.tensordot(np.asarray(coefficients, np.float64), powers, axes=1)
+    return float(sum(np.mean((vol[m] - targets[n]) ** 2) for n, m in masks.items()))
+
+
+def validation_path(kernels, card, scanner):
+    """The validation workflows at the reference's scenes on the main path's
+    scanner and the port's modules (scripts/torch_validation_records.py's
+    CatPhan scan and acceptance, ``simulate_and_reconstruct_water``,
+    ``run_line_pair_simulations``), the launch counters zeroed just before
+    and read just after. Returns the walls."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_validation_records as records
+    from cbctmc_tpu_torch.engine.simulate import MCScanner
+    from cbctmc_tpu_torch.physics.reference_values import REFERENCE_MU
+    from cbctmc_tpu_torch.pipeline import mtf_workflow, noise_fit, wpc_fit
+
+    cfg = scanner.engine_config
+    walls = {}
+    # every engine call's iterations, every FDK's chunks, the WPC fits'
+    # power volumes and the line-pair profiles' peaks, kept as the path runs
+    runs, fdk_chunks, powers, peaks = [], [], [], []
+    simulate = MCScanner.simulate
+
+    def kept_simulate(self, *args, **kwargs):
+        images, info = simulate(self, *args, **kwargs)
+        runs.append(info.iterations)
+        return images, info
+
+    patched = [(MCScanner, "simulate", kept_simulate)]
+    for module in (records, wpc_fit, noise_fit, mtf_workflow):
+        def counted_fdk(projections, *args, fdk=module.fdk_reconstruct, **kwargs):
+            n = len(projections)
+            fdk_chunks.append(-(-n // max(1, min(kwargs.get("view_chunk", 64), n))))
+            return fdk(projections, *args, **kwargs)
+        patched.append((module, "fdk_reconstruct", counted_fdk))
+
+    def kept_powers(*args, fn=wpc_fit.reconstruct_projection_powers, **kwargs):
+        powers.append(fn(*args, **kwargs))
+        return powers[-1]
+
+    def kept_profile(*args, fn=mtf_workflow.extract_line_pair_profile, **kwargs):
+        profile, maxs, mins = fn(*args, **kwargs)
+        peaks.append((len(maxs), len(mins)))
+        return profile, maxs, mins
+
+    patched += [(wpc_fit, "reconstruct_projection_powers", kept_powers),
+                (mtf_workflow, "extract_line_pair_profile", kept_profile)]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
+    for owner, name, fn in patched:
+        setattr(owner, name, fn)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_phase = time.monotonic()
+    try:
+        images, air, angles, sim_walls, _ = records.simulate_catphan(
+            scanner, VALIDATION_VIEWS, VALIDATION_HISTORIES, VALIDATION_AIR_HISTORIES,
+            VALIDATION_SEED, crop_x=HALF_FAN_COLUMNS)
+        walls.update(sim_walls)
+        t0 = time.monotonic()
+        results, acc_walls, _ = records.catphan_acceptance(
+            images, air, angles, n_histories=VALIDATION_HISTORIES, crop_x=HALF_FAN_COLUMNS,
+            device=DEVICE)
+        walls.update(acc_walls)
+        walls["acceptance"] = time.monotonic() - t0
+        del images, air
+        noise = {}
+        for i, n in enumerate(NOISE_COUNTS):
+            t0 = time.monotonic()
+            noise[n] = noise_fit.simulate_and_reconstruct_water(
+                n, n_projections=NOISE_VIEWS, phantom_shape=NOISE_SHAPE, seed=1000 + i,
+                engine_config=cfg, detector_binning=NOISE_BINNING, device=DEVICE)
+            walls[f"noise_{n:.1e}"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        mtf = mtf_workflow.run_line_pair_simulations(
+            OUT / "validation_mtf", line_gaps=MTF_GAPS, n_histories=MTF_HISTORIES,
+            n_projections=MTF_VIEWS, engine_config=cfg, detector_binning=MTF_BINNING,
+            device=DEVICE)
+        walls["mtf"] = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    walls["phase"] = time.monotonic() - t_phase
+
+    # the CatPhan acceptance
+    sections = ("primary_only", "total_own_wpc", "scatter_corrected_wpc")
+    for section in sections:
+        means = [v["mean"] for v in results[section].values() if isinstance(v, dict)]
+        if len(means) != 11 or not np.isfinite(means).all():
+            raise AssertionError(f"{section}: ROI means {means}")
+    if len(powers) != 2:
+        raise AssertionError(f"{len(powers)} WPC fits, expected 2")
+    objectives = []
+    for power, key in zip(powers, ("wpc_coefficients", "scatter_corrected_wpc_coefficients")):
+        masks = {n: m for n, m in wpc_fit.catphan_roi_masks(power.shape[1:]).items()
+                 if not n.startswith("air")}
+        targets = {n: REFERENCE_MU["h2o" if n == "water" else n] for n in masks}
+        fitted = wpc_objective(power, masks, targets, results[key])
+        plain = wpc_objective(power, masks, targets, np.eye(len(power))[1])
+        objectives.append((fitted, plain))
+        if not fitted <= plain:
+            raise AssertionError(f"{key}: objective {fitted} above the uncorrected {plain}")
+    pp = results["photons_per_pixel"]
+    say(f"validation CatPhan ({VALIDATION_VIEWS} views x {VALIDATION_HISTORIES:.2e}, air flat "
+        f"{VALIDATION_AIR_HISTORIES:.1e}): MARE primary-only "
+        f"{results['primary_only']['mean_absolute_relative_error']:.6f}, total with own WPC "
+        f"{results['total_own_wpc']['mean_absolute_relative_error']:.6f}, scatter-corrected "
+        f"{results['scatter_corrected_wpc']['mean_absolute_relative_error']:.6f}; photons per "
+        f"pixel min {pp['min']:.3f}, p1 {pp['p1']:.3f}, p5 {pp['p5']:.3f}, median "
+        f"{pp['median']:.3f}; WPC objective fitted / uncorrected "
+        f"{[(float(f'{a:.6g}'), float(f'{b:.6g}')) for a, b in objectives]}", card)
+
+    # the noise samples
+    stds = [noise[n]["water"]["std"] for n in NOISE_COUNTS]
+    if not (np.isfinite(stds).all() and stds[1] < stds[0]):
+        raise AssertionError(f"water std {stds} at {NOISE_COUNTS}")
+    say(f"validation noise ({NOISE_SHAPE} water, {NOISE_VIEWS} views, binning {NOISE_BINNING}): "
+        + "; ".join(f"{n:.1e}: water std {noise[n]['water']['std']:.6e}, photons per pixel "
+                    f"{ {k: round(v, 3) for k, v in noise[n]['photons_per_pixel'].items()} }"
+                    for n in NOISE_COUNTS), card)
+
+    # the MTF
+    values = [mtf["mtf"][k] for k in sorted(mtf["mtf"])]
+    coarsest = mtf["mtf"][f"{1.0 / (2.0 * max(MTF_GAPS)):.4f}"]
+    say(f"validation MTF ({MTF_VIEWS} views x {MTF_HISTORIES:.1e}, binning {MTF_BINNING}): "
+        f"{mtf['mtf']}; peaks (maxima, minima) per gap {dict(zip(MTF_GAPS, peaks))}; photons "
+        f"per pixel {mtf['photons_per_pixel']}", card)
+    if len(values) != len(MTF_GAPS) or not np.isfinite(values).all() or coarsest != 1.0:
+        raise AssertionError(f"MTF {mtf['mtf']}")
+
+    # the kernels of the path
+    expected = expected_phase_launches(sum(runs), cfg)
+    expected["backproject"] = sum(fdk_chunks)
+    for name in kernels.KERNELS:
+        n = expected.get(name, 0)
+        if launches[name] != n or (name in ("refill", "flight_resolve", "backproject")
+                                   and n == 0):
+            raise AssertionError(f"validation path: {name} {launches[name]} launches, "
+                                 f"expected {n}")
+    say(f"validation path: {len(runs)} engine calls, {sum(runs)} iterations, "
+        f"{len(fdk_chunks)} FDKs in {sum(fdk_chunks)} chunks; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; walls "
+        f"{ {k: round(v, 3) for k, v in walls.items()} } s", card)
+    return walls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -2977,6 +3162,7 @@ def main() -> int:
         launches[name] = run_mc_launches[name]
     results.update(check_demons_kernels(kernels, card, captured))
     run_mc["phase"] = time.monotonic() - t_run_mc
+    validation = validation_path(kernels, card, scanner)
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -3008,7 +3194,8 @@ def main() -> int:
         f"long runs median {long_rate:.6e} hist/s, device busy {busy} per outer "
         f"iteration, set-up {setup_s:.2f} s; recon-mc walls "
         f"{ {k: round(v, 3) for k, v in recon['walls'].items()} } s; run-mc walls "
-        f"{ {k: round(v, 3) for k, v in run_mc.items() if isinstance(v, float)} } s; whole script "
+        f"{ {k: round(v, 3) for k, v in run_mc.items() if isinstance(v, float)} } s; validation "
+        f"{validation['phase']:.3f} s; whole script "
         f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

@@ -48,11 +48,19 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.pipeline.respiratory",
     "cbctmc_tpu_torch.pipeline.correspondence",
     "cbctmc_tpu_torch.pipeline.simulation",
+    "cbctmc_tpu_torch.analysis.mtf",
+    "cbctmc_tpu_torch.pipeline.wpc_fit",
+    "cbctmc_tpu_torch.pipeline.evaluation",
+    "cbctmc_tpu_torch.pipeline.noise_fit",
+    "cbctmc_tpu_torch.pipeline.mtf_workflow",
 ]
+# the port's scripts, imported as modules (scripts/ on the path)
+PORT_SCRIPTS = ["torch_validation_records"]
 
 _PROBE = """
 import importlib, json, sys
 sys.modules["jax"] = None  # any 'import jax' now raises ImportError
+sys.path.insert(0, "scripts")
 for name in {modules!r}:
     importlib.import_module(name)
 print(json.dumps(sorted(k for k, v in sys.modules.items() if v is not None)))
@@ -61,11 +69,11 @@ print(json.dumps(sorted(k for k, v in sys.modules.items() if v is not None)))
 
 def test_port_imports_without_jax_or_the_jax_package():
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(modules=SLICE_MODULES)],
+        [sys.executable, "-c", _PROBE.format(modules=SLICE_MODULES + PORT_SCRIPTS)],
         cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
     )
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert set(SLICE_MODULES) <= set(loaded)
+    assert set(SLICE_MODULES + PORT_SCRIPTS) <= set(loaded)
     # exact names: cbctmc_tpu_torch itself starts with "cbctmc_tpu"
     offending = [m for m in loaded if m == "cbctmc_tpu" or m.startswith("cbctmc_tpu.")]
     assert offending == []
@@ -73,7 +81,8 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
-    for path in (REPO / "cbctmc_tpu_torch").rglob("*.py"):
+    scripts = [REPO / "scripts" / f"{name}.py" for name in PORT_SCRIPTS]
+    for path in [*(REPO / "cbctmc_tpu_torch").rglob("*.py"), *scripts]:
         text = path.read_text()
         for needle in ("import jax", "from jax", "import cbctmc_tpu\n", "from cbctmc_tpu."):
             assert needle not in text, f"{path.name}: {needle.strip()}"
@@ -261,3 +270,36 @@ def test_run_mc_entry_points_default_to_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+@pytest.mark.parametrize("entry", ["reconstruct_projection_powers", "run_wpc_fit",
+                                   "simulate_and_reconstruct_water", "run_noise_fit",
+                                   "simulate_line_pair", "run_line_pair_simulations"])
+def test_validation_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
+    """The validation workflows' entry points run on the card unless the
+    caller passes device="cpu" (tests/test_torch_validation.py runs each on
+    the CPU); without a card they raise before any work."""
+    from cbctmc_tpu_torch.pipeline import mtf_workflow, noise_fit, wpc_fit
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry, VolumeGrid
+
+    cone = ConeBeamGeometry(n_pixels_u=4, n_pixels_v=4, pixel_size_u=1.0, pixel_size_v=1.0,
+                            detector_offset_u=0.0)
+    proj = np.zeros((2, 4, 4), np.float32)
+    grid = VolumeGrid(shape=(4, 4, 2))
+    call = {
+        "reconstruct_projection_powers": lambda: wpc_fit.reconstruct_projection_powers(
+            proj, cone, [0.0, 180.0], grid, n_orders=2),
+        "run_wpc_fit": lambda: wpc_fit.run_wpc_fit(proj, cone, [0.0, 180.0], grid),
+        "simulate_and_reconstruct_water": lambda: noise_fit.simulate_and_reconstruct_water(
+            1000, n_projections=2, phantom_shape=(8, 8, 8)),
+        "run_noise_fit": lambda: noise_fit.run_noise_fit(tmp_path, n_runs=1, n_projections=2,
+                                                         phantom_shape=(8, 8, 8)),
+        "simulate_line_pair": lambda: mtf_workflow.simulate_line_pair(
+            2.0, 1000, n_projections=2, phantom_shape=(32, 32, 24)),
+        "run_line_pair_simulations": lambda: mtf_workflow.run_line_pair_simulations(
+            tmp_path, line_gaps=(2.0,), n_histories=1000, n_projections=2),
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    assert not (tmp_path / "noise_fit.json").exists() and not (tmp_path / "mtf.json").exists()
