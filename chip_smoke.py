@@ -100,8 +100,8 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     build_default`` (demons registration of 9 phases, 3 levels x 100
     iterations through the ``demons_force``, ``demons_blur`` and
     ``demons_jacobian`` kernels, 4 launches an iteration, the counters zeroed
-    before and read after), ``MCSimulation4D`` of phase 2 (60 views over one
-    4 s breathing cycle at 15 fps, 2e7 histories a view, 5 quantisation bins,
+    before and read after), ``MCSimulation4D`` of phase 2 (30 views over the
+    first half of a 4 s breathing cycle at 15 fps, 2e7 histories a view, 3 quantisation bins,
     the air flat at 1e9) and ``MCSimulation`` of phase 2 at 8 views, seeded;
     checked: each phase registered (above the slices the motion pulls in
     through the volume's bottom face, the insert box's mean difference under
@@ -132,7 +132,24 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     the water std finite and lower at 5.4e8 than at 6e7, four finite MTF
     values with the coarsest 1.0; the three MAREs, the photon statistics and
     the walls printed;
-15. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+15. the four commands of the port's CLI (:func:`cli_path`) through their
+    plain functions, the launch counters zeroed just before and read just
+    after: ``run_mc`` from a CT image (the CIRS thorax at (350, 260, 142), 1
+    mm, as HU) with the packaged weights: the segmenter at the production
+    patch (256, 256, 128) with overlap 0.5, the mappers, the MC at 16 views x
+    2e7 histories (``--reference-n-histories 2e8 --speedups 10``, the air
+    flat at 1e9), ``--forward-projection``, the speedup net,
+    ``--reconstruct-3d``; the 4D branch on the scene it segmented with the
+    run-mc path's correspondence model and signal; ``recon_mc`` (fdk3d,
+    ``--wpc``) of the 3D run's stack; checked: each net's card forward
+    against the CPU's (the first segmenter patch, the first view of the
+    first speedup batch stage by stage; 1e-4 of max |output|), every file the JAX package's
+    run-mc writes present, finite and of its shape, the launches those of
+    the engine's iterations, the forward projections' and the FDKs' chunks;
+    printed: the label shares, the walls by step, the census of the speedup
+    step (``utils.profiling``); the fit-noise and run-mc-lp workflows are
+    phase 14's;
+16. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -256,9 +273,12 @@ MOTION_WIDTHS_MM = (80.0, 80.0, 60.0)  # the motion field's Gaussian envelope ar
 MOTION_AMPLITUDE_MM = 20.0  # along z at a breathing amplitude of 1
 MC_PHASES = 10  # the 4D CT's phases, amplitude sin^4(pi p / 10)
 REFERENCE_PHASE = 2
-MC4D_VIEWS = 60  # over 360 deg: one 4 s breathing cycle at 15 fps (the reference scans 894)
+# over 360 deg at 15 fps: the first half of a 4 s breathing cycle, the inhale (the reference
+# scans 894), few enough that the whole smoke, the CLI phase included, stays inside its 1,200 s
+MC4D_VIEWS = 30
+BREATHING_PERIOD_S = 4.0
 MC4D_HISTORIES = 20_000_000  # per view (the reference ~1.2e10)
-MC4D_QUANTIZATION = 5
+MC4D_QUANTIZATION = 3  # bins of the signal and of its derivative (the smoke's time limit)
 MC_AIR_HISTORIES = 1_000_000_000  # the reference 5e10, the demo 1e9
 MC3D_VIEWS = 8
 MC3D_AIR_HISTORIES = 100_000_000
@@ -295,6 +315,15 @@ MTF_GAPS = (1.0, 2.0, 3.0, 4.0)  # mm, the record's
 MTF_VIEWS = 32
 MTF_HISTORIES = 100_000_000
 MTF_BINNING = 2
+# the CLI path: run-mc from a CT image of the thorax at the run-mc path's grid
+CLI_PATCH = (256, 256, 128)  # the segmenter's production patch
+CLI_OVERLAP = 0.5
+CLI_VIEWS = 16
+CLI_REFERENCE_HISTORIES = 200_000_000  # per view; 2e7 after the speedup factor
+CLI_SPEEDUP = 10.0
+CLI_AIR_HISTORIES = 1_000_000_000
+NET_TOL = 1e-4  # of max |output|: each net's forward on the card against the CPU's
+CLI_RECON_SHAPE = (464, 464, 250)  # reconstruct_3d's default grid in the MC scene's frame
 
 
 def card_line() -> str:
@@ -2439,8 +2468,8 @@ def run_mc_path(kernels, card):
     the correspondence model built by ``CorrespondenceModel.build_default``
     (``register_phases`` with the default demons schedule: 9 registrations of
     100 iterations at (88, 65, 36), (175, 130, 71) and (350, 260, 142)),
-    ``MCSimulation4D`` of phase 2 (60 views over one 4 s breathing cycle at
-    15 fps, 2e7 histories a view, 5 quantisation bins, the air flat at
+    ``MCSimulation4D`` of phase 2 (30 views over the first half of a 4 s
+    breathing cycle at 15 fps, 2e7 histories a view, 3 quantisation bins, the air flat at
     1e9) and ``MCSimulation.run_simulation`` of phase 2 at 8 views, seeded.
     The launch counters are zeroed just before ``build_default`` and read
     just after ``MCSimulation4D``. Checks the registration and the model
@@ -2510,8 +2539,8 @@ def run_mc_path(kernels, card):
     params = SimulationParameters(n_histories=MC4D_HISTORIES, n_projections=MC4D_VIEWS,
                                   angle_between_projections=360.0 / MC4D_VIEWS)
     cfg = production_engine_config(**ENGINE_OVERRIDES)
-    signal = RespiratorySignal.create_sin4(total_seconds=MC4D_VIEWS / 15.0,
-                                           period=MC4D_VIEWS / 15.0)
+    signal = RespiratorySignal.create_sin4(total_seconds=BREATHING_PERIOD_S,
+                                           period=BREATHING_PERIOD_S)
     sim4d = simulation.MCSimulation4D(correspondence_model=model, geometry=reference,
                                       parameters=params, engine_config=cfg,
                                       n_pixels_half_fan_x=HALF_FAN_COLUMNS,
@@ -2561,6 +2590,9 @@ def run_mc_path(kernels, card):
         f"{ {k: round(v, 3) for k, v in writes.items()} } s", card)
     walls["mc4d_states"] = states
     walls["mc4d_writes"] = writes
+    # the model and the signal as files, for the CLI path's 4D branch
+    signal.save(folder / "signal.pkl")
+    walls["files"] = (model.save(folder / "correspondence_model.pkl"), folder / "signal.pkl")
 
     check_registration(card, images, fields["dvf"], model, reference, amp, damp, truth_z)
     check_4d_artifacts(card, out4d, artifacts, params)
@@ -3107,6 +3139,314 @@ def validation_path(kernels, card, scanner):
     return walls
 
 
+def thorax_ct(path) -> None:
+    """The CLI path's CT image: the port's CIRS thorax at its full grid (1 mm)
+    as HU = 1000 (rho - 1), clipped to the segmenter's input range."""
+    from cbctmc_tpu_torch.geometry.phantoms import CIRSPhantomGeometry
+    from cbctmc_tpu_torch.utils.io import write_image
+
+    thorax = CIRSPhantomGeometry.synthetic_thorax(shape=THORAX_SHAPE)
+    hu = np.clip(1000.0 * (thorax.densities - 1.0), -1024.0, 3071.0).astype(np.float32)
+    write_image(hu, path, spacing=thorax.image_spacing)
+
+
+def check_cli_files(sim, fp_name, n_states=None) -> dict:
+    """Every file the JAX package's run-mc writes for one configuration:
+    present, the stacks and volumes finite and of their shapes. Returns the
+    stacks' shapes."""
+    import yaml
+
+    from cbctmc_tpu_torch.engine.simulate import SimulationParameters
+    from cbctmc_tpu_torch.pipeline.simulation import _read_projection_stack
+    from cbctmc_tpu_torch.recon.geometry import ConeBeamGeometry
+    from cbctmc_tpu_torch.utils.io import read_image
+
+    det = SimulationParameters().n_detector_pixels
+    panel = ConeBeamGeometry()
+    stack_shape = (CLI_VIEWS, det[1], min(det[0], 1024))
+    shapes = {"air/projections_total.mha": (1, *stack_shape[1:]),
+              fp_name: (CLI_VIEWS, panel.n_pixels_v, panel.n_pixels_u)}
+    for name in ("total", "unscattered", "scattered", "total_normalized", "total_speedup"):
+        shapes[f"projections_{name}.mha"] = stack_shape
+    names = {str(f.relative_to(sim)) for f in sim.rglob("*") if f.is_file()}
+    images = []
+    if n_states is None:
+        images = ["geometry_materials.nii.gz", "geometry_densities.nii.gz"]
+        want = set(shapes) | set(images) | {"geometry.pkl.gz", "geometry.xml",
+                                            "reconstructions/recon_fdk3d.mha",
+                                            "reconstructions/recon_fdk3d.yaml"}
+    else:
+        with open(sim / "projection_geometries.yaml") as f:
+            entries = yaml.safe_load(f)
+        states = {e["geometry_filename"] for e in entries.values()}
+        want = set(shapes) | {"signal.txt", "signal_quantized.txt", "projection_geometries.yaml"}
+        for state in sorted(states):
+            stem = state[len("geometry"):-len(".pkl.gz")]
+            images += [f"geometry_materials{stem}.nii.gz", f"geometry_densities{stem}.nii.gz"]
+            want |= {state, *images[-2:]}
+        if len(entries) != CLI_VIEWS or len(states) != n_states:
+            raise AssertionError(f"{sim}: {len(entries)} views in {len(states)} states")
+    if names != want:
+        raise AssertionError(f"{sim}: files {sorted(names ^ want)} differ from the JAX "
+                             "package's run-mc's")
+    got = {}
+    for name, shape in shapes.items():
+        stack = _read_projection_stack(sim / name)
+        got[name] = stack.shape
+        if stack.shape != shape or not np.isfinite(stack).all():
+            raise AssertionError(f"{sim / name}: {stack.shape}, expected {shape} and finite")
+    for name in images:
+        image = read_image(sim / name)[0]
+        if image.shape != THORAX_SHAPE or not np.isfinite(image).all():
+            raise AssertionError(f"{sim / name}: {image.shape}")
+    if n_states is None:
+        volume = read_image(sim / "reconstructions" / "recon_fdk3d.mha")[0]
+        got["recon_fdk3d"] = volume.shape
+        if volume.shape != CLI_RECON_SHAPE or not np.isfinite(volume).all():
+            raise AssertionError(f"recon_fdk3d: {volume.shape}, expected {CLI_RECON_SHAPE}")
+        if (sim / "geometry.xml").read_text().count("<Projection>") != CLI_VIEWS:
+            raise AssertionError("geometry.xml does not hold every view")
+    return got
+
+
+def speedup_stages(cpu, x, out):
+    """The speedup net's forward on the CPU stage by stage on the card's own
+    inputs, ``mean_net`` on the batch and ``var_net`` on the card's mean, and
+    the CPU's whole forward (``var_net`` on the CPU's own mean). Its
+    var_net magnifies a rounding of its input (on the CPU, float32 against
+    float64 on a projection-like input: the mean net's logits and var_net
+    alone 5e-6 of their max, the variance through the composition 4e-4), so
+    the card's composition is held to the CPU's with each stage fed the same
+    values."""
+    from cbctmc_tpu_torch.models import speedup_net
+
+    mean = torch.relu(x[:, 0:1] + speedup_net.MEAN_RESIDUAL_BOUND * torch.tanh(cpu.mean_net(x)))
+
+    def with_variance(m):
+        scale = speedup_net.VAR_SCALE_BOUND * torch.sigmoid(cpu.var_net(m))
+        return torch.cat([m, m * scale + speedup_net.VAR_EPS], dim=1)
+
+    staged = with_variance(out[:, 0:1])
+    staged[:, 0:1] = mean
+    return staged, with_variance(mean)
+
+
+def cli_path(kernels, card, model_path, signal_path):
+    """The port's four-command CLI on the card through its plain functions
+    (``cbctmc_tpu_torch.cli``), the launch counters zeroed just before and
+    read just after: ``run_mc`` from a CT image of the CIRS thorax (350, 260,
+    142) at 1 mm with the packaged weights (the segmenter at the production
+    patch (256, 256, 128) with overlap 0.5, 8 patches; the mappers; the
+    production engine at CLI_VIEWS views, ``--reference-n-histories`` 2e8
+    with ``--speedups 10``, the air flat at 1e9; ``--forward-projection``,
+    the speedup net, ``--reconstruct-3d``); the 4D branch on the scene it
+    segmented with the run-mc path's correspondence model and signal
+    (CLI_VIEWS views, the same histories, ``--forward-projection`` and the
+    speedup); ``recon_mc`` with ``fdk3d`` and ``--wpc`` of the 3D run's
+    normalised stack. Checked: the first segmenter patch's and the first
+    speedup batch's first view's outputs on the card against the port's CPU
+    forward of the same weights and inputs (NET_TOL of max |output|; the
+    speedup net stage by stage, :func:`speedup_stages`); every
+    file the JAX package's run-mc writes present, finite and of its shape;
+    the kernels launched those of the engine's iterations, the forward
+    projections' view chunks and the FDKs' chunks. Printed: the label shares,
+    the walls by step and the census of the 3D run's speedup step
+    (``utils.profiling``). Returns the walls and the launches."""
+    import copy
+    import shutil
+
+    from cbctmc_tpu_torch import cli
+    from cbctmc_tpu_torch.engine.simulate import MCScanner
+    from cbctmc_tpu_torch.engine.transport import production_engine_config
+    from cbctmc_tpu_torch.models import segmentation
+    from cbctmc_tpu_torch.models.flex_unet import FlexUNet
+    from cbctmc_tpu_torch.models.speedup_net import MCSpeedUpNet
+    from cbctmc_tpu_torch.pipeline import reconstruction, simulation
+    from cbctmc_tpu_torch.pipeline.respiratory import RespiratorySignal
+    from cbctmc_tpu_torch.recon import joseph
+    from cbctmc_tpu_torch.utils import profiling
+    from cbctmc_tpu_torch.utils.io import read_image
+
+    folder = OUT / "cli"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    walls, runs, fp_views, fdk_views, nets, shares, census = {}, [], [], [], {}, {}, []
+    branch = ["3d"]
+    t0 = time.monotonic()
+    ct = folder / "thorax_ct.mha"
+    thorax_ct(ct)
+    walls["ct"] = time.monotonic() - t0
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            key = f"{branch[0]} {name}"
+            walls[key] = walls.get(key, 0.0) + time.monotonic() - t
+            return out
+        return run
+
+    def kept_segment(self, image, fn=segmentation.MCSegmenter.segment):
+        prediction, raw = fn(self, image)
+        for i, label in segmentation.LABELS.items():
+            shares[label] = float(prediction[i].mean())
+        return prediction, raw
+
+    def kept_simulate(self, *args, fn=MCScanner.simulate, **kwargs):
+        images, info = fn(self, *args, **kwargs)
+        runs.append(info.iterations)
+        return images, info
+
+    def counted_fp(volume, geometry, angles, *args, fn=joseph.project_forward, **kwargs):
+        fp_views.append(len(angles))
+        return fn(volume, geometry, angles, *args, **kwargs)
+
+    def counted_fdk(projections, *args, fn=reconstruction.fdk_reconstruct, **kwargs):
+        fdk_views.append(len(projections))
+        return fn(projections, *args, **kwargs)
+
+    def kept_unet(self, x, fn=FlexUNet.forward):
+        out = fn(self, x)
+        if isinstance(self.init_conv, torch.nn.Conv3d) and "segmenter" not in nets:
+            nets["segmenter"] = (self, x.clone(), out.cpu())
+        return out
+
+    def kept_speedup_net(self, x, fn=MCSpeedUpNet.forward):
+        out = fn(self, x)
+        if "speedup" not in nets:
+            nets["speedup"] = (self, x[:1].clone(), out[:1].cpu(), len(x))
+        return out
+
+    def traced_speedup(*args, fn=cli._apply_speedup, **kwargs):
+        if census:
+            return fn(*args, **kwargs)
+        rows, _ = profiling.profile_projection_step(lambda: fn(*args, **kwargs), top=8,
+                                                    device=DEVICE)
+        census.extend(rows)
+
+    patched = [
+        (segmentation.MCSegmenter, "segment", timed("segmentation", kept_segment)),
+        (cli, "_load_geometry", timed("geometry", cli._load_geometry)),
+        (simulation.MCSimulation, "run_simulation",
+         timed("mc", simulation.MCSimulation.run_simulation)),
+        (simulation.MCSimulation4D, "run_simulation",
+         timed("mc", simulation.MCSimulation4D.run_simulation)),
+        (MCScanner, "simulate", kept_simulate),
+        (joseph, "project_forward", counted_fp),
+        (reconstruction, "fdk_reconstruct", counted_fdk),
+        (cli, "_forward_project_geometry", timed("forward projection",
+                                                 cli._forward_project_geometry)),
+        (cli, "_forward_project_geometry_4d", timed("forward projection",
+                                                    cli._forward_project_geometry_4d)),
+        (cli, "_apply_speedup", timed("speedup", traced_speedup)),
+        (cli, "_reconstruct_3d_cli", timed("fdk", cli._reconstruct_3d_cli)),
+        (FlexUNet, "forward", kept_unet),
+        (MCSpeedUpNet, "forward", kept_speedup_net),
+    ]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
+    for owner, name, fn in patched:
+        setattr(owner, name, fn)
+    common = dict(speedups=(CLI_SPEEDUP,), reference_n_histories=CLI_REFERENCE_HISTORIES,
+                  n_projections=CLI_VIEWS, do_forward_projection=True,
+                  air_n_histories=float(CLI_AIR_HISTORIES),
+                  n_lanes=ENGINE_OVERRIDES.get("n_lanes"), device=DEVICE)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_phase = time.monotonic()
+    try:
+        t0 = time.monotonic()
+        out3d = cli.run_mc(folder / "runs", image_filepath=ct, segmenter_patch_shape=CLI_PATCH,
+                           segmenter_patch_overlap=CLI_OVERLAP, reconstruct_3d=True, **common)
+        walls["run-mc 3d"] = time.monotonic() - t0
+        sim3d = out3d / f"speedup_{CLI_SPEEDUP:.2f}x"
+        branch[0] = "4d"
+        t0 = time.monotonic()
+        out4d = cli.run_mc(folder / "runs", geometry_filepath=sim3d / "geometry.pkl.gz",
+                           simulation_name="thorax_4d", correspondence_model=model_path,
+                           respiratory_signal=signal_path,
+                           respiratory_signal_quantization=MC4D_QUANTIZATION, **common)
+        walls["run-mc 4d"] = time.monotonic() - t0
+        sim4d = out4d / f"speedup_{CLI_SPEEDUP:.2f}x"
+        branch[0] = "recon-mc"
+        t0 = time.monotonic()
+        recon = cli.recon_mc(sim3d / "projections_total_normalized.mha",
+                             output_folder=folder / "recon_mc", wpc=True,
+                             n_projections=CLI_VIEWS, device=DEVICE)
+        torch.cuda.synchronize()
+        walls["recon-mc"] = time.monotonic() - t0
+        launches = dict(kernels.launch_counts)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    walls["phase"] = time.monotonic() - t_phase
+
+    # each net's card forward against the port's CPU forward of the same
+    # inputs; the speedup net stage by stage (its var_net on the card's mean)
+    t_checks = time.monotonic()
+    held = []
+    for name in ("segmenter", "speedup"):
+        module, x, out, *batch = nets[name]
+        t0 = time.monotonic()
+        cpu = copy.deepcopy(module).to("cpu")
+        with torch.inference_mode():
+            if name == "segmenter":
+                want = whole = cpu(x.cpu())
+            else:
+                want, whole = speedup_stages(cpu, x.cpu(), out)
+        err, scale = float((out - want).abs().max()), float(want.abs().max())
+        line = (f"{name} {tuple(x.shape)}{f' (of a batch of {batch[0]})' if batch else ''}: "
+                f"max |card - CPU| {err:.3e} of max |output| {scale:.6e}")
+        if name == "speedup":
+            line += (f" (mean channel {float((out - want)[:, 0].abs().max()):.3e}, variance "
+                     f"{float((out - want)[:, 1].abs().max()):.3e}; the CPU's whole forward, its "
+                     f"var_net on its own mean: {float((out - whole).abs().max()):.3e}, not held)")
+        held.append(f"{line} ({time.monotonic() - t0:.1f} s on the CPU)")
+        if not err <= NET_TOL * scale:
+            raise AssertionError(f"CLI path: the {name}'s card forward off its CPU forward by "
+                                 f"{err} (max |output| {scale})")
+    del nets
+
+    # the files, against the JAX package's layout
+    shapes3d = check_cli_files(sim3d, "density_fp.mha")
+    quantized = np.loadtxt(sim4d / "signal_quantized.txt")
+    n_states = len(RespiratorySignal.get_unique_signals(quantized[:, 0], quantized[:, 1]))
+    shapes4d = check_cli_files(sim4d, "density_fp_4d.mha", n_states=n_states)
+    volume = read_image(recon)[0]
+    if volume.shape != CLI_RECON_SHAPE or not np.isfinite(volume).all():
+        raise AssertionError(f"recon-mc: {volume.shape}, expected {CLI_RECON_SHAPE}")
+
+    # the kernels of the path
+    cfg = production_engine_config(**ENGINE_OVERRIDES)
+    expected = expected_phase_launches(sum(runs), cfg)
+    expected["joseph_project"] = sum(-(-n // joseph.PROJECT_VIEW_CHUNK) for n in fp_views)
+    expected["backproject"] = sum(-(-n // 64) for n in fdk_views)
+    for name in kernels.KERNELS:
+        n = expected.get(name, 0)
+        if launches[name] != n or (name in ("refill", "flight_resolve", "joseph_project",
+                                            "backproject") and n == 0):
+            raise AssertionError(f"CLI path: {name} {launches[name]} launches, expected {n}")
+    walls["checks"] = time.monotonic() - t_checks
+    say(f"CLI path: run-mc from a CT image {THORAX_SHAPE} at 1 mm (segmenter patch "
+        f"{CLI_PATCH}, overlap {CLI_OVERLAP}), {CLI_VIEWS} views x "
+        f"{CLI_REFERENCE_HISTORIES / CLI_SPEEDUP:.1e} histories (speedup {CLI_SPEEDUP}), air "
+        f"{CLI_AIR_HISTORIES:.1e}; the 4D branch in {n_states} motion states; recon-mc fdk3d "
+        f"--wpc. Label shares { {k: round(v, 6) for k, v in shares.items()} }", card)
+    say(f"CLI path nets, card against CPU (to {NET_TOL} of max |output|): {'; '.join(held)}",
+        card)
+    say(f"CLI path files: 3D {shapes3d}; 4D {shapes4d}; recon-mc {volume.shape}", card)
+    say(f"CLI path: {len(runs)} engine calls, {sum(runs)} iterations, forward projections of "
+        f"{fp_views} views, FDKs of {fdk_views} views; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; walls "
+        f"{ {k: round(v, 3) for k, v in walls.items()} } s (the 3D speedup step traced by "
+        f"the profiler)", card)
+    say("CLI path census of the 3D speedup step (utils.profiling, top 8 by device time): "
+        + "; ".join(f"{r['name'][:70]} {r['total_ms']:.3f} ms x {r['count']}"
+                    for r in census), card)
+    return {"walls": walls, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -3163,6 +3503,7 @@ def main() -> int:
     results.update(check_demons_kernels(kernels, card, captured))
     run_mc["phase"] = time.monotonic() - t_run_mc
     validation = validation_path(kernels, card, scanner)
+    cli = cli_path(kernels, card, *run_mc["files"])
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -3195,7 +3536,8 @@ def main() -> int:
         f"iteration, set-up {setup_s:.2f} s; recon-mc walls "
         f"{ {k: round(v, 3) for k, v in recon['walls'].items()} } s; run-mc walls "
         f"{ {k: round(v, 3) for k, v in run_mc.items() if isinstance(v, float)} } s; validation "
-        f"{validation['phase']:.3f} s; whole script "
+        f"{validation['phase']:.3f} s; CLI {cli['walls']['phase']:.3f} s (its checks "
+        f"{cli['walls']['checks']:.3f} s); whole script "
         f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

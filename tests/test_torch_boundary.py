@@ -2,6 +2,7 @@
 JAX package, and its entry points run on the card unless the caller asks
 for the CPU."""
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -53,6 +54,17 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.pipeline.evaluation",
     "cbctmc_tpu_torch.pipeline.noise_fit",
     "cbctmc_tpu_torch.pipeline.mtf_workflow",
+    "cbctmc_tpu_torch.utils.logging",
+    "cbctmc_tpu_torch.recon.rtk_interop",
+    "cbctmc_tpu_torch.utils.profiling",
+    "cbctmc_tpu_torch.models.checkpoints",
+    "cbctmc_tpu_torch.models.flex_unet",
+    "cbctmc_tpu_torch.models.speedup_net",
+    "cbctmc_tpu_torch.models.segmentation",
+    "cbctmc_tpu_torch.models.speedup_inference",
+    "cbctmc_tpu_torch.geometry.mappers",
+    "cbctmc_tpu_torch.pipeline.patient",
+    "cbctmc_tpu_torch.cli",
 ]
 # the port's scripts, imported as modules (scripts/ on the path)
 PORT_SCRIPTS = ["torch_validation_records"]
@@ -77,14 +89,16 @@ def test_port_imports_without_jax_or_the_jax_package():
     # exact names: cbctmc_tpu_torch itself starts with "cbctmc_tpu"
     offending = [m for m in loaded if m == "cbctmc_tpu" or m.startswith("cbctmc_tpu.")]
     assert offending == []
-    assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
+    for package in ("jax", "flax", "msgpack"):
+        assert not any(m == package or m.startswith(f"{package}.") for m in loaded), package
 
 
 def test_port_sources_name_no_jax_import():
     scripts = [REPO / "scripts" / f"{name}.py" for name in PORT_SCRIPTS]
     for path in [*(REPO / "cbctmc_tpu_torch").rglob("*.py"), *scripts]:
         text = path.read_text()
-        for needle in ("import jax", "from jax", "import cbctmc_tpu\n", "from cbctmc_tpu."):
+        for needle in ("import jax", "from jax", "import cbctmc_tpu\n", "from cbctmc_tpu.",
+                       "import flax", "from flax", "import msgpack", "from msgpack"):
             assert needle not in text, f"{path.name}: {needle.strip()}"
 
 
@@ -303,3 +317,60 @@ def test_validation_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
     assert not (tmp_path / "noise_fit.json").exists() and not (tmp_path / "mtf.json").exists()
+
+
+@pytest.mark.parametrize("name", ["segmenter/default.ckpt", "segmenter/default.eval.json",
+                                  "speedup/default.ckpt", "speedup/default.eval.json"])
+def test_model_assets_byte_identical(name):
+    def sha(p):
+        return hashlib.sha256(p.read_bytes()).hexdigest()
+
+    ours = REPO / "cbctmc_tpu_torch" / "assets" / "models" / name
+    assert not ours.is_symlink()
+    assert sha(ours) == sha(REPO / "cbctmc_tpu" / "assets" / "models" / name)
+
+
+@pytest.mark.parametrize("entry", ["geometry_from_ct", "MCSegmenter.segment",
+                                   "MCSpeedup.from_checkpoint", "MCSpeedup.execute", "run_mc",
+                                   "capture_trace"])
+def test_cli_path_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
+    """The CLI slice's entry points run on the card unless the caller passes
+    device="cpu" (tests/test_torch_models.py and tests/test_torch_cli.py run
+    each on the CPU); without a card they raise before any work."""
+    from cbctmc_tpu_torch import cli
+    from cbctmc_tpu_torch.geometry.mc_geometry import MCGeometry
+    from cbctmc_tpu_torch.models import segmentation, speedup_inference
+    from cbctmc_tpu_torch.models.flex_unet import FlexUNet
+    from cbctmc_tpu_torch.models.speedup_net import MCSpeedUpNet
+    from cbctmc_tpu_torch.pipeline import patient
+    from cbctmc_tpu_torch.utils import profiling
+    from cbctmc_tpu_torch.utils.io import write_image
+
+    models = REPO / "cbctmc_tpu_torch" / "assets" / "models"
+    ct = tmp_path / "ct.mha"
+    write_image(np.full((8, 8, 8), -1000.0, np.float32), ct)
+    body = np.ones((8, 8, 8), np.uint8)
+    geometry = tmp_path / "scene.pkl.gz"
+    MCGeometry(np.ones((4, 4, 4), np.uint8), np.ones((4, 4, 4), np.float32)).save(geometry)
+    tiny = FlexUNet(n_channels=1, n_classes=9, n_levels=1, ndim=3, filter_base=2)
+    small_net = MCSpeedUpNet(mean_filter_base=2, mean_levels=1, var_filter_base=2,
+                             var_levels=1)
+    low = np.ones((1, 16, 16), np.float32)
+    call = {
+        "geometry_from_ct": lambda **kw: patient.geometry_from_ct(
+            ct, body_segmentation=body, **kw),
+        "MCSegmenter.segment": lambda **kw: segmentation.MCSegmenter(
+            tiny, patch_shape=(8, 8, 8), **kw).segment(np.zeros((8, 8, 8), np.float32)),
+        "MCSpeedup.from_checkpoint": lambda **kw: speedup_inference.MCSpeedup.from_checkpoint(
+            models / "speedup" / "default.ckpt", **kw),
+        "MCSpeedup.execute": lambda **kw: speedup_inference.MCSpeedup(
+            small_net, **kw).execute(low),
+        "run_mc": lambda **kw: cli.run_mc(tmp_path / "out", geometry_filepath=geometry,
+                                          dry_run=True, **kw),
+        "capture_trace": lambda **kw: profiling.capture_trace(
+            lambda: np.zeros(1), trace_dir=str(tmp_path / "trace"), **kw),
+    }[entry]
+    call(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
