@@ -9,24 +9,30 @@ and build the port's tensors, so tests can feed both engines one state;
 primary's traversal. :func:`rooster_checkpoint_from_numpy` reads the
 state a 4D ROOSTER run carries from one outer iteration to the next, as
 either package's checkpoint file holds it.
-:func:`flexunet_state_dict_from_flax` and :func:`speedup_state_dict_from_flax`
-carry the nets' flax parameter trees (as
-:func:`cbctmc_tpu_torch.models.checkpoints.load_flax_checkpoint` reads them)
-into the port's modules. Nothing here imports the JAX package.
+:func:`state_dict_from_flax` carries a net's flax parameter tree (as
+:func:`cbctmc_tpu_torch.models.checkpoints.load_flax_checkpoint` reads it)
+into any of the port's nets (the U-Nets, the speedup net, the experimental
+ones), and :func:`flax_tree_from_state_dict` is its inverse, the tree the
+JAX package's model of the same configuration holds, which
+:func:`cbctmc_tpu_torch.models.checkpoints.save_params` writes. Nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
 
-import re
-from typing import Mapping
+from typing import List, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from cbctmc_tpu_torch.engine.device import resolve_device
 from cbctmc_tpu_torch.engine.primary import PrimaryVolume, _primary_volume
 from cbctmc_tpu_torch.engine.tables import DeviceTables, WoodcockTable
 from cbctmc_tpu_torch.engine.transport import VoxelVolume
+from cbctmc_tpu_torch.models import experimental as ex
+from cbctmc_tpu_torch.models import flex_unet as fu
+from cbctmc_tpu_torch.models.speedup_net import MCSpeedUpNet
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -118,37 +124,81 @@ def _flat(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
-_FLAX_CONV = re.compile(r"(?:(enc|dec)_(\d+)/ConvNormAct_(\d+)/Conv_0|Conv_([01]))/(kernel|bias)")
+def _flax_children(module: nn.Module) -> List[Tuple[str, str]]:
+    """(torch child, flax child) of one of the port's nets or blocks, in
+    the order flax creates them (the order of its parameter tree)."""
+    if isinstance(module, fu.FlexUNet):
+        levels = range(module.n_levels)
+        return [("init_conv", "Conv_0"), *[(f"encoders.{l}", f"enc_{l}") for l in levels],
+                *[(f"decoders.{l}", f"dec_{l}") for l in reversed(levels)],
+                ("final_conv", "Conv_1")]
+    if isinstance(module, (fu.EncoderBlock, fu.DecoderBlock)):
+        return [(f"convs.{i}", f"ConvNormAct_{i}") for i in range(len(module.convs))]
+    if isinstance(module, (fu.ConvNormAct, ex.DenseBlockLayer)):
+        return [("conv", "Conv_0")]
+    if isinstance(module, (MCSpeedUpNet, ex.MCSpeedUpNetSeparated)):
+        return [("mean_net", "mean_net"), ("var_net", "var_net")]
+    if isinstance(module, ex.ResidualDenseNet2D):
+        return [("shallow", "Conv_0"),
+                *[(f"blocks.{i}", f"ResidualDenseBlock2D_{i}") for i in range(len(module.blocks))],
+                ("fusion", "Conv_1"), ("output", "Conv_2")]
+    if isinstance(module, ex.ResidualDenseBlock2D):
+        return [*[(f"layers.{i}", f"DenseBlockLayer_{i}") for i in range(len(module.layers))],
+                ("fusion", "Conv_0")]
+    if isinstance(module, ex.DenseNet2D):
+        return [*[(f"layers.{i}", f"DenseBlockLayer_{i}") for i in range(len(module.layers))],
+                ("output", "Conv_0")]
+    raise TypeError(f"{type(module).__name__} has no flax counterpart")
 
 
-def flexunet_state_dict_from_flax(tree: Mapping) -> dict:
-    """The ``state_dict`` of :class:`cbctmc_tpu_torch.models.flex_unet.FlexUNet`
-    from the flax ``FlexUNet``'s parameter tree (numpy leaves): ``Conv_0`` is
-    the init conv, ``Conv_1`` the final one, ``enc_{l}`` / ``dec_{l}`` the
-    blocks of level l. A name the port has no parameter for raises."""
+def flax_layout(model: nn.Module) -> List[Tuple[str, Tuple[str, ...]]]:
+    """Each parameter of ``model`` as (its ``state_dict`` name, its path in
+    the flax tree), in flax's order."""
+
+    def walk(module, torch_prefix, flax_path):
+        if isinstance(module, nn.modules.conv._ConvNd):
+            return [(f"{torch_prefix}weight", (*flax_path, "kernel")),
+                    (f"{torch_prefix}bias", (*flax_path, "bias"))]
+        out = []
+        for child, flax_child in _flax_children(module):
+            out += walk(model.get_submodule(f"{torch_prefix}{child}"),
+                        f"{torch_prefix}{child}.", (*flax_path, flax_child))
+        return out
+
+    return walk(model, "", ())
+
+
+def state_dict_from_flax(model: nn.Module, tree: Mapping) -> dict:
+    """The ``state_dict`` of ``model`` (any of the port's nets) from the
+    flax parameter tree of its JAX counterpart. A leaf missing from the
+    tree, or one the model has no parameter for, raises."""
+    flat = {tuple(k.split("/")): v for k, v in _flat(tree).items()}
+    layout = flax_layout(model)
+    extra = set(flat) - {path for _, path in layout}
+    if extra:
+        raise ValueError(f"flax parameters {sorted('/'.join(p) for p in extra)} have no "
+                         f"counterpart in {type(model).__name__}")
     state = {}
-    for path, value in _flat(tree).items():
-        m = _FLAX_CONV.fullmatch(path)
-        if m is None:
-            raise ValueError(f"unknown FlexUNet parameter {path!r}")
-        block, level, conv, top, leaf = m.groups()
-        if top is not None:
-            module = "init_conv" if top == "0" else "final_conv"
-        else:
-            blocks = "encoders" if block == "enc" else "decoders"
-            module = f"{blocks}.{level}.convs.{conv}.conv"
-        state[f"{module}.{'weight' if leaf == 'kernel' else 'bias'}"] = _conv_leaf(leaf, value)
+    for name, path in layout:
+        if path not in flat:
+            raise ValueError(f"{type(model).__name__}: no flax parameter {'/'.join(path)}")
+        state[name] = _conv_leaf(path[-1], flat[path])
     return state
 
 
-def speedup_state_dict_from_flax(tree: Mapping) -> dict:
-    """The ``state_dict`` of :class:`cbctmc_tpu_torch.models.speedup_net.
-    MCSpeedUpNet` from the flax ``MCSpeedUpNet``'s parameter tree: its
-    ``mean_net`` and ``var_net`` are 2-D FlexUNets."""
-    if set(tree) != {"mean_net", "var_net"}:
-        raise ValueError(f"a speedup net's tree holds {sorted(tree)}")
-    return {
-        f"{net}.{name}": value
-        for net in ("mean_net", "var_net")
-        for name, value in flexunet_state_dict_from_flax(tree[net]).items()
-    }
+def flax_tree_from_state_dict(model: nn.Module, state_dict: Mapping) -> dict:
+    """The inverse of :func:`state_dict_from_flax`: the flax tree (numpy
+    leaves, flax's order) of ``model``'s parameters ``state_dict`` (tensors
+    on any device). A conv kernel ``[out, in, k_1, ..., k_n]`` becomes
+    ``[k_1, ..., k_n, in, out]``."""
+    tree: dict = {}
+    for name, path in flax_layout(model):
+        value = state_dict[name].detach().cpu().numpy()
+        if path[-1] == "kernel":
+            n = value.ndim - 2
+            value = np.transpose(value, (*range(2, n + 2), 1, 0))
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+    return tree

@@ -13,7 +13,7 @@ Channels follow either ``filter_base * 2**level`` or an explicit
 ``n_filters`` list with the reference's layout [init, *enc, *dec, final].
 The layout is channels first ([B, C, *spatial]), PyTorch's; the spatial axes
 keep the flax model's order, so a flax kernel ``[k..., in, out]`` becomes
-``[out, in, k...]`` (:func:`cbctmc_tpu_torch.interop.flexunet_state_dict_from_flax`).
+``[out, in, k...]`` (:func:`cbctmc_tpu_torch.interop.state_dict_from_flax`).
 Normalisation is InstanceNorm (non-affine, biased variance, eps 1e-5). The
 forward runs in float32: PyTorch lets cuDNN's convolutions use TF32 by
 default, and the forward turns that off for its own span (the JAX package's

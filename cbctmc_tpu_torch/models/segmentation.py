@@ -125,7 +125,7 @@ class MCSegmenter:
     (``cuda`` unless the caller passes ``"cpu"``; without a card
     construction raises). Load trained weights with
     :func:`cbctmc_tpu_torch.models.checkpoints.load_flax_checkpoint` and
-    :func:`cbctmc_tpu_torch.interop.flexunet_state_dict_from_flax`."""
+    :func:`cbctmc_tpu_torch.interop.state_dict_from_flax`."""
 
     model: FlexUNet
     patch_shape: Tuple[int, int, int] = (128, 128, 128)

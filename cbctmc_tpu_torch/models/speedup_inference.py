@@ -61,7 +61,7 @@ class MCSpeedup:
         ``assets/models/speedup/default.ckpt`` or one like it)."""
         dev = resolve_device(device)
         model = MCSpeedUpNet()
-        model.load_state_dict(interop.speedup_state_dict_from_flax(load_flax_checkpoint(filepath)))
+        model.load_state_dict(interop.state_dict_from_flax(model, load_flax_checkpoint(filepath)))
         return cls(model=model, device=dev)
 
     # ------------------------------------------------------------------

@@ -75,7 +75,7 @@ def geometry_from_ct(
     if segmenter_weights is not None:
         model = default_segmenter_model()
         model.load_state_dict(
-            interop.flexunet_state_dict_from_flax(load_flax_checkpoint(segmenter_weights)))
+            interop.state_dict_from_flax(model, load_flax_checkpoint(segmenter_weights)))
         segmenter = MCSegmenter(
             model=model, patch_shape=patch_shape, patch_overlap=patch_overlap, device=dev,
         )

@@ -79,9 +79,12 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     in-memory FDK of the same stack); a moving phantom (the CatPhan mu volume
     with a sphere moving along z with the breathing phase) projected by
     ``project_forward`` onto 80 views at their own phases, written as a
-    stack, and ``reconstruct_4d`` of it (10 phases, one outer iteration, two
-    CG steps) on the shear-warp pair and on the Joseph pair, each volume
-    read back (the checkpoint removed; the insert's z centroid over the
+    stack, and ROOSTER of it (10 phases, one outer iteration, two CG steps)
+    on the shear-warp pair (``rooster_reconstruct`` on the stack file as
+    ``reconstruct_4d`` reads it, the volumes kept in memory: since the
+    training phase the 4D file is written once) and through
+    ``reconstruct_4d`` on the Joseph pair, its volume read back (the
+    checkpoints removed; the insert's z centroid over the
     phases whose insert is above z = 0 above 0, over the others below, the
     phases' departures from their mean correlated positively with the
     phantom's); then ``joseph_project`` (no ray
@@ -149,7 +152,26 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     printed: the label shares, the walls by step, the census of the speedup
     step (``utils.profiling``); the fit-noise and run-mc-lp workflows are
     phase 14's;
-16. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+16. the training workflows (:func:`training_path`), the launch counters zeroed
+    just before and read just after: the speedup pipeline of
+    ``pipeline/training_workflows.py`` at full width (``MCSpeedUpNet()``,
+    batch 4, patch 256, the production engine, the 1848 x 768 detector) on
+    the CatPhan 256^3 / 2 mm and the CIRS thorax, cut in depth (8 views a
+    scene at 5e7 / 4e8 histories, 40 steps of which 20 L1), publishing into a
+    scratch folder, one train step traced (``utils.profiling``); the
+    segmenter (``default_segmenter_model()``) for 5 steps on 96^3 patches of
+    a synthetic case; then one speedup step on each side of the pretrain
+    switch and one segmenter step, full width on a small input, on the card
+    and on the CPU from the same parameters and batches (loss, global
+    gradient norm, gradients and updated parameters held; the card's step
+    with TF32 let into the backward printed beside it). Checked: every loss
+    finite, ``final.ckpt`` read back leaf for leaf bit-equal to the trained
+    parameters, the stamp carrying the gate's verdict (and, whatever the
+    run's verdict, a passing gate's stamp written and a failing gate leaving
+    its target untouched), cuDNN's TF32 flag off in the card step's
+    backward, the launches those of the scans' engine iterations and the
+    forward projections' chunks;
+17. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -217,6 +239,10 @@ ROOSTER_CYCLES = 8  # breathing cycles over the views: 10 views per cycle, one p
 ROOSTER_PHASES = 10
 ROOSTER_ITERATIONS = 1  # outer iterations (the reference runs 10)
 ROOSTER_CG_STEPS = 2  # CG steps per outer iteration (the reference runs 4)
+# the 4D runs whose volumes stay in memory: rooster_reconstruct on the stack
+# reconstruct_4d reads, without the 4D file's write (the Joseph run writes
+# it); since the training phase, for the smoke's time limit
+ROOSTER_IN_MEMORY = ("shearwarp",)
 INSERT_MU = 0.08  # dense bone [1/mm]
 INSERT_RADIUS_MM = 20.0
 INSERT_XY_MM = (40.0, 0.0)
@@ -1916,11 +1942,13 @@ def recon_mc_path(kernels, card, walls):
     4D: a moving phantom (the CatPhan mu volume from that FDK with a sphere
     moving along z with the breathing phase), ``project_forward`` onto
     ROOSTER_VIEWS views over 360 deg, each view at its own phase, written as
-    a stack, then ``reconstruct_4d`` of the file with 10 phases, one outer
-    iteration and two CG steps, on the shear-warp pair and on the Joseph
-    pair; each 4D volume read back, the checkpoint gone, the insert moving
-    with the phantom (:func:`insert_motion`). The launch counters are zeroed just
-    before the 3D run and read just after the second 4D run."""
+    a stack, then ROOSTER of the file with 10 phases, one outer iteration
+    and two CG steps, on the shear-warp pair (:func:`rooster_in_memory`:
+    ``reconstruct_4d`` without the 4D file's write) and on the Joseph pair
+    (``reconstruct_4d``, the 4D volume written and read back); the checkpoint
+    gone, the insert moving with the phantom (:func:`insert_motion`). The
+    launch counters are zeroed just before the 3D run and read just after
+    the second 4D run."""
     from cbctmc_tpu_torch.physics.reference_values import DEFAULT_WPC_CATPHAN604
     from cbctmc_tpu_torch.pipeline import reconstruction
     from cbctmc_tpu_torch.recon.fdk import fdk_reconstruct
@@ -1989,21 +2017,27 @@ def recon_mc_path(kernels, card, walls):
     rooster_log = logging.getLogger("cbctmc_tpu_torch.recon.rooster")
     rooster_log.setLevel(logging.INFO)
     rooster_log.addHandler(rooster_walls)
-    runs = {}  # projector: (file, wall, rooster_reconstruct wall, peak device memory)
+    runs = {}  # projector: (file or volumes, wall, rooster_reconstruct wall, peak memory)
     try:
         for projector in ("shearwarp", "joseph"):
             name = f"recon_rooster4d_{projector}.mha"
+            par_run = dataclasses.replace(par, projector=projector)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t = time.monotonic()
-            out = reconstruction.reconstruct_4d(
-                stack_4d, phase_signal=phases, output_folder=folder, output_filename=name,
-                dimension=RECON_DIMENSION, spacing=spacing,
-                parameters=dataclasses.replace(par, projector=projector), device=DEVICE)
+            if projector in ROOSTER_IN_MEMORY:
+                out = rooster_in_memory(stack_4d, phases, grid, par_run,
+                                        folder / f"{name}.ckpt.npz")
+            else:
+                out = reconstruction.reconstruct_4d(
+                    stack_4d, phase_signal=phases, output_folder=folder, output_filename=name,
+                    dimension=RECON_DIMENSION, spacing=spacing, parameters=par_run,
+                    device=DEVICE)
+                if not out.with_suffix(".yaml").is_file():
+                    raise AssertionError(f"reconstruct_4d ({projector}): no parameter yaml")
             wall = time.monotonic() - t
-            if (folder / f"{name}.ckpt.npz").exists() or not out.with_suffix(".yaml").is_file():
-                raise AssertionError(f"reconstruct_4d ({projector}): checkpoint left behind or "
-                                     "no parameter yaml")
+            if (folder / f"{name}.ckpt.npz").exists():
+                raise AssertionError(f"ROOSTER ({projector}): checkpoint left behind")
             runs[projector] = (out, wall, rooster_walls.walls[projector],
                                torch.cuda.max_memory_allocated())
     finally:
@@ -2037,11 +2071,18 @@ def recon_mc_path(kernels, card, walls):
     failed = []
     for projector, (out, wall, rooster_s, peak) in runs.items():
         t0 = time.monotonic()
-        vols, meta4 = read_image(out)
+        if projector in ROOSTER_IN_MEMORY:
+            vols, meta4 = out, {"spacing": "not written"}
+            how = (f"rooster_reconstruct of the same stack, {wall:.2f} s, of which the ROOSTER "
+                   f"{rooster_s:.2f} s (the 4D file not written: the Joseph run writes it)")
+        else:
+            vols, meta4 = read_image(out)
+            how = (f"reconstruct_4d, wall {wall:.2f} s, of which rooster_reconstruct "
+                   f"{rooster_s:.2f} s (the rest the stack's read and the 4D file's compressed "
+                   "write)")
         read_s = time.monotonic() - t0
         up, down, corr = insert_motion(vols, grid)
-        say(f"reconstruct_4d ({projector} pair): wall {wall:.2f} s, of which rooster_reconstruct "
-            f"{rooster_s:.2f} s (the rest the stack's read and the 4D file's compressed write); "
+        say(f"4D ROOSTER ({projector} pair): {how}; "
             f"read back {read_s:.2f} s; volume {vols.shape}, spacing {meta4['spacing']}; peak "
             f"device memory {peak / 1e9:.2f} GB; the insert's z centroid over the phases where "
             f"the phantom's is above 0 {up:+.3f} mm, below 0 {down:+.3f} mm (the phantom's "
@@ -2052,7 +2093,8 @@ def recon_mc_path(kernels, card, walls):
             failed.append(projector)
         if projector == "shearwarp":
             shearwarp_volumes = vols
-        out.unlink()
+        if projector not in ROOSTER_IN_MEMORY:
+            out.unlink()
     if failed:
         raise AssertionError(f"reconstruct_4d ({failed}): the insert does not move with the "
                              "phantom, or the volume is not finite")
@@ -2067,6 +2109,25 @@ def recon_mc_path(kernels, card, walls):
                           walls={"reconstruct_3d": wall_3d,
                                  **{f"reconstruct_4d_{k}": v[1] for k, v in runs.items()}},
                           volumes=shearwarp_volumes)
+
+
+def rooster_in_memory(stack_4d, phases, grid, parameters, checkpoint):
+    """What ``reconstruct_4d`` does with a stack file, but for the 4D file's
+    write: the stack read, its geometry and angles, ``rooster_reconstruct``
+    (checkpointed as there, the checkpoint removed) and the volumes in the
+    MC frame, as [x, y, z, phase], the layout the file holds."""
+    from cbctmc_tpu_torch.pipeline import reconstruction
+    from cbctmc_tpu_torch.recon.geometry import mc_scan_angles
+    from cbctmc_tpu_torch.recon.rooster import rooster_reconstruct
+
+    stack, meta = reconstruction.load_projection_stack_for_recon(stack_4d)
+    geometry = reconstruction._stack_geometry(stack, meta, None)
+    volumes = rooster_reconstruct(stack, geometry, mc_scan_angles(len(stack), start_angle=270.0),
+                                  phases, grid=grid, parameters=parameters,
+                                  checkpoint_path=str(checkpoint), device=DEVICE)
+    Path(checkpoint).unlink(missing_ok=True)
+    volumes = np.stack([reconstruction.engine_volume_to_mc_frame(v) for v in volumes])
+    return np.transpose(volumes, (1, 2, 3, 0))
 
 
 class RoosterWalls(logging.Handler):
@@ -3447,6 +3508,338 @@ def cli_path(kernels, card, model_path, signal_path):
     return {"walls": walls, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the training workflows
+# ---------------------------------------------------------------------------
+TRAIN_VIEWS = 8  # a scene (the JAX default 16): one holdout view a scene
+TRAIN_LOW_HISTORIES = 5e7  # a view, the JAX default
+TRAIN_HIGH_HISTORIES = 4e8
+TRAIN_STEPS = 40  # the JAX default 1,200
+TRAIN_PRETRAIN_STEPS = 20  # the JAX default 600
+TRAIN_BATCH = 4
+TRAIN_PATCH = 256
+TRAIN_WARMUP_STEPS = 5  # steps left out of the median step wall
+TRAIN_TRACED_STEP = 30  # traced by the profiler (its wall left out of the median)
+SEG_STEPS = 5
+SEG_PATCH = (96, 96, 96)
+SEG_CASE_SHAPE = (144, 112, 96)  # synthetic_ct.generate_case's default
+PARITY_SPEEDUP_SHAPE = (2, 64, 64)  # batch, H, W of the card-vs-CPU speedup steps
+PARITY_SEG_PATCH = (32, 32, 32)
+PARITY_LR = 2e-4
+# the card's step against the same step in float64 on the CPU: the loss and
+# the global gradient norm relative, the gradients as a relative L2 distance
+# over every parameter, the updated parameters as an RMS in units of the
+# rate. Readings on an NVIDIA H100 80GB HBM3 (700 W): the card at most
+# 9.6e-8, 2.6e-5, 7.6e-3 and 0.084; the float32 CPU steps of its host (the
+# same comparison) up to 3.8e-7, 1.7e-3, 2.2e-2 and 0.095
+PARITY_TOLS = {"loss": 1e-6, "g_norm": 5e-3, "grads": 5e-2, "params": 0.3}
+
+
+def step_parity(label, make_trainer, batches) -> dict:
+    """Each batch's train step on the card and on the CPU from the same
+    state (the CPU's: flax_init on a CPU generator, then the CPU's own
+    float32 updates), each held against the same step in float64 on the CPU
+    (PARITY_TOLS). A float32 step parts from float64 by more than its
+    rounding where the loss is not smooth in the parameters: a max-pool
+    window whose two largest values swap moves a gradient to another
+    weight, so the gradients and the updates read ~1e-3 of their size on
+    either device, and Adam's first steps move a weight by about the rate
+    whatever the size of its gradient. So whether TF32 reached the card's
+    backward is read directly: every convolution's backward pre-hook
+    records cuDNN's TF32 flag as the backward starts, and each must read
+    off. The float32 CPU step and the card's step again with the TF32 flag
+    let into the backward (the trainer's float32 span removed, the net's
+    forward keeping its own) are printed beside it, not held."""
+    import contextlib
+
+    from cbctmc_tpu_torch.models import training
+
+    @contextlib.contextmanager
+    def let_in():
+        previous = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = previous
+
+    def step(trainer, state, batch, n, dtype=torch.float32, tf32=False):
+        dev = trainer.device
+        params = {k: v.to(dev, dtype) for k, v in state.params.items()}
+        opt = training.AdamState(state.opt_state.count,
+                                 {k: v.to(dev, dtype) for k, v in state.opt_state.mu.items()},
+                                 {k: v.to(dev, dtype) for k, v in state.opt_state.nu.items()})
+        trainer.model.to(dtype)
+        saved = training._float32_convolutions
+        if tf32:
+            training._float32_convolutions = let_in
+        hooks = [m.register_full_backward_pre_hook(
+                     lambda *_: flags.append(torch.backends.cudnn.allow_tf32))
+                 for m in trainer.model.modules() if isinstance(m, torch.nn.modules.conv._ConvNd)]
+        try:
+            loss, grads = trainer.gradients(
+                params, {k: v.to(dtype) for k, v in trainer.to_device(batch).items()}, n)
+        finally:
+            training._float32_convolutions = saved
+            for hook in hooks:
+                hook.remove()
+        new, opt, g_norm = trainer.optimizer.update(grads, opt, params)
+        return {"loss": float(loss), "g_norm": float(g_norm),
+                "grads": {k: v.double().cpu() for k, v in grads.items()},
+                "params": {k: v.double().cpu() for k, v in new.items()},
+                "state": training.TrainState({k: v.float().cpu() for k, v in new.items()},
+                                             training.AdamState(opt.count, {k: v.float().cpu()
+                                                                            for k, v in opt.mu.items()},
+                                                                {k: v.float().cpu()
+                                                                 for k, v in opt.nu.items()}))}
+
+    def distance(got, ref, rate):
+        g2 = sum(float(((got["grads"][k] - v) ** 2).sum()) for k, v in ref["grads"].items())
+        r2 = sum(float((v ** 2).sum()) for v in ref["grads"].values())
+        dp = torch.cat([(got["params"][k] - v).flatten() for k, v in ref["params"].items()])
+        return {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                "g_norm": abs(got["g_norm"] - ref["g_norm"]) / ref["g_norm"],
+                "grads": (g2 / r2) ** 0.5, "params": float(dp.pow(2).mean().sqrt()) / rate}
+
+    cpu, card, wide = make_trainer("cpu"), make_trainer(DEVICE), make_trainer("cpu")
+    state = cpu.init(torch.Generator().manual_seed(0), batches[0])
+    rows, failed, flags = [], [], []
+    t0 = time.monotonic()
+    for n, batch in enumerate(batches):
+        rate = float(cpu.optimizer.schedule(n))
+        ref = step(wide, state, batch, n, torch.float64)
+        ours = step(cpu, state, batch, n)
+        flags.clear()
+        got = {"card": step(card, state, batch, n)}
+        if not flags or any(flags):
+            failed.append((n, f"TF32 flag in the backward {flags}"))
+        n_backward = len(flags)
+        got["card with TF32"] = step(card, state, batch, n, tf32=True)
+        row = {"cpu float32": distance(ours, ref, rate),
+               **{k: distance(v, ref, rate) for k, v in got.items()}}
+        failed += [(n, key) for key, tol in PARITY_TOLS.items() if not row["card"][key] <= tol]
+        rows.append(row)
+        state = ours["state"]
+    say(f"train step parity, {label}: each step's distance from the float64 CPU step "
+        f"({len(batches)} step(s), {time.monotonic() - t0:.1f} s): "
+        + "; ".join(f"step {n}: " + ", ".join(
+            f"{who} {' '.join(f'{k} {v:.3e}' for k, v in d.items())}" for who, d in row.items())
+            for n, row in enumerate(rows)) + f" (the card held to {PARITY_TOLS}; the rest "
+        f"printed, not held); cuDNN's TF32 flag off at each of the card's {n_backward} "
+        "convolution backwards a step")
+    if failed:
+        raise AssertionError(f"training: the card's {label} step parts from the CPU's in {failed}")
+    return {"rows": rows}
+
+
+def _leaf_equal(tree_a, tree_b) -> int:
+    """Leaves compared bit for bit; raises on a difference, returns the count."""
+    from cbctmc_tpu_torch.interop import _flat
+
+    a, b = _flat(tree_a), _flat(tree_b)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"the trees' leaves differ: {sorted(set(a) ^ set(b))}")
+    for name, value in a.items():
+        if value.dtype != b[name].dtype or not np.array_equal(value, b[name]):
+            raise AssertionError(f"leaf {name} is not bit-equal")
+    return len(a)
+
+
+def training_path(kernels, card):
+    """The training workflows on the card (phase 16 of the module's
+    docstring). Returns the walls, the launches and the step parity."""
+    import shutil
+
+    from cbctmc_tpu_torch.engine.simulate import MCScanner
+    from cbctmc_tpu_torch.engine.transport import production_engine_config
+    from cbctmc_tpu_torch.interop import flax_tree_from_state_dict
+    from cbctmc_tpu_torch.models import checkpoints, synthetic_ct, training
+    from cbctmc_tpu_torch.models.datasets import SegmentationPatchDataset
+    from cbctmc_tpu_torch.models.segmentation import default_segmenter_model
+    from cbctmc_tpu_torch.models.speedup_net import MCSpeedUpNet
+    from cbctmc_tpu_torch.pipeline import training_workflows
+    from cbctmc_tpu_torch.recon import joseph
+    from cbctmc_tpu_torch.utils import profiling
+
+    folder = OUT / "training"
+    shutil.rmtree(folder, ignore_errors=True)
+    asset = folder / "asset"
+    runs, fp_views, census, traced = [], [], [], []
+
+    def kept_simulate(self, *args, fn=MCScanner.simulate, **kwargs):
+        images, info = fn(self, *args, **kwargs)
+        runs.append(info.iterations)
+        return images, info
+
+    def counted_fp(volume, geometry, angles, *args, fn=joseph.project_forward, **kwargs):
+        fp_views.append(len(angles))
+        return fn(volume, geometry, angles, *args, **kwargs)
+
+    def traced_step(self, params, opt_state, batch, step, fn=training.SpeedupTrainer._train_step):
+        if step != TRAIN_TRACED_STEP:
+            return fn(self, params, opt_state, batch, step)
+        out = []
+        rows, _ = profiling.profile_projection_step(
+            lambda: out.append(fn(self, params, opt_state, batch, step)), top=10, device=DEVICE)
+        census.extend(rows)
+        traced.append(step)
+        return out[0]
+
+    patched = [(MCScanner, "simulate", kept_simulate), (joseph, "project_forward", counted_fp),
+               (training.SpeedupTrainer, "_train_step", traced_step)]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
+    for owner, name, fn in patched:
+        setattr(owner, name, fn)
+    cfg = production_engine_config(**ENGINE_OVERRIDES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_phase = time.monotonic()
+    try:
+        out = training_workflows.run_speedup_pipeline(
+            folder / "speedup", n_views=TRAIN_VIEWS, n_low=TRAIN_LOW_HISTORIES,
+            n_high=TRAIN_HIGH_HISTORIES, n_lanes=ENGINE_OVERRIDES.get("n_lanes"),
+            train_steps=TRAIN_STEPS, pretrain_steps=TRAIN_PRETRAIN_STEPS,
+            batch_size=TRAIN_BATCH, patch=TRAIN_PATCH, asset_dir=asset, device=DEVICE)
+        torch.cuda.synchronize()
+        speedup_peak = torch.cuda.max_memory_allocated()
+        launches = dict(kernels.launch_counts)
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    walls = {f"speedup {k}": v for k, v in out["walls"].items() if k != "train_steps_s"}
+    walls["speedup"] = time.monotonic() - t_phase
+    steps_s = out["walls"]["train_steps_s"]
+    median_step = float(np.median([w for i, w in enumerate(steps_s)
+                                   if i >= TRAIN_WARMUP_STEPS and i not in traced]))
+
+    # the segmenter on patches of one synthetic case
+    t0 = time.monotonic()
+    image, labels = synthetic_ct.generate_case(1000, shape=SEG_CASE_SHAPE)
+    walls["segmenter case"] = time.monotonic() - t0
+    seg = training.SegmentationTrainer(default_segmenter_model(), learning_rate=3e-4,
+                                       device=DEVICE)
+    batches = iter(SegmentationPatchDataset(images=[image], labels=[labels],
+                                            patch_shape=SEG_PATCH, batch_size=1))
+    state = seg.init(torch.Generator().manual_seed(0), next(batches))
+    seg_losses, seg_walls, t_step = [], [], [time.monotonic()]
+
+    def record(step, loss):
+        now = time.monotonic()
+        seg_walls.append(now - t_step[0])
+        t_step[0] = now
+        seg_losses.append(loss)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    seg.fit(state, batches, n_steps=SEG_STEPS, callback=record)
+    walls["segmenter"] = time.monotonic() - t0
+    seg_peak = torch.cuda.max_memory_allocated()
+    del seg, state
+
+    # card against CPU, a step on each side of the pretrain switch; the
+    # inputs keep every pixel away from the losses' kinks (the low
+    # projection above 2, so the bounded residual never clips the mean at 0
+    # and the variance stays above 1e-6; the target above the largest mean,
+    # so no L1 sign turns), where a rounding would move the gradient itself
+    t_checks = time.monotonic()
+    rng = np.random.default_rng(5)
+    b, h, w = PARITY_SPEEDUP_SHAPE
+    speedup_batches = []
+    for _ in range(2):
+        low = (2.5 + rng.gamma(4.0, 0.25, (b, h, w))).astype(np.float32)
+        fp = (low + rng.normal(0.0, 0.05, low.shape)).astype(np.float32)
+        high = (3.0 * low + 1.0 + rng.normal(0.0, 0.02, low.shape)).astype(np.float32)
+        speedup_batches.append({"input": np.stack([low, fp], -1), "target": high[..., None]})
+    parity = {"speedup": step_parity(
+        f"MCSpeedUpNet {PARITY_SPEEDUP_SHAPE}, L1 then NLL",
+        lambda dev: training.SpeedupTrainer(MCSpeedUpNet(), n_pretrain_steps=1,
+                                            learning_rate=PARITY_LR, device=dev),
+        speedup_batches)}
+    patch = next(iter(SegmentationPatchDataset(images=[image], labels=[labels],
+                                               patch_shape=PARITY_SEG_PATCH, seed=3)))
+    parity["segmenter"] = step_parity(
+        f"segmenter {PARITY_SEG_PATCH}",
+        lambda dev: training.SegmentationTrainer(default_segmenter_model(),
+                                                 learning_rate=PARITY_LR, device=dev), [patch])
+
+    # the workflow's results
+    losses = out["losses"] + seg_losses
+    if len(out["losses"]) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"training: {len(out['losses'])} speedup losses, finite "
+                             f"{np.isfinite(losses).all()}")
+    trained = flax_tree_from_state_dict(MCSpeedUpNet(), out["params"])
+    n_leaves = _leaf_equal(checkpoints.load_flax_checkpoint(out["checkpoint"]), trained)
+    report = out["report"]
+    passed, reason = training_workflows.speedup_gate(report)
+    stamp = asset / "default.eval.json"
+    if out["published"] != passed or passed != checkpoints.asset_has_passing_stamp(asset):
+        raise AssertionError(f"training: published {out['published']}, gate {passed}")
+    if passed:
+        if json.loads(stamp.read_text())["quality_gate"] != {"passed": True, "reason": reason}:
+            raise AssertionError("training: the stamp does not carry the gate's verdict")
+        if (asset / "default.ckpt").read_bytes() != out["checkpoint"].read_bytes():
+            raise AssertionError("training: the published weights are not final.ckpt")
+    elif asset.exists():
+        raise AssertionError(f"training: a failing gate wrote {sorted(asset.iterdir())}")
+    # whatever the run's verdict, a passing gate stamps and a failing one
+    # leaves an existing asset as it was
+    stamped = folder / "stamped_asset"
+    if not checkpoints.publish_weights(out["checkpoint"], stamped, report,
+                                       lambda r: (True, "a gate that passes")):
+        raise AssertionError("training: a passing gate did not publish")
+    if (json.loads((stamped / "default.eval.json").read_text())["quality_gate"]
+            != {"passed": True, "reason": "a gate that passes"}
+            or (stamped / "default.ckpt").read_bytes() != out["checkpoint"].read_bytes()
+            or not checkpoints.asset_has_passing_stamp(stamped)):
+        raise AssertionError("training: the passing gate's asset or stamp is wrong")
+    kept = folder / "kept_asset"
+    kept.mkdir()
+    (kept / "default.ckpt").write_bytes(b"earlier weights")
+    (kept / "default.eval.json").write_text("{}")
+    before = {f.name: f.read_bytes() for f in kept.iterdir()}
+    if checkpoints.publish_weights(out["checkpoint"], kept, report,
+                                   lambda r: (False, "a gate that fails")):
+        raise AssertionError("training: a failing gate published")
+    if {f.name: f.read_bytes() for f in kept.iterdir()} != before:
+        raise AssertionError("training: a failing gate touched its target")
+
+    # the kernels of the path
+    expected = expected_phase_launches(sum(runs), cfg)
+    expected["joseph_project"] = sum(-(-n // joseph.PROJECT_VIEW_CHUNK) for n in fp_views)
+    for name in kernels.KERNELS:
+        n = expected.get(name, 0)
+        if launches[name] != n or (name in ("refill", "flight_resolve", "joseph_project")
+                                   and n == 0):
+            raise AssertionError(f"training path: {name} {launches[name]} launches, expected {n}")
+    walls["checks"] = time.monotonic() - t_checks
+    walls["phase"] = time.monotonic() - t_phase
+
+    gains = {k: round(v["psnr_denoised"] - v["psnr_low"], 4) for k, v in report.items()
+             if isinstance(v, dict)}
+    say(f"training path: the speedup pipeline on {TRAIN_VIEWS} views a scene x "
+        f"{TRAIN_LOW_HISTORIES:.1e} / {TRAIN_HIGH_HISTORIES:.1e} histories, {TRAIN_STEPS} steps "
+        f"({TRAIN_PRETRAIN_STEPS} L1) of batch {TRAIN_BATCH} x {TRAIN_PATCH}^2: holdout PSNR gain "
+        f"{report['mean_psnr_gain_db']:+.4f} dB by view {gains} (printed, not held); published "
+        f"{out['published']}; losses {[round(x, 5) for x in out['losses']]}; final.ckpt "
+        f"{n_leaves} leaves bit-equal to the trained parameters; median train step after "
+        f"{TRAIN_WARMUP_STEPS} {median_step * 1e3:.1f} ms (steps {[round(x, 4) for x in steps_s]} "
+        f"s; step {TRAIN_TRACED_STEP} traced); peak device memory {speedup_peak / 1e9:.2f} GB",
+        card)
+    say(f"training path: the segmenter {SEG_STEPS} steps on {SEG_PATCH} patches of a synthetic "
+        f"case {SEG_CASE_SHAPE}: losses {[round(x, 5) for x in seg_losses]}, steps "
+        f"{[round(x, 4) for x in seg_walls]} s (median {np.median(seg_walls) * 1e3:.1f} ms), "
+        f"peak device memory {seg_peak / 1e9:.2f} GB", card)
+    say(f"training path: {len(runs)} engine calls, {sum(runs)} iterations, forward projections "
+        f"of {fp_views} views; launches { {k: v for k, v in launches.items() if v} }; walls "
+        f"{ {k: round(v, 3) for k, v in walls.items()} } s", card)
+    say("training path census of one speedup train step (utils.profiling, top 10 by device "
+        "time): " + "; ".join(f"{r['name'][:70]} {r['total_ms']:.3f} ms x {r['count']}"
+                              for r in census), card)
+    return {"walls": walls, "launches": launches, "parity": parity, "median_step_s": median_step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -3504,6 +3897,9 @@ def main() -> int:
     run_mc["phase"] = time.monotonic() - t_run_mc
     validation = validation_path(kernels, card, scanner)
     cli = cli_path(kernels, card, *run_mc["files"])
+    trained = training_path(kernels, card)
+    for name in ("refill", "flight_resolve", "joseph_project"):
+        launches[name] += trained["launches"][name]
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -3537,7 +3933,8 @@ def main() -> int:
         f"{ {k: round(v, 3) for k, v in recon['walls'].items()} } s; run-mc walls "
         f"{ {k: round(v, 3) for k, v in run_mc.items() if isinstance(v, float)} } s; validation "
         f"{validation['phase']:.3f} s; CLI {cli['walls']['phase']:.3f} s (its checks "
-        f"{cli['walls']['checks']:.3f} s); whole script "
+        f"{cli['walls']['checks']:.3f} s); training {trained['walls']['phase']:.3f} s (its "
+        f"checks {trained['walls']['checks']:.3f} s); whole script "
         f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

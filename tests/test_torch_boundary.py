@@ -65,6 +65,13 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.geometry.mappers",
     "cbctmc_tpu_torch.pipeline.patient",
     "cbctmc_tpu_torch.cli",
+    "cbctmc_tpu_torch.models.losses",
+    "cbctmc_tpu_torch.models.experimental",
+    "cbctmc_tpu_torch.models.training",
+    "cbctmc_tpu_torch.models.datasets",
+    "cbctmc_tpu_torch.models.real_ct",
+    "cbctmc_tpu_torch.models.synthetic_ct",
+    "cbctmc_tpu_torch.pipeline.training_workflows",
 ]
 # the port's scripts, imported as modules (scripts/ on the path)
 PORT_SCRIPTS = ["torch_validation_records"]
@@ -374,3 +381,43 @@ def test_cli_path_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+def test_synthetic_ct_copy_is_the_scripts_text():
+    """The port's synthetic-CT generator is the JAX package's script's code,
+    character for character, from its constants to its generator (tests/
+    test_torch_datasets.py holds the cases bit-equal too)."""
+    script = (REPO / "scripts" / "generate_synthetic_ct.py").read_text()
+    ours = (REPO / "cbctmc_tpu_torch" / "models" / "synthetic_ct.py").read_text()
+    block = script[script.index("N_LABELS = 9"):script.index('if __name__ == "__main__":')]
+    assert block.rstrip() in ours
+
+
+@pytest.mark.parametrize("entry", ["SpeedupTrainer", "SegmentationTrainer", "run_speedup_pipeline",
+                                   "train_speedup", "train_segmentation",
+                                   "train_segmenter_synthetic"])
+def test_training_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
+    """The training slice's entry points run on the card unless the caller
+    passes device="cpu" (tests/test_torch_training.py and
+    tests/test_torch_datasets.py run each on the CPU); without a card they
+    raise before any work."""
+    from cbctmc_tpu_torch.models import training
+    from cbctmc_tpu_torch.models.speedup_net import MCSpeedUpNet
+    from cbctmc_tpu_torch.pipeline import training_workflows as tw
+
+    net = MCSpeedUpNet(mean_filter_base=2, mean_levels=1, var_filter_base=2, var_levels=1)
+    call = {
+        "SpeedupTrainer": lambda **kw: training.SpeedupTrainer(net, **kw),
+        "SegmentationTrainer": lambda **kw: training.SegmentationTrainer(net, **kw),
+        "run_speedup_pipeline": lambda **kw: tw.run_speedup_pipeline(tmp_path / "run", **kw),
+        "train_speedup": lambda **kw: tw.train_speedup(tmp_path / "data", tmp_path / "out", **kw),
+        "train_segmentation": lambda **kw: tw.train_segmentation([], [], tmp_path / "out", **kw),
+        "train_segmenter_synthetic": lambda **kw: tw.train_segmenter_synthetic(
+            tmp_path / "data", tmp_path / "out", **kw),
+    }[entry]
+    if entry.endswith("Trainer"):
+        assert call(device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    assert not any(tmp_path.iterdir())

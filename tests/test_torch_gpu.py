@@ -1038,3 +1038,94 @@ def test_register_on_card_matches_cpu(cuda):
     got = demons.register(blob((19, 16, 16)), blob((16, 16, 16)), params, device=cuda)
     want = demons.register(blob((19, 16, 16)), blob((16, 16, 16)), params, device="cpu")
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# the trainers: a step on the card against the same step on the CPU
+# ---------------------------------------------------------------------------
+def _train_step(trainer, state, batch, n, dtype=torch.float32):
+    """Loss, global gradient norm, gradients and updated parameters (float64,
+    on the CPU) of one step of ``trainer`` from ``state`` (on the CPU), and
+    the CPU state after it."""
+    from cbctmc_tpu_torch.models.training import AdamState, TrainState
+
+    dev = trainer.device
+    params = {k: v.to(dev, dtype) for k, v in state.params.items()}
+    opt = AdamState(state.opt_state.count,
+                    {k: v.to(dev, dtype) for k, v in state.opt_state.mu.items()},
+                    {k: v.to(dev, dtype) for k, v in state.opt_state.nu.items()})
+    loss, grads = trainer.gradients(
+        params, {k: v.to(dtype) for k, v in trainer.to_device(batch).items()}, n)
+    new, opt, g_norm = trainer.optimizer.update(grads, opt, params)
+    out = {"loss": float(loss), "g_norm": float(g_norm),
+           "grads": {k: v.double().cpu() for k, v in grads.items()},
+           "params": {k: v.double().cpu() for k, v in new.items()}}
+    cpu = {k: v.float().cpu() for k, v in new.items()}
+    return out, TrainState(cpu, AdamState(opt.count, {k: v.float().cpu() for k, v in opt.mu.items()},
+                                          {k: v.float().cpu() for k, v in opt.nu.items()}))
+
+
+def _distance(got, ref, rate):
+    g2 = sum(float(((got["grads"][k] - v) ** 2).sum()) for k, v in ref["grads"].items())
+    r2 = sum(float((v ** 2).sum()) for v in ref["grads"].values())
+    dp = torch.cat([(got["params"][k] - v).flatten() for k, v in ref["params"].items()])
+    return {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "g_norm": abs(got["g_norm"] - ref["g_norm"]) / ref["g_norm"],
+            "grads": (g2 / r2) ** 0.5, "params": float(dp.pow(2).mean().sqrt()) / rate}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["speedup", "segmenter"])
+def test_train_step_on_card_matches_cpu(cuda, net):
+    """Full-width nets on small inputs, each step from the same state on the
+    card and in float64 on the CPU: the speedup net one step on each side of
+    the L1 -> NLL switch (inputs away from the losses' kinks), the segmenter
+    one step. The card's distances from the float64 step, as
+    ``chip_smoke.step_parity`` holds them: the loss within 1e-6 and the
+    global gradient norm within 5e-3 (relative), the gradients within 5e-2
+    as a relative L2 distance and the updated parameters within 0.3 of the
+    rate as an RMS (a max-pool window whose two largest values swap moves a
+    gradient to another weight, ~1e-3 of the gradients on either device);
+    cuDNN's TF32 flag off as every convolution's backward starts, and the
+    caller's flag restored."""
+    from cbctmc_tpu_torch.models import training
+    from cbctmc_tpu_torch.models.datasets import SegmentationPatchDataset
+    from cbctmc_tpu_torch.models.segmentation import default_segmenter_model
+    from cbctmc_tpu_torch.models.speedup_net import MCSpeedUpNet
+    from cbctmc_tpu_torch.models.synthetic_ct import generate_case
+
+    rng = np.random.default_rng(5)
+    if net == "speedup":
+        batches = []
+        for _ in range(2):
+            low = (2.5 + rng.gamma(4.0, 0.25, (2, 64, 64))).astype(np.float32)
+            fp = (low + rng.normal(0.0, 0.05, low.shape)).astype(np.float32)
+            high = (3.0 * low + 1.0 + rng.normal(0.0, 0.02, low.shape)).astype(np.float32)
+            batches.append({"input": np.stack([low, fp], -1), "target": high[..., None]})
+        make = lambda dev: training.SpeedupTrainer(MCSpeedUpNet(), n_pretrain_steps=1,
+                                                   learning_rate=2e-4, device=dev)
+    else:
+        image, labels = generate_case(1000, shape=(64, 48, 32))
+        batches = [next(iter(SegmentationPatchDataset(images=[image], labels=[labels],
+                                                      patch_shape=(32, 32, 32), seed=3)))]
+        make = lambda dev: training.SegmentationTrainer(default_segmenter_model(),
+                                                        learning_rate=2e-4, device=dev)
+    previous = torch.backends.cudnn.allow_tf32
+    cpu, card, wide = make("cpu"), make(cuda), make("cpu")
+    state = cpu.init(torch.Generator().manual_seed(0), batches[0])
+    tols = {"loss": 1e-6, "g_norm": 5e-3, "grads": 5e-2, "params": 0.3}
+    flags = []
+    for m in card.model.modules():
+        if isinstance(m, torch.nn.modules.conv._ConvNd):
+            m.register_full_backward_pre_hook(
+                lambda *_: flags.append(torch.backends.cudnn.allow_tf32))
+    for n, batch in enumerate(batches):
+        ref, _ = _train_step(wide, state, batch, n, torch.float64)
+        flags.clear()
+        got, _ = _train_step(card, state, batch, n)
+        assert flags and not any(flags)
+        assert torch.backends.cudnn.allow_tf32 == previous
+        d_card = _distance(got, ref, float(cpu.optimizer.schedule(n)))
+        for key, tol in tols.items():
+            assert d_card[key] <= tol, (n, key, d_card)
+        state = _train_step(cpu, state, batch, n)[1]

@@ -142,7 +142,7 @@ def test_flex_unet_matches_flax(kw, shape):
     params = jax.tree_util.tree_map(lambda p: p + 0.1 if p.ndim == 1 else p, params)
     ours = FlexUNet(n_channels=shape[-1], **kw)
     tree = jax.tree_util.tree_map(np.asarray, params)
-    ours.load_state_dict(interop.flexunet_state_dict_from_flax(tree))
+    ours.load_state_dict(interop.state_dict_from_flax(ours, tree))
     theirs = _flax_apply(jmodel, params, x)
     if kw.get("return_bottleneck"):
         out, bottleneck = theirs
@@ -154,10 +154,11 @@ def test_flex_unet_matches_flax(kw, shape):
 
 
 def test_flex_unet_state_dict_refuses_an_unknown_name():
-    with pytest.raises(ValueError, match="unknown FlexUNet parameter"):
-        interop.flexunet_state_dict_from_flax({"Dense_0": {"kernel": np.zeros((2, 2))}})
-    with pytest.raises(ValueError, match="speedup net"):
-        interop.speedup_state_dict_from_flax({"mean_net": {}})
+    unet = FlexUNet(n_channels=1, n_classes=1, n_levels=1, ndim=2, filter_base=2)
+    with pytest.raises(ValueError, match="no counterpart in FlexUNet"):
+        interop.state_dict_from_flax(unet, {"Dense_0": {"kernel": np.zeros((2, 2))}})
+    with pytest.raises(ValueError, match="MCSpeedUpNet: no flax parameter mean_net/Conv_0"):
+        interop.state_dict_from_flax(MCSpeedUpNet(), {"mean_net": {}})
 
 
 def test_segmenter_asset_matches_flax_at_full_width():
@@ -165,7 +166,7 @@ def test_segmenter_asset_matches_flax_at_full_width():
     32 x 32 x 16 patch: raw logits, so a transposed kernel shows."""
     tree = load_flax_checkpoint(ASSETS / "segmenter" / "default.ckpt")
     ours = segmentation.default_segmenter_model()
-    ours.load_state_dict(interop.flexunet_state_dict_from_flax(tree))
+    ours.load_state_dict(interop.state_dict_from_flax(ours, tree))
     x = np.random.default_rng(2).random((1, 32, 32, 16, 1)).astype(np.float32)
     jmodel = jsegmentation.default_segmenter_model()
     theirs = _flax_apply(jmodel, jax.tree_util.tree_map(jnp.asarray, tree), x)
@@ -176,7 +177,7 @@ def test_speedup_asset_matches_flax_at_full_width():
     """The packaged speedup net (64 / 16 filters) on a 2 x 64 x 64 x 2 batch."""
     tree = load_flax_checkpoint(ASSETS / "speedup" / "default.ckpt")
     ours = MCSpeedUpNet()
-    ours.load_state_dict(interop.speedup_state_dict_from_flax(tree))
+    ours.load_state_dict(interop.state_dict_from_flax(ours, tree))
     rng = np.random.default_rng(3)
     x = np.stack([rng.gamma(4.0, 0.25, (2, 64, 64)), rng.random((2, 64, 64))], -1)
     x = x.astype(np.float32)
@@ -200,7 +201,7 @@ def _hu_volume(shape=(40, 40, 24), seed=4):
 def _segmenters(patch=(32, 32, 16), overlap=0.5):
     path = ASSETS / "segmenter" / "default.ckpt"
     model = segmentation.default_segmenter_model()
-    model.load_state_dict(interop.flexunet_state_dict_from_flax(load_flax_checkpoint(path)))
+    model.load_state_dict(interop.state_dict_from_flax(model, load_flax_checkpoint(path)))
     ours = segmentation.MCSegmenter(model=model, patch_shape=patch, patch_overlap=overlap,
                                     device="cpu")
     jmodel = jsegmentation.default_segmenter_model()
