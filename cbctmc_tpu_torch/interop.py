@@ -8,7 +8,10 @@ and build the port's tensors, so tests can feed both engines one state;
 :func:`primary_volume_from_numpy` does the same for the deterministic
 primary's traversal. :func:`rooster_checkpoint_from_numpy` reads the
 state a 4D ROOSTER run carries from one outer iteration to the next, as
-either package's checkpoint file holds it.
+either package's checkpoint file holds it. :func:`material_set_from_numpy`
+and :func:`generated_material_from_numpy` carry the host-side material
+tables (a ``MaterialTableSet``'s materials, a ``GeneratedMaterial``) into
+the port's types.
 :func:`state_dict_from_flax` carries a net's flax parameter tree (as
 :func:`cbctmc_tpu_torch.models.checkpoints.load_flax_checkpoint` reads it)
 into any of the port's nets (the U-Nets, the speedup net, the experimental
@@ -20,7 +23,8 @@ imports the JAX package.
 
 from __future__ import annotations
 
-from typing import List, Mapping, Tuple
+import dataclasses
+from typing import List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +37,8 @@ from cbctmc_tpu_torch.engine.transport import VoxelVolume
 from cbctmc_tpu_torch.models import experimental as ex
 from cbctmc_tpu_torch.models import flex_unet as fu
 from cbctmc_tpu_torch.models.speedup_net import MCSpeedUpNet
+from cbctmc_tpu_torch.physics.material_generator import GeneratedMaterial
+from cbctmc_tpu_torch.physics.materials import MaterialTables, MaterialTableSet
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -101,6 +107,38 @@ def rooster_checkpoint_from_numpy(fields: Mapping[str, np.ndarray], device=None)
         "outer_done": int(fields["outer_done"]),
         "volumes": _tensor(np.asarray(fields["volumes"], np.float32), dev),
     }
+
+
+def _host_value(value):
+    """A copy of a numpy field; strings and numbers as Python values."""
+    if isinstance(value, (str, bytes)):
+        return str(value)
+    value = np.asarray(value)
+    return value.item() if value.ndim == 0 else value.copy()
+
+
+def material_set_from_numpy(fields: Sequence[Mapping]) -> MaterialTableSet:
+    """A material table set from the JAX ``MaterialTableSet``'s materials,
+    one mapping of ``MaterialTables`` field name to value per material, in
+    the set's (density, i.e. material-number) order, e.g.
+    ``[dataclasses.asdict(m) for m in table_set.materials]``."""
+    names = [f.name for f in dataclasses.fields(MaterialTables)]
+    return MaterialTableSet(
+        materials=[MaterialTables(**{k: _host_value(m[k]) for k in names}) for m in fields]
+    )
+
+
+def generated_material_from_numpy(fields: Mapping) -> GeneratedMaterial:
+    """A generated material from the JAX ``GeneratedMaterial``'s fields
+    (``dataclasses.asdict`` of it): ``rita`` the four arrays (x^2, cdf, a,
+    b), ``rita_limits`` the two (itl, itu)."""
+    values = {k: _host_value(fields[k]) for k in ("name", "formula", "density", "energies",
+                                                  "mfp", "rayleigh_pmax", "shells")}
+    return GeneratedMaterial(
+        rita=tuple(_host_value(a) for a in fields["rita"]),
+        rita_limits=tuple(_host_value(a) for a in fields["rita_limits"]),
+        **values,
+    )
 
 
 def _conv_leaf(name: str, value: np.ndarray) -> torch.Tensor:

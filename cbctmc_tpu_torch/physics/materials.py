@@ -1,10 +1,12 @@
 """Material cross-section tables (host-side numpy).
 
 The port's own copy of the JAX package's ``physics/materials.py``: the
-packed ``.npz`` reader, the density-ordered table set and the two
-linearisations the engine tables are built from. PENELOPE-2006-derived
-per-material photon data: mean free paths on a uniform energy grid, RITA
-tables of the squared molecular form factor, and Compton shell data.
+``.mcgpu`` interchange-file parser (MC-GPU v1.3's material format, plain or
+gzipped), the packed ``.npz`` reader and writer, the density-ordered table
+set and the two linearisations the engine tables are built from.
+PENELOPE-2006-derived per-material photon data: mean free paths on a
+uniform energy grid, RITA tables of the squared molecular form factor, and
+Compton shell data.
 
 Material *numbers* are 1-based in geometry arrays; the engine works 0-based.
 """
@@ -12,8 +14,10 @@ Material *numbers* are 1-based in geometry arrays; the engine works 0-based.
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import re
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -77,6 +81,100 @@ class MaterialTables:
         return len(self.shell_f)
 
 
+def parse_mcgpu_material_file(filepath: Path | str) -> MaterialTables:
+    """Parse a ``.mcgpu`` material interchange file (optionally gzipped).
+
+    Format (see reference assets/material_files/*.mcgpu): a commented header
+    with material name and nominal density, N rows of
+    ``E rayleighMFP comptonMFP photoMFP totalMFP pmax``, a 128-row RITA
+    block and a Compton shell block.
+    """
+    filepath = Path(filepath)
+    opener = gzip.open if filepath.suffix == ".gz" else open
+    with opener(filepath, "rt") as f:
+        lines = f.read().splitlines()
+
+    name = None
+    density = None
+    n_values = None
+    i = 0
+    data_start = None
+    while i < len(lines):
+        line = lines[i]
+        if "[MATERIAL NAME]" in line:
+            name = lines[i + 1].lstrip("# ").strip()
+        elif "[NOMINAL DENSITY" in line:
+            density = float(lines[i + 1].lstrip("# ").strip())
+        elif "[NUMBER OF DATA VALUES]" in line:
+            n_values = int(lines[i + 1].lstrip("# ").strip())
+        elif "[MEAN FREE PATHS" in line:
+            # one more comment line (column header) follows
+            data_start = i + 2
+            break
+        i += 1
+    if None in (name, density, n_values, data_start):
+        raise ValueError(f"Malformed material file header: {filepath}")
+
+    mfp_rows = np.loadtxt(lines[data_start : data_start + n_values], dtype=np.float64)
+    if mfp_rows.shape != (n_values, 6):
+        raise ValueError(f"Expected {n_values}x6 MFP block in {filepath}")
+
+    energies = mfp_rows[:, 0]
+    e0 = float(energies[0])
+    de = float(energies[1] - energies[0])
+    if not np.allclose(np.diff(energies), de, rtol=1e-3):
+        raise ValueError(f"Non-uniform energy grid in {filepath}")
+
+    # RITA block
+    i = data_start + n_values
+    while "[DATA VALUES" not in lines[i]:
+        i += 1
+    n_rita = int(lines[i + 1].lstrip("# ").strip())
+    rita_rows = np.loadtxt(lines[i + 3 : i + 3 + n_rita], dtype=np.float64)
+    if rita_rows.shape != (n_rita, 6):
+        raise ValueError(f"Expected {n_rita}x6 RITA block in {filepath}")
+
+    # Compton shells
+    i = i + 3 + n_rita
+    while "[NUMBER OF SHELLS" not in lines[i]:
+        i += 1
+    n_shells = int(lines[i + 1].lstrip("# ").strip())
+    shell_rows = np.loadtxt(
+        lines[i + 3 : i + 3 + n_shells], dtype=np.float64, ndmin=2
+    )
+
+    if match := re.match(r"(?P<name>.+)\((?P<formula>.*)\)", name):
+        mat_name = match.group("name")
+        formula = match.group("formula")
+    else:
+        mat_name, formula = name, ""
+
+    identifier = str(filepath.name).split("__")[0]
+
+    return MaterialTables(
+        identifier=identifier,
+        name=mat_name,
+        chemical_formula=formula,
+        density=density,
+        e0=e0,
+        de=de,
+        mfp_rayleigh=mfp_rows[:, 1].astype(np.float32),
+        mfp_compton=mfp_rows[:, 2].astype(np.float32),
+        mfp_photoelectric=mfp_rows[:, 3].astype(np.float32),
+        mfp_total=mfp_rows[:, 4].astype(np.float32),
+        rayleigh_pmax=mfp_rows[:, 5].astype(np.float32),
+        rita_x=rita_rows[:, 0].astype(np.float32),
+        rita_p=rita_rows[:, 1].astype(np.float32),
+        rita_a=rita_rows[:, 2].astype(np.float32),
+        rita_b=rita_rows[:, 3].astype(np.float32),
+        rita_itl=rita_rows[:, 4].astype(np.int32),
+        rita_itu=rita_rows[:, 5].astype(np.int32),
+        shell_f=shell_rows[:, 0].astype(np.float32),
+        shell_ui=shell_rows[:, 1].astype(np.float32),
+        shell_j0=shell_rows[:, 2].astype(np.float32),
+    )
+
+
 @dataclasses.dataclass
 class MaterialTableSet:
     """A full set of materials, ordered by nominal density (= material number
@@ -128,6 +226,73 @@ class MaterialTableSet:
     @property
     def registry(self) -> Dict[str, Material]:
         return {m.identifier: self.material(m.identifier) for m in self.materials}
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_mcgpu_files(cls, filepaths: Sequence[Path | str]) -> "MaterialTableSet":
+        materials = [parse_mcgpu_material_file(p) for p in filepaths]
+        # sort by density: defines material numbers (parity with reference)
+        materials.sort(key=lambda m: m.density)
+        e0s = {m.e0 for m in materials}
+        n_bins = {m.n_bins for m in materials}
+        if len(e0s) != 1 or len(n_bins) != 1:
+            raise ValueError("All materials must share one energy grid")
+        return cls(materials=materials)
+
+    @classmethod
+    def from_directory(cls, directory: Path | str, pattern: str = "*.mcgpu"):
+        filepaths = sorted(Path(directory).glob(pattern))
+        if not filepaths:
+            raise FileNotFoundError(f"No material files in {directory}")
+        return cls.from_mcgpu_files(filepaths)
+
+    # ------------------------------------------------------------------
+    # packed npz asset
+    # ------------------------------------------------------------------
+    def save_npz(self, filepath: Path | str):
+        max_shells = max(m.n_shells for m in self.materials)
+        n_mats = self.n_materials
+        n_bins = self.n_bins
+
+        def stack(attr):
+            return np.stack([getattr(m, attr) for m in self.materials])
+
+        shell_f = np.zeros((n_mats, max_shells), np.float32)
+        shell_ui = np.full((n_mats, max_shells), np.float32(np.inf))
+        shell_j0 = np.full((n_mats, max_shells), np.float32(1.0))
+        n_shells = np.zeros((n_mats,), np.int32)
+        for i, m in enumerate(self.materials):
+            n_shells[i] = m.n_shells
+            shell_f[i, : m.n_shells] = m.shell_f
+            shell_ui[i, : m.n_shells] = m.shell_ui
+            shell_j0[i, : m.n_shells] = m.shell_j0
+
+        np.savez_compressed(
+            filepath,
+            identifiers=np.array(self.identifiers),
+            names=np.array([m.name for m in self.materials]),
+            formulas=np.array([m.chemical_formula for m in self.materials]),
+            densities=self.densities,
+            e0=np.float64(self.e0),
+            de=np.float64(self.de),
+            mfp_rayleigh=stack("mfp_rayleigh"),
+            mfp_compton=stack("mfp_compton"),
+            mfp_photoelectric=stack("mfp_photoelectric"),
+            mfp_total=stack("mfp_total"),
+            rayleigh_pmax=stack("rayleigh_pmax"),
+            rita_x=stack("rita_x"),
+            rita_p=stack("rita_p"),
+            rita_a=stack("rita_a"),
+            rita_b=stack("rita_b"),
+            rita_itl=stack("rita_itl"),
+            rita_itu=stack("rita_itu"),
+            n_shells=n_shells,
+            shell_f=shell_f,
+            shell_ui=shell_ui,
+            shell_j0=shell_j0,
+        )
 
     @classmethod
     def from_npz(cls, filepath: Path | str) -> "MaterialTableSet":

@@ -171,7 +171,29 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     its target untouched), cuDNN's TF32 flag off in the card step's
     backward, the launches those of the scans' engine iterations and the
     forward projections' chunks;
-17. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+17. the MC-GPU interchange path (:func:`interchange_path`): the native C++
+    codecs built by ``g++`` (timed); water (``H2O``) and acrylic
+    (``C5H8O2``) made by ``generate_material`` at the shipped 5-125 keV grid,
+    each element given the shipped material's own mass attenuation, written
+    as ``.mcgpu``, parsed back (mean free paths equal to the generated ones at
+    float32) and packed into the shipped set in place of the shipped ones
+    (``save_npz`` -> ``from_npz`` bit-equal); the shipped set written as 22
+    ``.mcgpu`` files and read back by ``from_directory`` (bit-equal); then,
+    the launch counters zeroed just before and read just after, the golden
+    slab (4 keys x 120,000 histories) on the shipped set against the
+    generated-water set, and on the derived half-bowtie spectrum against the
+    shipped asset, each channel's |diff| over 4 combined standard errors and
+    the paired difference printed (the Rayleigh channel of the generated
+    water printed, not required: the JAX engine reads the same systematic on
+    the CPU, ``scripts/check_interchange_slabs.py``); the launches those of
+    the runs' iterations; the run-mc cell's CIRS thorax (350, 260, 142) at 1
+    mm in the engine frame exported as ``.vox.gz`` with an MC-GPU input for
+    its 3D scan (the 22 material files, the default spectrum as ``.spc``,
+    read back by ``from_spc_file``), the body read back by
+    ``parse_ascii_floats`` (materials equal, densities within 5e-7); the
+    native codecs against their plain versions (two planes of the scene, the
+    slab's image); walls by step;
+18. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -460,9 +482,10 @@ def build(kernels, card):
     say(f"built {len(paths)} kernels in {dt:.1f} s: {', '.join(sorted(paths))}")
 
 
-def slab_scene(device=None):
+def slab_scene(device=None, table_set=None, spectrum=None):
     """The golden slab's scene and engine configuration (on the card unless
-    another device is named)."""
+    another device is named): the shipped tables and a 60 keV line unless
+    another table set or spectrum is given."""
     device = device or DEVICE
     from cbctmc_tpu_torch.engine.ct import ScanGeometry, build_scan, select_projection
     from cbctmc_tpu_torch.engine.tables import build_device_tables, build_woodcock_table
@@ -470,9 +493,9 @@ def slab_scene(device=None):
     from cbctmc_tpu_torch.physics.materials import default_material_set
     from cbctmc_tpu_torch.physics.spectrum import Spectrum
 
-    ts = default_material_set()
-    mono = Spectrum("mono60", np.array([59_995.0, 60_005.0], np.float32),
-                    np.array([1.0], np.float32))
+    ts = table_set or default_material_set()
+    mono = spectrum or Spectrum("mono60", np.array([59_995.0, 60_005.0], np.float32),
+                                np.array([1.0], np.float32))
     air, water = ts.material("air"), ts.material("h2o")
     mats = np.full((40, 40, 40), air.number, np.uint8)
     dens = np.full((40, 40, 40), air.density, np.float32)
@@ -3840,6 +3863,303 @@ def training_path(kernels, card):
     return {"walls": walls, "launches": launches, "parity": parity, "median_step_s": median_step}
 
 
+# ---------------------------------------------------------------------------
+# the MC-GPU interchange path (phase 17)
+# ---------------------------------------------------------------------------
+GENERATED = (("h2o", "H2O"), ("acrylic", "C5H8O2"))  # (identifier, formula) made anew
+SLAB_SEEDS = 4  # the golden slab's seeds and histories
+SLAB_HISTORIES = 120_000
+DERIVED_SPECTRUM = (125, 0.89, "half")  # derive_filtered_spectrum's kVp, Ti mm, bowtie
+SHIPPED_SPECTRUM = "125kVp_0.89mmTi_half_bowtie_varian_norm"
+# the channels of each slab pair not required within the limit (printed), and why
+SLAB_NOT_REQUIRED = {
+    "generated water": {2: "the JAX engine on the CPU reads the same Rayleigh systematic"},
+    "derived spectrum": {},
+}
+CHANNELS = ("primary", "Compton", "Rayleigh", "multi-scatter")
+NATIVE_PLANES = 2  # z planes of the exported scene held native against plain
+EXPORT_DENSITY_TOL = 5e-7 + 1e-15  # half a unit of the sixth decimal (and the parse's rounding)
+
+
+def shipped_mu_rho(table_set, identifier):
+    """A ``mu_rho_fn`` that gives every element the shipped material's own
+    mass attenuation, so that the generated compound's mean free paths are
+    the shipped ones; and that material's tables."""
+    m = table_set.materials[table_set.index_of(identifier)]
+    kinds = {"coh": m.mfp_rayleigh, "incoh": m.mfp_compton,
+             "photo": m.mfp_photoelectric, "total": m.mfp_total}
+
+    def mu_rho(z, energies, kind):
+        if len(energies) != m.n_bins:
+            raise AssertionError(f"{identifier}: {len(energies)} energies, tables {m.n_bins}")
+        return 1.0 / (kinds[kind].astype(np.float64) * m.density)
+
+    return mu_rho, m
+
+
+def tables_as_generated(m, e0: float, de: float):
+    """A packed material's tables as ``write_mcgpu_file`` takes them (the
+    shells' KZCO / KSCO columns, which neither package's tables keep,
+    written 0)."""
+    from cbctmc_tpu_torch.physics.material_generator import GeneratedMaterial
+
+    zeros = np.zeros(m.n_shells)
+    return GeneratedMaterial(
+        name=m.name, formula=m.chemical_formula, density=m.density,
+        energies=e0 + de * np.arange(m.n_bins),
+        mfp=np.stack([m.mfp_rayleigh, m.mfp_compton, m.mfp_photoelectric,
+                      m.mfp_total]).astype(np.float64),
+        rayleigh_pmax=m.rayleigh_pmax.astype(np.float64),
+        rita=(m.rita_x, m.rita_p, m.rita_a, m.rita_b), rita_limits=(m.rita_itl, m.rita_itu),
+        shells=np.stack([m.shell_f, m.shell_ui, m.shell_j0, zeros, zeros], 1).astype(np.float64))
+
+
+def tables_differ(a, b) -> list:
+    """The fields in which two sets' materials differ (none when bit-equal;
+    densities as the float32 the packed file keeps)."""
+    if a.identifiers != b.identifiers:
+        return ["identifiers"]
+    out = []
+    for x, y in zip(a.materials, b.materials):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if f.name == "density":
+                u, v = np.float32(u), np.float32(v)
+            same = (u.dtype == v.dtype and np.array_equal(u, v)) if isinstance(u, np.ndarray) \
+                else u == v
+            if not same:
+                out.append(f"{x.identifier}.{f.name}")
+    return out
+
+
+def slab_sums(table_set, spectrum, built=None) -> tuple:
+    """The golden slab's channel sums over SLAB_SEEDS keys (the golden slab
+    phase's) with these tables (or on ``built``, a ``slab_scene`` already
+    made): ``(sums [seeds, 4], iterations, engine config, the first key's
+    image)``."""
+    from cbctmc_tpu_torch.engine.rng import make_key
+    from cbctmc_tpu_torch.engine.transport import run_projection
+
+    scene, cfg = built or slab_scene(table_set=table_set, spectrum=spectrum)
+    images, iterations = [], 0
+    for k in range(SLAB_SEEDS):
+        image, extras = run_projection(*scene, SLAB_HISTORIES, make_key(1234 + k), 32, 32,
+                                       config=cfg, return_stats=True, device=DEVICE)
+        images.append(image.cpu().numpy())
+        iterations += extras["iterations"]
+    sums = np.array([im.astype(np.float64).sum(axis=(1, 2)) for im in images])
+    return sums, iterations, cfg, images[0]
+
+
+def compare_slabs(card, label, ours, theirs) -> dict:
+    """Two slab runs from the same keys: each channel's |mean difference|
+    over the limit, 4 combined standard errors of the two means, and the
+    paired difference (the same random words on both sides) with its t."""
+    n = len(ours)
+    limit = 4.0 * np.sqrt(ours.var(axis=0, ddof=1) / n + theirs.var(axis=0, ddof=1) / n)
+    ratio = np.abs(ours.mean(axis=0) - theirs.mean(axis=0)) / limit
+    paired = ours - theirs
+    rel = paired.mean(axis=0) / theirs.mean(axis=0)
+    t = paired.mean(axis=0) / (paired.std(axis=0, ddof=1) / np.sqrt(n))
+    skip = SLAB_NOT_REQUIRED[label]
+    say(f"interchange slab, {label}: |diff| / limit "
+        f"{dict(zip(CHANNELS, ratio.round(4).tolist()))}; paired relative difference "
+        f"{dict(zip(CHANNELS, rel.round(6).tolist()))}, t {dict(zip(CHANNELS, t.round(2).tolist()))}"
+        + "".join(f"; {CHANNELS[c]} printed, not required: {why}" for c, why in skip.items()),
+        card)
+    missed = [CHANNELS[c] for c in range(4) if c not in skip and not ratio[c] <= 1.0]
+    if missed or not (limit > 0).all():
+        raise AssertionError(f"interchange slab, {label}: {missed} beyond 4 combined standard "
+                             "errors")
+    return {"ratio": ratio.tolist(), "paired_rel": rel.tolist(), "t": t.tolist()}
+
+
+def interchange_path(kernels, card, shipped_slab):
+    """The MC-GPU interchange path (phase 17 of the module's docstring):
+    the native codecs built, two compounds generated, written, parsed and
+    packed, the golden slab on the generated water and on the derived
+    spectrum, the CIRS thorax exported for MC-GPU and read back.
+    ``shipped_slab`` is the golden slab phase's scene (the shipped tables,
+    the 60 keV line), whose tables are not built twice. Returns the walls
+    and the launches."""
+    import gzip
+    import shutil
+
+    from cbctmc_tpu_torch import native
+    from cbctmc_tpu_torch.engine.simulate import SimulationParameters, geometry_to_engine_frame
+    from cbctmc_tpu_torch.geometry.phantoms import CIRSPhantomGeometry
+    from cbctmc_tpu_torch.physics import material_generator as generator
+    from cbctmc_tpu_torch.physics.materials import (MaterialTableSet, default_material_set,
+                                                    parse_mcgpu_material_file)
+    from cbctmc_tpu_torch.physics.spectrum import (Spectrum, default_spectrum,
+                                                   derive_filtered_spectrum)
+    from cbctmc_tpu_torch.utils import interchange
+
+    folder = OUT / "interchange"
+    shutil.rmtree(folder, ignore_errors=True)
+    walls = {}
+    t_phase = time.monotonic()
+
+    # (a) the native codecs, built from the checkout's source
+    t0 = time.monotonic()
+    library = native.build_native()
+    native.parse_ascii_floats("1", 1)  # loads it
+    walls["build"] = time.monotonic() - t0
+
+    # (b) two compounds generated at the shipped grid, written, parsed, packed
+    shipped = default_material_set()
+    parsed = {}
+    for identifier, formula in GENERATED:
+        t0 = time.monotonic()
+        mu_rho, m = shipped_mu_rho(shipped, identifier)
+        made = generator.generate_material(identifier, formula, m.density, mu_rho_fn=mu_rho)
+        walls[f"generate {identifier}"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        path = generator.write_mcgpu_file(made, folder / "generated" /
+                                          f"{identifier}__5_125kev.mcgpu")
+        back = parse_mcgpu_material_file(path)
+        walls[f"write and parse {identifier}"] = time.monotonic() - t0
+        mfp = np.stack([back.mfp_rayleigh, back.mfp_compton, back.mfp_photoelectric,
+                        back.mfp_total])
+        if not (np.array_equal(mfp, made.mfp.astype(np.float32)) and back.identifier == identifier
+                and back.n_bins == shipped.n_bins and back.e0 == shipped.e0):
+            raise AssertionError(f"interchange: {identifier}'s file does not read back as made")
+        say(f"interchange: {identifier} ({formula}) generated, {path.stat().st_size} B; total mean "
+            f"free paths equal to the shipped {np.array_equal(back.mfp_total, m.mfp_total)}, "
+            f"Rayleigh pmax within {np.abs(back.rayleigh_pmax - m.rayleigh_pmax).max():.6g} of "
+            f"the shipped, RITA x^2 to {back.rita_x[-1]:.4g} (shipped {m.rita_x[-1]:.6g}), "
+            f"{back.n_shells} shells (shipped {m.n_shells})", card)
+        parsed[identifier] = back
+    packed = MaterialTableSet(materials=[parsed.get(m.identifier, m) for m in shipped.materials])
+    t0 = time.monotonic()
+    packed.save_npz(folder / "generated_set.npz")
+    differ = tables_differ(MaterialTableSet.from_npz(folder / "generated_set.npz"), packed)
+    walls["pack"] = time.monotonic() - t0
+    if differ:
+        raise AssertionError(f"interchange: save_npz -> from_npz differs in {differ[:5]}")
+    # the shipped set through its interchange files (and the MC-GPU input's
+    # material list below)
+    t0 = time.monotonic()
+    material_files = [
+        generator.write_mcgpu_file(tables_as_generated(m, shipped.e0, shipped.de),
+                                   folder / "materials" / f"{m.identifier}__5_125kev.mcgpu")
+        for m in shipped.materials]
+    walls["shipped set written"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    differ = tables_differ(MaterialTableSet.from_directory(folder / "materials"), shipped)
+    walls["shipped set read"] = time.monotonic() - t0
+    if differ:
+        raise AssertionError(f"interchange: the shipped set's files read back differ in "
+                             f"{differ[:5]}")
+
+    # (c) the golden slab: shipped against generated water, the shipped
+    # half-bowtie spectrum against the derived one
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    mono_shipped, it_a, cfg, _ = slab_sums(shipped, None, shipped_slab)
+    mono_generated, it_b, _, image = slab_sums(packed, None)
+    asset = default_spectrum(SHIPPED_SPECTRUM)
+    derived = derive_filtered_spectrum(*DERIVED_SPECTRUM)
+    poly_asset, it_c, _, _ = slab_sums(shipped, asset)
+    poly_derived, it_d, _, _ = slab_sums(shipped, derived)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    walls["slab runs"] = time.monotonic() - t0
+    iterations = it_a + it_b + it_c + it_d
+    slabs = {"generated water": compare_slabs(card, "generated water", mono_generated,
+                                              mono_shipped),
+             "derived spectrum": compare_slabs(card, "derived spectrum", poly_derived,
+                                               poly_asset)}
+    say(f"interchange slab: derived spectrum {derived.name} ({derived.n_bins} bins from "
+        f"{derived.min_energy:.0f} eV, mean {derived.mean_energy:.2f} eV) against {asset.name} "
+        f"({asset.n_bins} bins from {asset.min_energy:.0f} eV, mean {asset.mean_energy:.2f} eV)",
+        card)
+    expected = expected_phase_launches(iterations, cfg)
+    for name in kernels.KERNELS:
+        n = expected.get(name, 0)
+        if launches[name] != n or (name in ("refill", "flight_resolve") and n == 0):
+            raise AssertionError(f"interchange: {name} {launches[name]} launches, expected {n}")
+
+    # (d) the run-mc cell's thorax exported for MC-GPU, with an input for its
+    # 3D scan, and read back
+    t0 = time.monotonic()
+    thorax = CIRSPhantomGeometry.synthetic_thorax(shape=THORAX_SHAPE).place_insert(
+        insert_center=INSERT_CENTER)
+    mats, dens, spacing_cm = geometry_to_engine_frame(thorax.materials, thorax.densities,
+                                                      thorax.image_spacing)
+    walls["thorax"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    vox = interchange.export_mcgpu_geometry(mats, dens, spacing_cm, folder / "thorax.vox.gz")
+    walls["export .vox.gz"] = time.monotonic() - t0
+    spectrum = default_spectrum()
+    spc = folder / f"{spectrum.name}.spc"
+    rows = [f"{float(e)!r} {float(p)!r}" for e, p in zip(spectrum.energies, spectrum.probabilities)]
+    spc.write_text("\n".join(rows + [f"{float(spectrum.energies[-1])!r} -1"]) + "\n")
+    spc_back = Spectrum.from_spc_file(spc)
+    if not (np.array_equal(spc_back.energies, spectrum.energies)
+            and np.array_equal(spc_back.probabilities, spectrum.probabilities)):
+        raise AssertionError("interchange: the .spc spectrum does not read back")
+    params = SimulationParameters()
+    size_mm = [n * s for n, s in zip(thorax.materials.shape, thorax.image_spacing)]
+    source_cm = (size_mm[0] / 20.0, (size_mm[1] / 2 - params.source_to_isocenter_distance) / 10.0,
+                 size_mm[2] / 20.0)  # MCScanner's source placement
+    inp = interchange.export_mcgpu_input(
+        folder / "thorax_3d.in", voxel_geometry_filepath=str(vox),
+        material_filepaths=[str(p) for p in material_files], spectrum_filepath=str(spc),
+        output_folder=str(folder / "mcgpu_out"), n_histories=MC4D_HISTORIES,
+        source_position_cm=source_cm, n_projections=MC3D_VIEWS,
+        angle_between_projections=360.0 / MC3D_VIEWS, random_seed=7)
+    text = inp.read_text()
+    listed = text.split("#[SECTION MATERIAL FILE LIST v.2009-11-30]\n", 1)[1].split()
+    if listed != [str(p) for p in material_files] or str(vox) not in text:
+        raise AssertionError("interchange: the MC-GPU input does not name the scene's files")
+    t0 = time.monotonic()
+    payload = gzip.decompress(vox.read_bytes())
+    walls["decompress"] = time.monotonic() - t0
+    body = payload.split(b"[END OF VXH SECTION]\n", 1)[1]
+    t0 = time.monotonic()
+    values = native.parse_ascii_floats(body, 2 * mats.size)
+    walls["parse"] = time.monotonic() - t0
+    if values.size != 2 * mats.size:
+        raise AssertionError(f"interchange: {values.size} values read, {2 * mats.size} written")
+    values = values.reshape(mats.shape[::-1] + (2,))
+    d_mats = int((values[..., 0].T != mats).sum())
+    d_dens = float(np.abs(values[..., 1].T - dens).max())
+    if d_mats or not d_dens <= EXPORT_DENSITY_TOL:
+        raise AssertionError(f"interchange: the .vox body reads back with {d_mats} materials "
+                             f"changed, densities within {d_dens}")
+
+    # native against plain: a block of the scene, and the slab's image
+    t0 = time.monotonic()
+    block_m = np.ascontiguousarray(np.transpose(mats[..., :NATIVE_PLANES], (2, 1, 0)))
+    block_d = np.ascontiguousarray(np.transpose(dens[..., :NATIVE_PLANES], (2, 1, 0)))
+    rendered = native.render_vox_lines(block_m, block_d)
+    same_render = rendered == native.render_vox_lines_reference(block_m, block_d)
+    same_parse = np.array_equal(native.parse_ascii_floats(rendered, 2 * block_m.size),
+                                native.parse_ascii_floats_reference(rendered, 2 * block_m.size))
+    pixels = np.tile(np.arange(32 * 32), 4)  # the four channels summed by pixel
+    tally = native.accumulate_fixed_point(image, pixels, 32 * 32)
+    same_tally = np.array_equal(tally, native.accumulate_fixed_point_reference(image, pixels,
+                                                                               32 * 32))
+    walls["native against plain"] = time.monotonic() - t0
+    if not (same_render and same_parse and same_tally):
+        raise AssertionError(f"interchange: native against plain: render {same_render}, parse "
+                             f"{same_parse}, fixed point {same_tally}")
+    walls["phase"] = time.monotonic() - t_phase
+    mb = len(payload) / 1e6
+    say(f"interchange: thorax {mats.shape} exported ({mb:.1f} MB of text, "
+        f"{vox.stat().st_size / 1e6:.2f} MB gzipped: {mb / walls['export .vox.gz']:.1f} MB/s "
+        f"rendered and compressed), parsed back at {mb / walls['parse']:.1f} MB/s, materials "
+        f"equal, densities within {d_dens:.3g}; {len(material_files)} material files, "
+        f"{spc.name}, {inp.name}; native against plain on {NATIVE_PLANES} planes and the slab's "
+        f"image equal; library {library.name}", card)
+    say(f"interchange path: {iterations} engine iterations on the slab; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; walls "
+        f"{ {k: round(v, 3) for k, v in walls.items()} } s", card)
+    return {"walls": walls, "launches": launches, "slabs": slabs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -3900,6 +4220,9 @@ def main() -> int:
     trained = training_path(kernels, card)
     for name in ("refill", "flight_resolve", "joseph_project"):
         launches[name] += trained["launches"][name]
+    exported = interchange_path(kernels, card, (scene, slab_cfg))
+    for name in ("refill", "flight_resolve"):
+        launches[name] += exported["launches"][name]
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -3934,7 +4257,8 @@ def main() -> int:
         f"{ {k: round(v, 3) for k, v in run_mc.items() if isinstance(v, float)} } s; validation "
         f"{validation['phase']:.3f} s; CLI {cli['walls']['phase']:.3f} s (its checks "
         f"{cli['walls']['checks']:.3f} s); training {trained['walls']['phase']:.3f} s (its "
-        f"checks {trained['walls']['checks']:.3f} s); whole script "
+        f"checks {trained['walls']['checks']:.3f} s); interchange "
+        f"{exported['walls']['phase']:.3f} s; whole script "
         f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

@@ -72,6 +72,10 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.models.real_ct",
     "cbctmc_tpu_torch.models.synthetic_ct",
     "cbctmc_tpu_torch.pipeline.training_workflows",
+    "cbctmc_tpu_torch.physics.material_generator",
+    "cbctmc_tpu_torch.native",
+    "cbctmc_tpu_torch.utils.interchange",
+    "cbctmc_tpu_torch.utils.common",
 ]
 # the port's scripts, imported as modules (scripts/ on the path)
 PORT_SCRIPTS = ["torch_validation_records"]
@@ -421,3 +425,27 @@ def test_training_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
     assert not any(tmp_path.iterdir())
+
+
+def test_failed_native_build_raises_and_falls_back_to_nothing(monkeypatch, tmp_path):
+    """A missing compiler (or a failed build) raises from every codec: the
+    port has no numpy fall-back on its path."""
+    from cbctmc_tpu_torch import native
+
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "_lib", None)
+    mats, dens = np.ones(4, np.uint8), np.ones(4, np.float32)
+    calls = [
+        lambda: native.render_vox_lines(mats, dens),
+        lambda: native.parse_ascii_floats("1 2 3", 3),
+        lambda: native.accumulate_fixed_point(dens, np.zeros(4, np.int64), 2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cannot be built"):
+            call()
+    assert native._lib is None and not any((tmp_path / "_build").iterdir())
+    monkeypatch.setattr(native, "CXX", "false")  # a compiler that fails
+    with pytest.raises(RuntimeError, match="failed to build"):
+        native.parse_ascii_floats("1 2 3", 3)
+    assert native._lib is None and not any((tmp_path / "_build").iterdir())

@@ -129,6 +129,7 @@ def test_asset_byte_identical(name):
 
 def test_assets_complete():
     assert set(ASSETS) == {
+        "atomic_data.npz",
         "materials_125kev.npz",
         "bowtie_filters.npz",
         "spectrum_125kVp_0.89mmTi.npz",
