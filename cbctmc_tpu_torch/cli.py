@@ -466,11 +466,14 @@ _LOGLEVEL = click.option("--loglevel", type=click.Choice(
 
 
 def _gpu_device(gpu: Tuple[int, ...]) -> str:
-    """``--gpu`` as the device: the card of the one index given."""
+    """``--gpu`` as the device: the card of the one index given. The JAX
+    CLI ignores ``--gpu`` and never shards a run; a run over several cards
+    is ``cbctmc_tpu_torch.parallel`` under ``torchrun``, not this option."""
     if len(gpu) != 1:
         raise click.UsageError(
-            f"--gpu {' --gpu '.join(map(str, gpu))}: the port runs on one card; "
-            "runs sharded over several cards are not ported yet"
+            f"--gpu {' --gpu '.join(map(str, gpu))}: a command runs on one card; to "
+            "shard a run over several, launch cbctmc_tpu_torch.parallel's "
+            "run_projection_sharded / run_scan_sharded under torchrun"
         )
     return f"cuda:{gpu[0]}"
 

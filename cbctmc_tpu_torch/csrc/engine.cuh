@@ -56,6 +56,19 @@ struct Params {
   float corner_x, corner_z, inv_pix_x, inv_pix_z;
 };
 
+// the tables and tallies of the engine's v4 options (transport.py
+// EngineConfig), read only by the flight_resolve instantiations that turn
+// each on: sigma_mode "table" (pair), rayleigh_mode "rita" (pmax, rita) and
+// tally_dose (voxel_dose, material_dose); null / 0 where an option is off
+struct OptionTables {
+  const float2* pair;     // [n_pair] (a, b): inv_mfp = a + E * b at ebin * n_mats + mat
+  const float* pmax;      // [n_pmax] RITA pmax at ebin * n_mats + mat
+  const float* rita;      // [4][rita_plane] x, p, a, b; rita_plane = n_mats * 128
+  float* voxel_dose;      // [n_voxels] eV
+  float* material_dose;   // [dose_len / 2][2] eV, eV^2
+  int n_pair, n_pmax, rita_plane, dose_len;
+};
+
 // source, spectrum and interaction-sampler constants
 struct PhaseParams {
   int n, n_spec_bins, n_bins, n_ie, k_knots, n_icdf_rows, n_mats, s_max;

@@ -90,11 +90,18 @@ __device__ __forceinline__ int detector_pixel(float px, float py, float pz, floa
 // [n_mats, 3*cheb_d + 6] coefficient table (in shared memory);
 // `budget_covers_lanes` the adoption guard remaining >= n_lanes as the
 // launch read it. Returns true when the lane adopted its candidate.
+// kTableSigma (sigma_mode "table"): the total inverse MFP is one float2
+// read of the fused (energy bin, material) table `pair` of `n_pair` rows
+// (the bin clipped into the grid, the index into the table, as the JAX
+// engine's gather clamps it) instead of the three Chebyshev channels.
+template <bool kTableSigma = false>
 __device__ __forceinline__ bool flight_lane(LaneRegs& s, const Candidates& C, int i,
                                             float u_step, float u_int,
                                             const uint32_t* __restrict__ packed,
                                             const float* s_coeff,
-                                            bool budget_covers_lanes, const Params& P) {
+                                            bool budget_covers_lanes, const Params& P,
+                                            const float2* __restrict__ pair = nullptr,
+                                            int n_pair = 0) {
   float px = s.px, py = s.py, pz = s.pz;
   const float dx = s.dx, dy = s.dy, dz = s.dz;
   const float energy = s.energy;
@@ -163,14 +170,24 @@ __device__ __forceinline__ bool flight_lane(LaneRegs& s, const Candidates& C, in
   const int ks_new = (int)((word >> 21) & 7u);
   const float den = (float)(word & 0x1FFFFFu) * P.den_scale;
 
-  // ---- total inverse MFP from the Chebyshev rows -----------------------
-  const int mrow = mat < P.n_mats ? mat : P.n_mats - 1;
-  const float* row = s_coeff + mrow * (3 * P.cheb_d + 6);
-  const float sa = sigma_arg(log_e, P);
-  const float s_c = sigma_channel(row, P.cheb_d, 0, sa);
-  const float s_r = sigma_channel(row, P.cheb_d, 1, sa);
-  const float s_p = sigma_channel(row, P.cheb_d, 2, sa);
-  const float inv_tot = s_c + s_r + s_p;
+  // ---- total inverse MFP from the Chebyshev rows (or the pair table) ---
+  float inv_tot;
+  if constexpr (kTableSigma) {
+    const int n_bins = n_pair / P.n_mats;
+    const int b = s.ebin < 0 ? 0 : (s.ebin > n_bins - 1 ? n_bins - 1 : s.ebin);
+    int idx = b * P.n_mats + mat;
+    idx = idx < 0 ? 0 : (idx > n_pair - 1 ? n_pair - 1 : idx);
+    const float2 ab = __ldg(pair + idx);
+    inv_tot = ab.x + energy * ab.y;
+  } else {
+    const int mrow = mat < P.n_mats ? mat : P.n_mats - 1;
+    const float* row = s_coeff + mrow * (3 * P.cheb_d + 6);
+    const float sa = sigma_arg(log_e, P);
+    const float s_c = sigma_channel(row, P.cheb_d, 0, sa);
+    const float s_r = sigma_channel(row, P.cheb_d, 1, sa);
+    const float s_p = sigma_channel(row, P.cheb_d, 2, sa);
+    inv_tot = s_c + s_r + s_p;
+  }
   const float mfp_den = mfp_samp * den;
   const float p_delta = 1.0f - mfp_den * inv_tot;
 

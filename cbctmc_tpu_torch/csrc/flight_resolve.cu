@@ -52,10 +52,32 @@
 // whether it holds a live lane or a waiting record, and the last block
 // writes the live word, the iteration number and CTRL_RUN after the budget:
 // the loop condition never leaves the device.
+//
+// The engine's v4 options (the JAX engine's EngineConfig) are compile-time
+// parameters of the kernel, the launch picks the instantiation, and the
+// production one (all false) is the code it was:
+// - kTableSigma (sigma_mode "table"): the flight's total inverse MFP is one
+//   float2 __ldg of the ~4 MB fused (energy bin, material) pair table
+//   (flight.cuh) in place of the three Chebyshev channels; the resolve
+//   still branches on the Chebyshev partials, as the JAX engine's does;
+// - kRita (rayleigh_mode "rita"): a Rayleigh lane samples its angle by RITA
+//   with Thomson rejection (samplers.cuh rayleigh_rita_costh: bisection over
+//   the material's 128-point p row, the interval's values by __ldg, up to 12
+//   trips of 3 uniforms from the rows after the azimuth's) with pmax of the
+//   next energy bin, instead of the Rayleigh inverse CDF; Compton keeps its
+//   tabulated angle;
+// - kDose (tally_dose): each photoelectric and Compton deposit (KERMA: the
+//   photon's energy, or what the Compton event took from it) goes into
+//   voxel_dose by one atomicAdd, and into the block's per-material sums of
+//   energy and energy squared in shared memory (all lanes hit some 22
+//   addresses, so lane-wise global atomics would serialise); the block adds
+//   each non-zero sum to material_dose with one atomicAdd. Float32 sums, in
+//   an order that changes from run to run.
 
 #include "flight.cuh"
 #include "samplers.cuh"
 
+template <bool kTableSigma, bool kRita, bool kDose>
 __global__ void __launch_bounds__(PHASE_THREADS)
 flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, int with_tally,
                       const uint32_t* __restrict__ packed,
@@ -64,7 +86,7 @@ flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, in
                       int shell_len, float* __restrict__ image, int32_t* ctrl,
                       unsigned long long* counters, double* energy_sum, int32_t* block_dead,
                       const Params* __restrict__ params,
-                      const PhaseParams* __restrict__ phase) {
+                      const PhaseParams* __restrict__ phase, const OptionTables opt) {
   extern __shared__ float s_tab[];
   __shared__ Params s_params;
   __shared__ PhaseParams s_phase;
@@ -72,8 +94,12 @@ flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, in
   __shared__ double s_dbuf[32];
   float* s_coeff = s_tab;
   float* s_shell = s_tab + coeff_len;
+  float* s_mdose = s_shell + shell_len;  // kDose: [n_mats][2] of this block
   for (int j = threadIdx.x; j < coeff_len; j += blockDim.x) s_coeff[j] = coeffs[j];
   for (int j = threadIdx.x; j < shell_len; j += blockDim.x) s_shell[j] = shells[j];
+  if constexpr (kDose) {
+    for (int j = threadIdx.x; j < opt.dose_len; j += blockDim.x) s_mdose[j] = 0.0f;
+  }
   stage_struct(&s_params, params);
   stage_struct(&s_phase, phase);
   const Ctrl ctrl_in = read_ctrl(ctrl, s_ctrl);  // also orders the tables
@@ -107,8 +133,8 @@ flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, in
         was_active = 1;
         const float u_step = u_open(rng, flight_row);
         const float u_int = u_open(rng, flight_row + 1);
-        adopted = flight_lane(s, C, i, u_step, u_int, packed, s_coeff,
-                              ctrl_in.remaining >= n, P);
+        adopted = flight_lane<kTableSigma>(s, C, i, u_step, u_int, packed, s_coeff,
+                                           ctrl_in.remaining >= n, P, opt.pair, opt.n_pair);
       }
       if (resolve_row >= 0 && s.alive && s.pending) {
         const float energy = s.energy;
@@ -121,11 +147,21 @@ flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, in
         const bool want_c = s.xi < inv_com;
         const bool want_r = !want_c && s.xi < inv_com + inv_ray;
         if (want_c || want_r) {
-          const float u0 = u_open(rng, resolve_row);
-          const float u1 = u_open(rng, resolve_row + 1);
-          const float cdt1 = sample_icdf_cdt1(u0, u1, log_e, want_r ? Q.n_icdf_rows : 0, mat,
-                                              icdf, Q);
-          const float costh = 1.0f - cdt1;
+          float cdt1 = 0.0f, costh;
+          if (kRita && want_r) {
+            // pmax of the next energy bin, the bin clipped into the grid
+            const int pb = s.ebin + 1 < 0 ? 0 : (s.ebin + 1 > Q.n_bins - 1 ? Q.n_bins - 1
+                                                                          : s.ebin + 1);
+            int pi = pb * Q.n_mats + mat;
+            pi = pi < 0 ? 0 : (pi > opt.n_pmax - 1 ? opt.n_pmax - 1 : pi);
+            costh = rayleigh_rita_costh(energy, mat, __ldg(opt.pmax + pi), opt.rita,
+                                        opt.rita_plane, rng, resolve_row + RESOLVE_ROWS);
+          } else {
+            const float u0 = u_open(rng, resolve_row);
+            const float u1 = u_open(rng, resolve_row + 1);
+            cdt1 = sample_icdf_cdt1(u0, u1, log_e, want_r ? Q.n_icdf_rows : 0, mat, icdf, Q);
+            costh = 1.0f - cdt1;
+          }
           if (want_c) {
             n_compton = 1;
             s.energy = compton_shell_energy(energy, cdt1, s_shell + mat * Q.s_max,
@@ -133,6 +169,12 @@ flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, in
                                             resolve_row + 2);
             s.ebin = ebin_of(s.energy, Q);
             if (s.ebin < 0) s.alive = false;  // below the energy grid: absorbed
+            if constexpr (kDose) {
+              const float edep = energy - s.energy;
+              atomicAdd(opt.voxel_dose + s.vox, edep);
+              atomicAdd(s_mdose + 2 * mat, edep);
+              atomicAdd(s_mdose + 2 * mat + 1, edep * edep);
+            }
           } else {
             n_rayleigh = 1;
           }
@@ -142,6 +184,11 @@ flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, in
         } else {
           n_photo = 1;
           s.alive = false;
+          if constexpr (kDose) {
+            atomicAdd(opt.voxel_dose + s.vox, energy);
+            atomicAdd(s_mdose + 2 * mat, energy);
+            atomicAdd(s_mdose + 2 * mat + 1, energy * energy);
+          }
         }
         s.pending = false;
       }
@@ -181,6 +228,27 @@ flight_resolve_kernel(Lanes L, Candidates C, int flight_row, int resolve_row, in
     if (tallied) atomicAdd(energy_sum, tallied_energy);
     settle_launch(ctrl, adopted, CTRL_LAUNCHES_FLIGHT_RESOLVE, with_tally != 0, live);
   }
+  if constexpr (kDose) {
+    __syncthreads();  // every lane's deposit is in s_mdose
+    for (int j = threadIdx.x; j < opt.dose_len; j += blockDim.x) {
+      const float v = s_mdose[j];
+      if (v != 0.0f) atomicAdd(opt.material_dose + j, v);
+    }
+  }
+}
+
+template <bool kTableSigma, bool kRita, bool kDose>
+static void launch_variant(int blocks, size_t shared, cudaStream_t stream, const Lanes& lanes,
+                           const Candidates& cands, int flight_row, int resolve_row,
+                           int with_tally, const uint32_t* packed, const float* coeffs,
+                           int coeff_len, const float* icdf, const float* shells,
+                           int shell_len, float* image, int32_t* ctrl,
+                           unsigned long long* counters, double* energy_sum,
+                           int32_t* block_dead, const Params* params,
+                           const PhaseParams* phase, const OptionTables& opt) {
+  flight_resolve_kernel<kTableSigma, kRita, kDose><<<blocks, PHASE_THREADS, shared, stream>>>(
+      lanes, cands, flight_row, resolve_row, with_tally, packed, coeffs, coeff_len, icdf,
+      shells, shell_len, image, ctrl, counters, energy_sum, block_dead, params, phase, opt);
 }
 
 extern "C" int flight_resolve_launch(const Lanes* lanes, const Candidates* cands,
@@ -190,13 +258,29 @@ extern "C" int flight_resolve_launch(const Lanes* lanes, const Candidates* cands
                                      int shell_len, int n, float* image, int32_t* ctrl,
                                      unsigned long long* counters, double* energy_sum,
                                      int32_t* block_dead, const Params* params,
-                                     const PhaseParams* phase, void* stream) {
+                                     const PhaseParams* phase, const OptionTables* opt,
+                                     int variant, void* stream) {
+  // variant: bit 0 sigma_mode "table", bit 1 rayleigh_mode "rita", bit 2 tally_dose
   if (n > 0) {
     const int blocks = (n + PHASE_THREADS - 1) / PHASE_THREADS;
-    const size_t shared = (coeff_len + shell_len) * sizeof(float);
-    flight_resolve_kernel<<<blocks, PHASE_THREADS, shared, (cudaStream_t)stream>>>(
-        *lanes, *cands, flight_row, resolve_row, with_tally, packed, coeffs, coeff_len, icdf,
-        shells, shell_len, image, ctrl, counters, energy_sum, block_dead, params, phase);
+    const size_t shared =
+        (coeff_len + shell_len + ((variant & 4) ? opt->dose_len : 0)) * sizeof(float);
+#define FLIGHT_RESOLVE_VARIANT(T, R, D)                                                  \
+  launch_variant<T, R, D>(blocks, shared, (cudaStream_t)stream, *lanes, *cands, flight_row, \
+                          resolve_row, with_tally, packed, coeffs, coeff_len, icdf, shells,  \
+                          shell_len, image, ctrl, counters, energy_sum, block_dead, params,  \
+                          phase, *opt)
+    switch (variant & 7) {
+      case 0: FLIGHT_RESOLVE_VARIANT(false, false, false); break;
+      case 1: FLIGHT_RESOLVE_VARIANT(true, false, false); break;
+      case 2: FLIGHT_RESOLVE_VARIANT(false, true, false); break;
+      case 3: FLIGHT_RESOLVE_VARIANT(true, true, false); break;
+      case 4: FLIGHT_RESOLVE_VARIANT(false, false, true); break;
+      case 5: FLIGHT_RESOLVE_VARIANT(true, false, true); break;
+      case 6: FLIGHT_RESOLVE_VARIANT(false, true, true); break;
+      default: FLIGHT_RESOLVE_VARIANT(true, true, true); break;
+    }
+#undef FLIGHT_RESOLVE_VARIANT
   }
   return (int)cudaGetLastError();
 }

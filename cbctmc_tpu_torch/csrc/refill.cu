@@ -33,9 +33,17 @@
 // consecutive rows, so a lane that starts a history and samples its
 // candidate makes three Philox calls (the pools at rows 0 and 6 share the
 // group of rows 4..7).
+//
+// spectrum_mode "alias" (the JAX engine's Walker-alias sampler,
+// samplers.py sample_spectrum_energy) is the instantiation kAlias = true:
+// the staged table is then the [n_spec_bins][5] alias rows (600 floats for
+// the shipped spectrum) and a photon's energy reads one row from shared
+// memory instead of bisecting the CDF; the launch picks the instantiation,
+// and the production one (kAlias = false) is the code it was.
 
 #include "samplers.cuh"
 
+template <bool kAlias>
 __global__ void __launch_bounds__(PHASE_THREADS)
 refill_kernel(Lanes L, Candidates C, int pool, int cand_pool,
               const float* __restrict__ spec, int spec_len, int32_t* ctrl,
@@ -77,7 +85,7 @@ refill_kernel(Lanes L, Candidates C, int pool, int cand_pool,
   Rng rng = rng_for_lane(ctrl_in.k0, ctrl_in.k1, ctrl_in.iteration, (uint32_t)i);
   int started = 0;
   if (want) {
-    const Photon p = sample_photon(rng, pool, s_spec, Q);
+    const Photon p = sample_photon<kAlias>(rng, pool, s_spec, Q);
     if (p.ok) {
       started = 1;
       L.px[i] = p.px; L.py[i] = p.py; L.pz[i] = p.pz;
@@ -94,7 +102,7 @@ refill_kernel(Lanes L, Candidates C, int pool, int cand_pool,
     }
   }
   if (with_candidates && i < n) {
-    const Photon p = sample_photon(rng, cand_pool, s_spec, Q);
+    const Photon p = sample_photon<kAlias>(rng, cand_pool, s_spec, Q);
     C.px[i] = p.px; C.py[i] = p.py; C.pz[i] = p.pz;
     C.dx[i] = p.dx; C.dy[i] = p.dy; C.dz[i] = p.dz;
     C.energy[i] = p.energy;
@@ -114,11 +122,17 @@ extern "C" int refill_launch(const Lanes* lanes, const Candidates* cands, int po
                              int cand_pool, const float* spec, int spec_len, int n,
                              int32_t* ctrl, unsigned long long* counters,
                              const int32_t* block_dead, const PhaseParams* phase,
-                             void* stream) {
+                             int alias, void* stream) {
   if (n > 0) {
     const int blocks = (n + PHASE_THREADS - 1) / PHASE_THREADS;
-    refill_kernel<<<blocks, PHASE_THREADS, spec_len * sizeof(float), (cudaStream_t)stream>>>(
-        *lanes, *cands, pool, cand_pool, spec, spec_len, ctrl, counters, block_dead, phase);
+    const size_t shared = spec_len * sizeof(float);
+    if (alias) {
+      refill_kernel<true><<<blocks, PHASE_THREADS, shared, (cudaStream_t)stream>>>(
+          *lanes, *cands, pool, cand_pool, spec, spec_len, ctrl, counters, block_dead, phase);
+    } else {
+      refill_kernel<false><<<blocks, PHASE_THREADS, shared, (cudaStream_t)stream>>>(
+          *lanes, *cands, pool, cand_pool, spec, spec_len, ctrl, counters, block_dead, phase);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // samplers.cuh: the per-lane source and interaction samplers of the
 // transport engine as __device__ functions: counterparts of the JAX
 // package's cbctmc_tpu/engine/samplers.py (sample_spectrum_energy_cdf,
-// sample_source_direction, sample_icdf_rows_cdt1, compton_scatter_rows_tab /
+// sample_spectrum_energy (Walker alias), sample_source_direction,
+// sample_icdf_rows_cdt1, rayleigh_scatter_rows (RITA), compton_scatter_rows_tab /
 // _shell_doppler_and_energy, rotate_direction) and of
 // cbctmc_tpu/engine/transport.py (_move_to_bbox, ebin_of). On the TPU these
 // are whole-batch XLA operations with one-hot selects in place of gathers;
@@ -19,8 +20,11 @@
 
 #define SOURCE_DIR_TRIPS 2
 #define COMPTON_SHELL_TRIPS 8
+#define RAYLEIGH_TRIPS 12
+#define NP_RAYLEIGH 128
 #define PHOTON_ROWS (2 + 2 * SOURCE_DIR_TRIPS)
 #define RESOLVE_ROWS (2 + 3 * COMPTON_SHELL_TRIPS + 1)
+#define RAYLEIGH_X_FACTOR_F ((float)8.065535669099010e-5)
 
 #define MEC2 510998.918f                    // electron rest energy [eV]
 #define INV_MEC2 ((float)1.956951306108245e-6)
@@ -48,6 +52,23 @@ __device__ __forceinline__ float sample_spectrum_energy(float u0, float u1,
     if (s_spec[mid] <= u0) lo = mid + 1; else hi = mid;
   }
   return s_spec[nb - 1 + lo] + u1 * s_spec[2 * nb - 1 + lo];
+}
+
+// Walker alias (spectrum_mode "alias"): `rows` = [nb][5] (cutoff, bin low
+// edge, bin width, the alias bin's low edge, its width), staged in shared
+// memory like the CDF table; u0 picks the bin and whether its alias is
+// taken, u1 the energy within the bin
+__device__ __forceinline__ float sample_spectrum_energy_alias(float u0, float u1,
+                                                              const float* rows, int nb) {
+  const float rn = u0 * (float)nb;
+  int ip = (int)rn;  // u0 in (0, 1): rn in (0, nb)
+  ip = ip < 0 ? 0 : (ip > nb - 1 ? nb - 1 : ip);
+  const float frac = rn - (float)ip;
+  const float* row = rows + 5 * ip;
+  const bool use_alias = frac >= row[0];
+  const float e_lo = use_alias ? row[3] : row[1];
+  const float de = use_alias ? row[4] : row[2];
+  return e_lo + u1 * de;
 }
 
 // fan-beam direction by the square-field rejection, SOURCE_DIR_TRIPS trips
@@ -108,13 +129,19 @@ struct Photon {
   bool ok;  // the direction rejection accepted
 };
 
-// one source photon from the pool of PHOTON_ROWS rows starting at `pool`
+// one source photon from the pool of PHOTON_ROWS rows starting at `pool`;
+// `s_spec` is the CDF table, or with kAlias the alias rows
+template <bool kAlias = false>
 __device__ __forceinline__ Photon sample_photon(Rng& rng, int pool, const float* s_spec,
                                                 const PhaseParams& Q) {
   Photon p;
   const float u0 = u_open(rng, pool);
   const float u1 = u_open(rng, pool + 1);
-  p.energy = sample_spectrum_energy(u0, u1, s_spec, Q.n_spec_bins);
+  if constexpr (kAlias) {
+    p.energy = sample_spectrum_energy_alias(u0, u1, s_spec, Q.n_spec_bins);
+  } else {
+    p.energy = sample_spectrum_energy(u0, u1, s_spec, Q.n_spec_bins);
+  }
   p.ebin = ebin_of(p.energy, Q);
   p.ok = sample_source_direction(rng, pool + 2, Q, p.dx, p.dy, p.dz);
   p.px = Q.src_pos[0];
@@ -242,6 +269,65 @@ __device__ __forceinline__ float compton_shell_energy(
   root = pzomc < 0.0f ? -root : root;
   const float factor = fminf((tau / b1) * (b2 + root), 1.0f);
   return energy * factor;
+}
+
+// Rayleigh cos(theta) by RITA (rayleigh_mode "rita"): rational
+// inverse-transform sampling of the squared molecular form factor with
+// Thomson (1 + cos^2) / 2 rejection, RAYLEIGH_TRIPS trips of 3 rows from
+// `row`, the last proposal kept when none accepts; pure Thomson where
+// xmax < 0.01. `rita` = [4][plane] (x, p, a, b), the material's 128-point
+// rows read with __ldg. The interval is found by bisection over the
+// non-decreasing p row: the count of knots at or below the proposal, as the
+// JAX sampler's compare-count (tests hold the rows non-decreasing). A lane
+// draws only the trips it takes.
+__device__ __forceinline__ float rayleigh_rita_costh(float energy, int mat, float pmax,
+                                                     const float* __restrict__ rita,
+                                                     int plane, Rng& rng, int row) {
+  const float* xr = rita + mat * NP_RAYLEIGH;
+  const float* pr = xr + plane;
+  const float* ar = pr + plane;
+  const float* br = ar + plane;
+  const float xmax = energy * RAYLEIGH_X_FACTOR_F;
+  const float x2max = fminf(xmax * xmax, __ldg(xr + NP_RAYLEIGH - 1));
+  const bool small = xmax < 0.01f;
+  float costh = 1.0f;
+  for (int trip = 0; trip < RAYLEIGH_TRIPS; ++trip) {
+    const float u1 = u_open(rng, row + 3 * trip);
+    const float u2 = u_open(rng, row + 3 * trip + 1);
+    const float u3 = u_open(rng, row + 3 * trip + 2);
+    float prop;
+    bool accept;
+    if (small) {
+      prop = 1.0f - 2.0f * u1;
+      accept = u2 <= (prop * prop + 1.0f) * 0.5f;
+    } else {
+      const float ru = u1 * pmax;
+      int lo = 0, hi = NP_RAYLEIGH;  // lo = #{k : p[k] <= ru}
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(pr + mid) <= ru) lo = mid + 1; else hi = mid;
+      }
+      const int idx = lo - 1 < 0 ? 0 : (lo - 1 > NP_RAYLEIGH - 2 ? NP_RAYLEIGH - 2 : lo - 1);
+      const float p_i = __ldg(pr + idx);
+      const float x_i = __ldg(xr + idx);
+      const float rr = ru - p_i;
+      float xx = x_i;
+      if (rr > 1e-16f) {
+        const float p_n = __ldg(pr + idx + 1), x_n = __ldg(xr + idx + 1);
+        const float a_i = __ldg(ar + idx), b_i = __ldg(br + idx);
+        const float d = p_n - p_i;
+        xx = x_i + (a_i + 1.0f + b_i) * d * rr / (d * d + (a_i * d + b_i * rr) * rr) *
+                       (x_n - x_i);
+      }
+      prop = 1.0f - 2.0f * xx / fmaxf(x2max, 1e-30f);
+      accept = xx < x2max && u3 <= (prop * prop + 1.0f) * 0.5f;
+    }
+    if (accept || trip == RAYLEIGH_TRIPS - 1) {
+      costh = fminf(fmaxf(prop, -1.0f), 1.0f);
+      break;
+    }
+  }
+  return costh;
 }
 
 // rotate a unit vector by polar angle acos(costh) and azimuth phi in its own

@@ -16,8 +16,12 @@ the phases of the engine's outer iteration, the only device work
   scores the escape records into the image by ``atomicAdd`` and settles the
   loop's control words (:func:`launch_flight_resolve`).
 
-Their plain versions are the ``*_phase_reference`` functions of
-``transport.py``. Five more are single-purpose kernels, each still checked
+Each of the engine's v4 options is a compile-time instantiation of these
+two (``refill`` for ``spectrum_mode="alias"``; ``flight_resolve`` for
+``sigma_mode="table"``, ``rayleigh_mode="rita"`` and ``tally_dose``, in any
+combination), chosen at the launch from the configuration; the production
+configuration runs the instantiation with every option off. Their plain
+versions are the ``*_phase_reference`` functions of ``transport.py``. Five more are single-purpose kernels, each still checked
 and timed on its own (``transport.run_projection_stepwise`` drives all but
 ``flight_prototype``):
 
@@ -248,6 +252,15 @@ class _PhaseParamsC(ctypes.Structure):
     ]
 
 
+class _OptionsC(ctypes.Structure):
+    """``OptionTables`` of ``csrc/engine.cuh``: the tables and tallies of the
+    engine's v4 options."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "pair", "pmax", "rita", "voxel_dose", "material_dose")] + [
+        (f, ctypes.c_int) for f in ("n_pair", "n_pmax", "rita_plane", "dose_len")]
+
+
 def _fill_struct(struct, ints: dict, floats: dict):
     for k, v in ints.items():
         setattr(struct, k, int(v))
@@ -264,9 +277,9 @@ def _fill_struct(struct, ints: dict, floats: dict):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LP, _CP = ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC)
 _SIGNATURES = {
-    "refill": [_LP, _CP, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    "refill": [_LP, _CP, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "flight_resolve": [_LP, _CP, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                       _P, _P, _P],
+                       _P, _P, ctypes.POINTER(_OptionsC), _I, _P],
     "tally": [_LP, _I, _P, _P, _P, _P, _P, _P, _P],
     "philox_block": [_P, _I, _I, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, _P],
     "philox_block:philox_words": [_P, _P, _P, _I, _P],
@@ -581,6 +594,9 @@ class FlightConsts:
     floats: dict
     packed: torch.Tensor  # i32 [n_voxels], the u32 words' bits
     coeffs: torch.Tensor  # f32 [n_mats, 3*D + 6]
+    # sigma_mode="table": f32 [n_bins * n_mats, 2], inv_mfp = a + E * b at
+    # ebin * n_mats + mat (None: the Chebyshev rows give the total)
+    pair: torch.Tensor | None = None
 
     def params(self) -> _ParamsC:
         return _fill_struct(_ParamsC(), self.ints, self.floats)
@@ -630,7 +646,8 @@ def view_floats(source=None, detector=None) -> dict:
 
 def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_z: int,
                   n_lanes: int, air_skip: bool = True, soft_skip: bool = True,
-                  coeffs: torch.Tensor | None = None) -> FlightConsts:
+                  coeffs: torch.Tensor | None = None,
+                  pair: torch.Tensor | None = None) -> FlightConsts:
     """Gather the flight's constants once per engine call (one host read of
     the small scalars). Derived values are computed in float32 exactly as
     the JAX engine derives them."""
@@ -671,7 +688,7 @@ def flight_consts(tables, woodcock, volume, detector, n_pixels_x: int, n_pixels_
         air_skip=int(air_skip), soft_skip=int(soft_skip),
     )
     return FlightConsts(ints=ints, floats=floats, packed=volume.packed,
-                        coeffs=coeffs.contiguous())
+                        coeffs=coeffs.contiguous(), pair=pair)
 
 
 def _div(x: torch.Tensor, scalar: float) -> torch.Tensor:
@@ -779,20 +796,30 @@ def flight_step_reference(lanes: FlightLanes, cand: Candidates, u_step, u_int,
     ks_new = (word >> 21) & 7
     den = (word & _DEN_MASK).to(torch.float32) * F["den_scale"]
 
-    d = I["cheb_d"]
-    rows = consts.coeffs[torch.clamp(mat, max=I["n_mats"] - 1).long()]
-    cheb = rows[:, : 3 * d].reshape(n, 3, d)
-    edge = rows[:, 3 * d :].reshape(n, 3, 2)
-    s = torch.clamp(_div(2.0 * (log_e - F["sigma_log_lo"]), F["sigma_range"]) - 1.0, -1.0, 1.0)
-    s = s[:, None]
-    two_s = 2.0 * s
-    b1 = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
-    b2 = torch.zeros_like(b1)
-    for k in range(d - 1, 0, -1):
-        b1, b2 = cheb[:, :, k] + two_s * b1 - b2, b1
-    val = cheb[:, :, 0] + s * b1 - b2
-    sig = torch.exp(val + torch.where(s >= edge[:, :, 0], edge[:, :, 1], 0.0))
-    inv_tot = sig[:, 0] + sig[:, 1] + sig[:, 2]
+    if consts.pair is not None:
+        # sigma_mode="table": one (a, b) row at the fused (bin, material)
+        # index, the bin clipped into the grid and the index into the table
+        # (as XLA clamps a gather's index)
+        n_rows, n_mats = consts.pair.shape[0], I["n_mats"]
+        idx = torch.clamp(L.ebin, 0, n_rows // n_mats - 1) * n_mats + mat
+        ab = consts.pair[torch.clamp(idx, 0, n_rows - 1).long()]
+        inv_tot = ab[:, 0] + energy * ab[:, 1]
+    else:
+        d = I["cheb_d"]
+        rows = consts.coeffs[torch.clamp(mat, max=I["n_mats"] - 1).long()]
+        cheb = rows[:, : 3 * d].reshape(n, 3, d)
+        edge = rows[:, 3 * d :].reshape(n, 3, 2)
+        s = torch.clamp(_div(2.0 * (log_e - F["sigma_log_lo"]), F["sigma_range"]) - 1.0,
+                        -1.0, 1.0)
+        s = s[:, None]
+        two_s = 2.0 * s
+        b1 = torch.zeros((n, 3), dtype=torch.float32, device=px.device)
+        b2 = torch.zeros_like(b1)
+        for k in range(d - 1, 0, -1):
+            b1, b2 = cheb[:, :, k] + two_s * b1 - b2, b1
+        val = cheb[:, :, 0] + s * b1 - b2
+        sig = torch.exp(val + torch.where(s >= edge[:, :, 0], edge[:, :, 1], 0.0))
+        inv_tot = sig[:, 0] + sig[:, 1] + sig[:, 2]
     mfp_den = mfp_samp * den
     p_delta = 1.0 - mfp_den * inv_tot
 
@@ -886,6 +913,9 @@ def flight_step(lanes: FlightLanes, cand: Candidates, u_step, u_int, consts: Fli
     if lanes.px.device.type == "cpu":
         flight_step_reference(lanes, cand, u_step, u_int, consts, remaining, counts)
         return
+    if consts.pair is not None:
+        raise NotImplementedError("flight_step runs the Chebyshev total inverse MFP only "
+                                  "(sigma_mode='table' is flight_resolve's)")
     counts[0] = 0
     lanes_c = _LanesC(*(getattr(lanes, k).data_ptr() for k in FlightLanes._fields))
     cand_c = _CandidatesC(*(getattr(cand, k).data_ptr() for k in Candidates._fields))
@@ -929,13 +959,41 @@ class _PhaseArgs:
         _check(F.coeffs, "coeffs", torch.float32,
                (F.ints["n_mats"], 3 * F.ints["cheb_d"] + 6), dev)
         Q = C.phase_params.ints
-        _check(C.spec, "spec", torch.float32, (3 * Q["n_spec_bins"] - 1,), dev)
+        cfg = C.config
+        alias = cfg.spectrum_mode == "alias"
+        _check(C.spec, "spec", torch.float32,
+               (5 * Q["n_spec_bins"] if alias else 3 * Q["n_spec_bins"] - 1,), dev)
         _check(C.icdf, "icdf", torch.float32, (2 * Q["n_icdf_rows"] * Q["k_knots"],), dev)
         _check(C.shells, "shells", torch.float32, (3, Q["n_mats"], Q["s_max"]), dev)
         if F.ints["n"] != n or Q["n"] != n or Q["n_mats"] != F.ints["n_mats"]:
             raise ValueError("flight and phase constants disagree on the lane or material count")
         if Q["s_max"] > MAX_SHELLS:
             raise ValueError(f"at most {MAX_SHELLS} Compton shells per material")
+        opt = _OptionsC()
+        if F.pair is not None:
+            _check(F.pair, "pair", torch.float32, (F.pair.shape[0], 2), dev)
+            if F.pair.shape[0] % Q["n_mats"]:
+                raise ValueError("pair: rows not a multiple of the material count")
+            opt.pair, opt.n_pair = F.pair.data_ptr(), F.pair.shape[0]
+        if cfg.rayleigh_mode == "rita":
+            _check(C.rita, "rita", torch.float32, (4, Q["n_mats"] * 128), dev)
+            _check(C.pmax, "pmax", torch.float32, None, dev)
+            opt.rita, opt.rita_plane = C.rita.data_ptr(), Q["n_mats"] * 128
+            opt.pmax, opt.n_pmax = C.pmax.data_ptr(), C.pmax.numel()
+        if cfg.tally_dose:
+            if st.voxel_dose is None or st.material_dose is None:
+                raise ValueError("tally_dose: the engine state holds no dose tallies")
+            _check(st.voxel_dose, "voxel_dose", torch.float32, (F.ints["n_voxels"] + 1,), dev)
+            _check(st.material_dose, "material_dose", torch.float32, (Q["n_mats"] + 1, 2), dev)
+            opt.voxel_dose, opt.material_dose = (st.voxel_dose.data_ptr(),
+                                                 st.material_dose.data_ptr())
+            opt.dose_len = 2 * Q["n_mats"]
+        self.options = opt
+        #: the refill's instantiation (alias) and flight_resolve's (bits:
+        #: table sigma, RITA, dose); all 0 for the production configuration
+        self.alias = int(alias)
+        self.variant = (int(F.pair is not None) | int(cfg.rayleigh_mode == "rita") << 1
+                        | int(cfg.tally_dose) << 2)
         self.consts = C
         self.n = n
         self.lanes = _LanesC(*(getattr(st.lanes, k).data_ptr() for k in FlightLanes._fields))
@@ -980,7 +1038,7 @@ def launch_refill(C, st, pool: int, cand_pool: int) -> None:
     a = _phase_args(C, st)
     _launch("refill", ctypes.byref(a.lanes), ctypes.byref(a.cand), pool, cand_pool,
             C.spec.data_ptr(), C.spec.numel(), a.n, st.ctrl.data_ptr(),
-            st.counters.data_ptr(), st.block_dead.data_ptr(), a.phase_ptr,
+            st.counters.data_ptr(), st.block_dead.data_ptr(), a.phase_ptr, a.alias,
             _stream(st.ctrl))
 
 
@@ -1000,7 +1058,7 @@ def launch_flight_resolve(C, st, flight_row: int, resolve_row: int,
             F.coeffs.numel(), C.icdf.data_ptr(), C.shells.data_ptr(), C.shells.numel(), a.n,
             st.image.data_ptr(), st.ctrl.data_ptr(), st.counters.data_ptr(),
             st.energy.data_ptr(), st.block_dead.data_ptr(), a.params_ptr, a.phase_ptr,
-            _stream(st.ctrl))
+            ctypes.byref(a.options), a.variant, _stream(st.ctrl))
 
 
 def launch_tally(C, st) -> None:

@@ -54,6 +54,20 @@ def make_key(seed: int, *fold: int) -> Tuple[int, int]:
     return int(words[0]), int(words[1])
 
 
+def fold_in(key: Tuple[int, int], i: int) -> Tuple[int, int]:
+    """The key ``key`` folded with the integer ``i`` (the counterpart of
+    ``jax.random.fold_in`` on a key of :func:`make_key`): two new words from
+    SeedSequence with the key's words as entropy and ``i`` as its spawn key,
+    so distinct ``i`` give distinct keys, no ``i`` gives ``key`` back, and
+    no fold aliases a :func:`make_key` of the same integers."""
+    if int(i) < 0:
+        raise ValueError(f"fold_in takes a non-negative integer, not {i}")
+    words = np.random.SeedSequence(
+        [int(key[0]) & _MASK, int(key[1]) & _MASK], spawn_key=(int(i),)
+    ).generate_state(2, np.uint32)
+    return int(words[0]), int(words[1])
+
+
 def make_generator(device: torch.device, seed: int, *fold: int) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded from the same words as
     :func:`make_key`, for the stand-alone samplers that draw from one."""

@@ -1,11 +1,12 @@
 """Vectorised interaction and source samplers of the engine-v4 path.
 
 Ports of the JAX package's ``engine/samplers.py`` functions that the
-production engine calls: inverse-CDF spectrum sampling, the square-field
-fan-beam direction rejection, the tabulated angle inverse CDF, the Compton
-target-shell + Doppler stage, and the direction rotation. Fixed-trip masked
-rejection loops run over the whole lane batch (exhausted lanes commit their
-last proposal, as in the JAX engine).
+engine calls: inverse-CDF and Walker-alias spectrum sampling, the
+square-field fan-beam direction rejection, the tabulated angle inverse CDF,
+RITA Rayleigh sampling with Thomson rejection, the Compton target-shell +
+Doppler stage, and the direction rotation. Fixed-trip masked rejection
+loops run over the whole lane batch (exhausted lanes commit their last
+proposal, as in the JAX engine).
 
 Layout differs from the JAX package in one place: per-lane shell rows are
 lane-major ``[n, s_max]`` (what ``table[mat]`` yields); the one-hot selects
@@ -29,6 +30,8 @@ from cbctmc_tpu_torch.engine.rng import uniform_open
 from cbctmc_tpu_torch.physics.constants import (
     ELECTRON_REST_ENERGY_EV,
     INV_ELECTRON_REST_ENERGY,
+    NP_RAYLEIGH,
+    RAYLEIGH_X_FACTOR,
 )
 
 _SQRT_HALF = 0.70710678118654502
@@ -36,6 +39,7 @@ _SQRT_TWO = 1.4142135623731
 
 SOURCE_DIR_TRIPS = 2
 COMPTON_SHELL_TRIPS = 8
+RAYLEIGH_TRIPS = 12
 
 
 class FanBeamSource(NamedTuple):
@@ -210,6 +214,99 @@ def sample_icdf_rows_cdt1(
     return v0 * (1.0 - fk) + v1 * fk
 
 
+def sample_compton_cdt1_tab(u2, energy, mat, tables, gather_fn=gather) -> torch.Tensor:
+    """Compton 1-cos(theta) from the tabulated inverse CDF, from uniforms
+    [2, n]."""
+    return sample_icdf_rows_cdt1(u2, energy, lambda j_e: j_e * tables.n_mats + mat,
+                                 tables.compton_icdf, tables, gather_fn=gather_fn)
+
+
+def sample_rayleigh_cdt1_tab(u2, energy, mat, tables, gather_fn=gather) -> torch.Tensor:
+    """Rayleigh 1-cos(theta) from the tabulated inverse CDF, from uniforms
+    [2, n]."""
+    return sample_icdf_rows_cdt1(u2, energy, lambda j_e: j_e * tables.n_mats + mat,
+                                 tables.rayleigh_icdf, tables, gather_fn=gather_fn)
+
+
+def rayleigh_scatter_rows(generator, energy, mat, pmax, tables, mask,
+                          return_accepted: bool = False):
+    """:func:`rayleigh_scatter_rows_u` on ``3 * RAYLEIGH_TRIPS`` rows of
+    uniforms drawn from ``generator``."""
+    u_ray = uniform_open(generator, (3 * RAYLEIGH_TRIPS, energy.shape[0]), energy.device)
+    return rayleigh_scatter_rows_u(u_ray, energy, mat, pmax, tables, mask, return_accepted)
+
+
+def rayleigh_scatter_rows_u(u_ray, energy, mat, pmax, tables, mask,
+                            return_accepted: bool = False):
+    """The Rayleigh (coherent) scattering angle from uniforms
+    [3 * RAYLEIGH_TRIPS, n]: RITA rational inverse-transform sampling of the
+    squared molecular form factor with Thomson (1 + cos^2) / 2 rejection,
+    pure Thomson sampling where the momentum transfer is negligible
+    (``xmax < 0.01``). Returns cos(theta) (and the acceptance mask when
+    ``return_accepted``); lanes that accept no trip commit their last
+    proposal, masked-out lanes get 1. Each trip finds its CDF interval by
+    counting the knots at or below the proposal (the JAX sampler's
+    compare-count) and reads the interval's values exactly."""
+    xmax = energy * RAYLEIGH_X_FACTOR
+    m = mat.long()
+
+    def rows(t):
+        return t.reshape(-1, NP_RAYLEIGH)[m]
+
+    xr, pr, ar, br = rows(tables.rita_x), rows(tables.rita_p), rows(tables.rita_a), rows(
+        tables.rita_b)
+    x2max = torch.minimum(xmax * xmax, xr[:, NP_RAYLEIGH - 1])
+    small = xmax < 0.01
+
+    costh = torch.ones_like(energy)
+    accepted = ~mask
+    for i in range(RAYLEIGH_TRIPS):
+        u1, u2, u3 = u_ray[3 * i], u_ray[3 * i + 1], u_ray[3 * i + 2]
+        # Thomson branch (xmax < 0.01)
+        costh_t = 1.0 - 2.0 * u1
+        accept_t = u2 <= (costh_t * costh_t + 1.0) * 0.5
+        # RITA branch
+        ru = u1 * pmax
+        idx = torch.clamp((pr <= ru[:, None]).sum(dim=1) - 1, 0, NP_RAYLEIGH - 2)[:, None]
+        p_i, p_n = pr.gather(1, idx)[:, 0], pr.gather(1, idx + 1)[:, 0]
+        x_i, x_n = xr.gather(1, idx)[:, 0], xr.gather(1, idx + 1)[:, 0]
+        a_i, b_i = ar.gather(1, idx)[:, 0], br.gather(1, idx)[:, 0]
+        rr = ru - p_i
+        d = p_n - p_i
+        xx_interp = x_i + (a_i + 1.0 + b_i) * d * rr / (
+            d * d + (a_i * d + b_i * rr) * rr
+        ) * (x_n - x_i)
+        xx = torch.where(rr > 1e-16, xx_interp, x_i)
+        costh_r = 1.0 - 2.0 * xx / torch.clamp(x2max, min=1e-30)
+        accept_r = (xx < x2max) & (u3 <= (costh_r * costh_r + 1.0) * 0.5)
+
+        costh_prop = torch.where(small, costh_t, costh_r)
+        accept_now = torch.where(small, accept_t, accept_r) & ~accepted
+        take = accept_now | (~accepted & (i == RAYLEIGH_TRIPS - 1))
+        costh = torch.where(take, torch.clamp(costh_prop, -1.0, 1.0), costh)
+        accepted = accepted | accept_now
+    costh = torch.where(mask, costh, 1.0)
+    if return_accepted:
+        return costh, accepted
+    return costh
+
+
+def rayleigh_pmax(tables, ebin, mat) -> torch.Tensor:
+    """``rayleigh_pmax`` of the energy bin after ``ebin`` for material
+    ``mat``, the flat index clamped into the table as XLA clamps a gather's
+    index (the JAX sampler reads ``(ebin + 1) * n_mats + mat`` unclipped)."""
+    size = tables.rayleigh_pmax.shape[0]
+    flat = (ebin.long() + 1) * tables.n_mats + mat.long()
+    return tables.rayleigh_pmax[torch.clamp(flat, 0, size - 1)]
+
+
+def rayleigh_scatter(generator, energy, mat, ebin, tables, mask) -> torch.Tensor:
+    """:func:`rayleigh_scatter_rows` with pmax of the next energy bin, as in
+    the reference (kernel :336)."""
+    return rayleigh_scatter_rows(generator, energy, mat, rayleigh_pmax(tables, ebin, mat),
+                                 tables, mask)
+
+
 def rotate_direction(dx, dy, dz, costh, phi):
     """Rotate unit vectors by polar angle acos(costh) and azimuth phi in the
     vector's self-frame (PENELOPE's DIRECT); renormalises the input when
@@ -298,6 +395,39 @@ def sample_spectrum_energy_cdf(generator: torch.Generator, tables, n: int) -> to
     from ``generator``."""
     u = uniform_open(generator, (2, n), tables.spectrum_cdf.device)
     return sample_spectrum_energy_cdf_u(u, spectrum_search_table(tables))
+
+
+def sample_spectrum_energy(generator: torch.Generator, tables, n: int) -> torch.Tensor:
+    """:func:`sample_spectrum_energy_u` on two rows of uniforms drawn from
+    ``generator``."""
+    u = uniform_open(generator, (2, n), tables.spectrum_cdf.device)
+    return sample_spectrum_energy_u(u, spectrum_alias_table(tables))
+
+
+def spectrum_alias_table(tables) -> torch.Tensor:
+    """The Walker-alias sampler's rows ``[n_spec_bins, 5]``: (cutoff, bin
+    low edge, bin width, the alias bin's low edge, the alias bin's width)."""
+    e_lo = tables.spectrum_energies[:-1]
+    de = tables.spectrum_energies[1:] - e_lo
+    alias = tables.spectrum_alias.long()
+    return torch.stack([tables.spectrum_cutoff, e_lo, de, e_lo[alias], de[alias]],
+                       dim=1).contiguous()
+
+
+def sample_spectrum_energy_u(u: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Walker-alias sampling of the source spectrum with intra-bin linear
+    interpolation (reference kernel :628-644) from uniforms [2, n] and
+    :func:`spectrum_alias_table`: ``u[0]`` picks the bin and whether its
+    alias is taken, ``u[1]`` the energy within."""
+    nb = rows.shape[0]
+    rn = u[0] * nb
+    int_part = torch.clamp(rn.to(torch.int32), 0, nb - 1)
+    frac = rn - int_part.to(torch.float32)
+    row = rows[int_part.long()]
+    use_alias = frac >= row[:, 0]
+    e_lo_sel = torch.where(use_alias, row[:, 3], row[:, 1])
+    de_sel = torch.where(use_alias, row[:, 4], row[:, 2])
+    return e_lo_sel + u[1] * de_sel
 
 
 def spectrum_search_table(tables) -> torch.Tensor:

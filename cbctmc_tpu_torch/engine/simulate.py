@@ -182,6 +182,12 @@ class MCScanner:
         self.table_set = table_set or default_material_set()
         self.spectrum = spectrum or default_spectrum()
         self.engine_config = engine_config or EngineConfig()
+        if self.engine_config.tally_dose:
+            # the JAX scanner fails on it (it adds the engine's (image, extras)
+            # tuples); the dose of a projection is run_projection's
+            raise NotImplementedError(
+                "MCScanner does not run tally_dose=True: call run_projection (or "
+                "parallel.run_projection_sharded) for the dose tallies")
 
         # original (pre-rotation) physical size, used for source placement
         self._image_size_mm = tuple(

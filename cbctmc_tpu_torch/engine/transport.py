@@ -1,13 +1,18 @@
 """The photon-transport engine: batched Woodcock delta-tracking, engine v4.
 
-The port of the JAX package's ``engine/transport.py`` production path
-(``resolve_inplace=True``, ``sigma_mode="cheb"``, ``spectrum_mode="cdf"``,
-``rayleigh_mode="icdf"``). A fixed batch of photon lanes is stepped in
-lockstep; dead lanes are refilled from the fan-beam source until the
-history budget is spent. The random numbers of an outer iteration are one
-block of Philox words addressed by (row, lane) (:func:`bits_row_map` says
-which rows each consumer reads; :mod:`rng` defines the stream), and its
-phases run in order:
+The port of the JAX package's ``engine/transport.py`` engine-v4 body
+(``resolve_inplace=True``): the production configuration
+(``sigma_mode="cheb"``, ``spectrum_mode="cdf"``, ``rayleigh_mode="icdf"``)
+and the v4 options beside it, alone or together: the Walker-alias spectrum
+(``spectrum_mode="alias"``), the total inverse MFP of the flight from the
+fused (energy bin, material) pair table (``sigma_mode="table"``), the
+Rayleigh angle by RITA with Thomson rejection (``rayleigh_mode="rita"``)
+and the KERMA dose tally (``tally_dose=True``). A fixed batch of photon
+lanes is stepped in lockstep; dead lanes are refilled from the fan-beam
+source until the history budget is spent. The random numbers of an outer
+iteration are one block of Philox words addressed by (row, lane)
+(:func:`bits_row_map` says which rows each consumer reads; :mod:`rng`
+defines the stream), and its phases run in order:
 
 1. ``refill``: dead lanes start a history (exclusive-cumsum budget ordering,
    so the last ``< n_lanes`` histories never overdraw the budget) and every
@@ -16,8 +21,9 @@ phases run in order:
    voxel word, real-event test, the escaping photon's detector record
    stashed, the candidate adopted), then the pending real events resolved in
    place (Compton / Rayleigh from the tabulated angle inverse CDFs,
-   photoelectric absorption); between sub-phases another ``refill`` of the
-   lanes that died;
+   photoelectric absorption; with ``tally_dose`` each photoelectric and
+   Compton deposit added to its voxel and material); between sub-phases
+   another ``refill`` of the lanes that died;
 3. the tally, carried by the last ``flight_resolve`` of the iteration: each
    lane's stash or parked record into the 4-class detector image once (a
    ``4 * npix + 1`` buffer whose last slot is the dropped sentinel), and the
@@ -331,10 +337,11 @@ def _tally_pixel(px, py, pz, dx, dy, dz, detector: DetectorGeom, n_pixels_x: int
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Engine parameters (the JAX package's EngineConfig). The port runs the
-    engine-v4 path only; ``rng_impl`` and ``paired_voxel_gather`` are TPU
-    choices it accepts and does not need (one Philox generator; the flat
-    packed word is read directly), and ``event_fraction`` /
-    ``doubles_fraction`` size budgets of the v3 path."""
+    engine-v4 body (``resolve_inplace=True``) with each of its options;
+    ``rng_impl`` and ``paired_voxel_gather`` are TPU choices it accepts and
+    does not need (one Philox generator; the flat packed word is read
+    directly), and ``event_fraction`` / ``doubles_fraction`` size budgets of
+    the v3 body, which is not ported."""
 
     n_lanes: int = 1 << 17
     max_virtual_trips: int = 16
@@ -376,27 +383,31 @@ def production_engine_config(**overrides) -> EngineConfig:
     return EngineConfig(**{**PRODUCTION_CONFIG, **overrides})
 
 
+_MODES = {"sigma_mode": ("cheb", "table"), "spectrum_mode": ("cdf", "alias"),
+          "rayleigh_mode": ("icdf", "rita")}
+
+
 def _check_supported(config: EngineConfig) -> None:
     if config.resolve_inplace and not config.tau_table:
         raise ValueError(
             "resolve_inplace requires tau_table=True; set "
             "resolve_inplace=False for the analytic-tau A/B path"
         )
-    unported = []
     if not config.resolve_inplace:
-        unported.append("resolve_inplace=False (engine v3 path)")
-    if config.sigma_mode != "cheb":
-        unported.append(f"sigma_mode={config.sigma_mode!r}")
-    if config.spectrum_mode != "cdf":
-        unported.append(f"spectrum_mode={config.spectrum_mode!r}")
-    if config.rayleigh_mode != "icdf":
-        unported.append(f"rayleigh_mode={config.rayleigh_mode!r}")
-    if config.tally_dose:
-        unported.append("tally_dose=True")
-    if unported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unported))
+        raise NotImplementedError("not ported yet: resolve_inplace=False (engine v3 path)")
+    for name, modes in _MODES.items():
+        if getattr(config, name) not in modes:
+            raise ValueError(f"{name}={getattr(config, name)!r}: expected one of {modes}")
     if config.max_virtual_trips % max(1, config.n_resolves):
         raise ValueError("n_resolves must divide max_virtual_trips")
+
+
+def options_on(config: EngineConfig) -> list:
+    """The v4 options ``config`` turns on, by name (empty for the production
+    configuration)."""
+    on = [f"{name}={getattr(config, name)!r}" for name, modes in _MODES.items()
+          if getattr(config, name) != modes[0]]
+    return on + ["tally_dose=True"] * bool(config.tally_dose)
 
 
 def validate_volume(volume: VoxelVolume) -> None:
@@ -490,6 +501,8 @@ def _exclusive_budget(dead: torch.Tensor, remaining: torch.Tensor, n: int) -> to
 PHOTON_ROWS = 2 + 2 * samplers.SOURCE_DIR_TRIPS
 #: rows of one event resolve: 2 angle rows, the shell trips, 1 azimuth row
 RESOLVE_ROWS = 2 + 3 * samplers.COMPTON_SHELL_TRIPS + 1
+#: rows a resolve adds with ``rayleigh_mode="rita"``: the RITA trips
+RITA_ROWS = 3 * samplers.RAYLEIGH_TRIPS
 
 
 class BitsRows(NamedTuple):
@@ -501,12 +514,17 @@ class BitsRows(NamedTuple):
     plain versions read it from the block ``rng.philox_bits`` builds, the
     kernels compute it in registers.
 
-    A photon pool is ``PHOTON_ROWS`` rows: ``+0, +1`` the spectrum energy,
-    ``+2 ...`` the ``2 * SOURCE_DIR_TRIPS`` direction uniforms. Flight ``i``
-    reads ``flight + 2 i`` (step length) and ``flight + 2 i + 1``
-    (interaction test). A resolve is ``RESOLVE_ROWS`` rows: ``+0, +1`` the
-    angle inverse CDF, ``+2 ...`` the ``3 * COMPTON_SHELL_TRIPS`` shell
-    uniforms, the last the azimuth."""
+    A photon pool is ``PHOTON_ROWS`` rows: ``+0, +1`` the spectrum energy
+    (the inverse CDF's bin and position in it; the alias sampler's bin with
+    its alias test, and position in the bin), ``+2 ...`` the
+    ``2 * SOURCE_DIR_TRIPS`` direction uniforms. Flight ``i`` reads
+    ``flight + 2 i`` (step length) and ``flight + 2 i + 1`` (interaction
+    test). A resolve is ``resolve_rows`` rows: ``+0, +1`` the angle inverse
+    CDF (Compton's alone with RITA), ``+2 ...`` the ``3 *
+    COMPTON_SHELL_TRIPS`` shell uniforms, ``RESOLVE_ROWS - 1`` the azimuth
+    and, with ``rayleigh_mode="rita"``, ``RESOLVE_ROWS ...`` the ``3 *
+    RAYLEIGH_TRIPS`` RITA uniforms. The options that read no random numbers
+    (``sigma_mode``, ``tally_dose``) leave the map as it is."""
 
     n_rows: int
     refill: int  # pool of the refill at the start of the iteration
@@ -514,6 +532,7 @@ class BitsRows(NamedTuple):
     mid: Tuple[int, ...]  # pool of the refill after sub-phase r < R - 1
     flight: int
     resolve: Tuple[int, ...]  # one group per sub-phase
+    resolve_rows: int = RESOLVE_ROWS  # rows of each resolve group
 
     def groups(self) -> dict:
         """``{consumer: range of rows}`` over every consumer."""
@@ -525,20 +544,22 @@ class BitsRows(NamedTuple):
         for i in range((first_resolve - self.flight) // 2):
             out[f"flight{i}"] = range(self.flight + 2 * i, self.flight + 2 * i + 2)
         for r, row in enumerate(self.resolve):
-            out[f"resolve{r}"] = range(row, row + RESOLVE_ROWS)
+            out[f"resolve{r}"] = range(row, row + self.resolve_rows)
         return out
 
 
 def bits_row_map(config: EngineConfig) -> BitsRows:
     """The row map of ``config``: (2 + R - 1) photon pools, 2 rows per
-    flight, R resolves. The production config reads 18 + 4 + 54 = 76 rows."""
+    flight, R resolves. The production config reads 18 + 4 + 54 = 76 rows;
+    ``rayleigh_mode="rita"`` adds ``RITA_ROWS`` (36) to each resolve."""
     R = max(1, config.n_resolves)
+    per_resolve = RESOLVE_ROWS + (RITA_ROWS if config.rayleigh_mode == "rita" else 0)
     mid = tuple(PHOTON_ROWS * (2 + r) for r in range(R - 1))
     flight = PHOTON_ROWS * (R + 1)
     first_resolve = flight + 2 * config.max_virtual_trips
-    resolve = tuple(first_resolve + RESOLVE_ROWS * r for r in range(R))
-    return BitsRows(n_rows=first_resolve + RESOLVE_ROWS * R, refill=0, cand=PHOTON_ROWS,
-                    mid=mid, flight=flight, resolve=resolve)
+    resolve = tuple(first_resolve + per_resolve * r for r in range(R))
+    return BitsRows(n_rows=first_resolve + per_resolve * R, refill=0, cand=PHOTON_ROWS,
+                    mid=mid, flight=flight, resolve=resolve, resolve_rows=per_resolve)
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +593,9 @@ class EngineConsts:
     source: FanBeamSource
     detector: DetectorGeom
     bbox: torch.Tensor  # f32[3]
-    spec: torch.Tensor  # samplers.spectrum_search_table
+    # samplers.spectrum_search_table, or with spectrum_mode="alias" the flat
+    # samplers.spectrum_alias_table
+    spec: torch.Tensor
     icdf: torch.Tensor  # flat Compton|Rayleigh angle inverse CDF
     n_icdf_rows: int  # rows of the Compton half
     shells: torch.Tensor  # f32[3, n_mats, s_max]: f, ui (finite), j0
@@ -580,6 +603,9 @@ class EngineConsts:
     n_pixels_x: int
     n_pixels_z: int
     phase_params: PhaseParams
+    # rayleigh_mode="rita": f32[4, n_mats * 128] (x, p, a, b) and pmax
+    rita: torch.Tensor | None = None
+    pmax: torch.Tensor | None = None
     view: int = 0  # bumped by set_view: the kernels' parameter structs follow
 
     @property
@@ -611,6 +637,7 @@ def engine_consts(tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVo
     flight = flight_consts(
         tables, woodcock, volume, detector, n_pixels_x, n_pixels_z, config.n_lanes,
         air_skip=config.air_skip, soft_skip=config.soft_skip, coeffs=coeffs,
+        pair=_flight_pair_tables(tables) if config.sigma_mode == "table" else None,
     )
     # padded shells carry ui=+inf; a large finite value keeps the arithmetic
     # NaN-free exactly as the JAX engine's shell table does
@@ -639,13 +666,26 @@ def engine_consts(tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVo
             icdf_scale=float((n_ie - 1.0) / (f32(tables.icdf_log_hi) - f32(tables.icdf_log_lo))),
         ),
     )
+    rita = config.rayleigh_mode == "rita"
     return EngineConsts(
         config=config, rows=bits_row_map(config), flight=flight, tables=tables,
         source=source, detector=detector, bbox=volume.bbox,
-        spec=samplers.spectrum_search_table(tables), icdf=icdf.contiguous(),
+        spec=(samplers.spectrum_alias_table(tables).reshape(-1)
+              if config.spectrum_mode == "alias" else samplers.spectrum_search_table(tables)),
+        icdf=icdf.contiguous(),
         n_icdf_rows=int(tables.compton_icdf.shape[0]), shells=shells, n_bins=n_bins,
         n_pixels_x=n_pixels_x, n_pixels_z=n_pixels_z, phase_params=phase_params,
+        rita=torch.stack([tables.rita_x, tables.rita_p, tables.rita_a,
+                          tables.rita_b]).contiguous() if rita else None,
+        pmax=tables.rayleigh_pmax.contiguous() if rita else None,
     )
+
+
+def _flight_pair_tables(tables: DeviceTables) -> torch.Tensor:
+    """The flight's total inverse-MFP table of ``sigma_mode="table"``,
+    ``f32[n_bins * n_mats, 2]``: ``inv_mfp(E) = a + E * b`` at the fused
+    index ``ebin * n_mats + mat`` (the JAX engine's ``_flight_pair_tables``)."""
+    return tables.mfp_total_ab.reshape(-1, tables.n_mats, 2).reshape(-1, 2).contiguous()
 
 
 def _block_dead(dead: torch.Tensor) -> torch.Tensor:
@@ -675,9 +715,12 @@ class EngineState:
     ``csrc/engine.cuh``), the dead lanes per block as the last phase left
     them (the refill's ordered budget tail sums them), the ``4 * npix + 1``
     image, and the counters of ``extras["counts"]`` (integers, and the
-    tallied energy in float64). The buffers are allocated once
-    (:meth:`allocate`) and reset per call (:meth:`reset`), so their
-    addresses hold across calls."""
+    tallied energy in float64); with ``tally_dose`` the voxel dose
+    ``f32[n_voxels + 1]`` and the material dose ``f32[n_mats + 1, 2]``
+    (energy, energy squared), each with a last slot the plain version's
+    scatter-add drops. The buffers are allocated once (:meth:`allocate`)
+    and reset per call (:meth:`reset`), so their addresses hold across
+    calls."""
 
     lanes: FlightLanes
     cand: Candidates
@@ -687,6 +730,8 @@ class EngineState:
     counters: torch.Tensor  # i64[10]
     energy: torch.Tensor  # f64[1]
     key: Tuple[int, int] = (0, 0)  # the Philox key, as in ctrl[CTRL_KEY0:]
+    voxel_dose: torch.Tensor | None = None  # f32[n_voxels + 1]
+    material_dose: torch.Tensor | None = None  # f32[n_mats + 1, 2]
     # the plain versions' block of random words and the iteration it is of
     bits: torch.Tensor | None = dataclasses.field(default=None, repr=False, compare=False)
     bits_iteration: int = -1
@@ -695,7 +740,10 @@ class EngineState:
     launch_args: object = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
-    def allocate(cls, n_lanes: int, n_pixels: int, device) -> "EngineState":
+    def allocate(cls, n_lanes: int, n_pixels: int, device,
+                 dose: Tuple[int, int] | None = None) -> "EngineState":
+        """Buffers of a call of ``n_lanes`` onto ``n_pixels``; ``dose``
+        ``(n_voxels, n_mats)`` adds the dose tallies."""
         dev = torch.device(device)
 
         def lanes_of(fields):
@@ -709,6 +757,10 @@ class EngineState:
             image=torch.zeros((4 * n_pixels + 1,), dtype=torch.float32, device=dev),
             counters=torch.zeros((10,), dtype=torch.int64, device=dev),
             energy=torch.zeros((1,), dtype=torch.float64, device=dev),
+            voxel_dose=None if dose is None else torch.zeros(
+                (dose[0] + 1,), dtype=torch.float32, device=dev),
+            material_dose=None if dose is None else torch.zeros(
+                (dose[1] + 1, 2), dtype=torch.float32, device=dev),
         )
 
     def reset(self, carry_in: LaneState | None, n_histories: int, key=(0, 0),
@@ -731,6 +783,9 @@ class EngineState:
         self.image.zero_()
         self.counters.zero_()
         self.energy.zero_()
+        for dose in (self.voxel_dose, self.material_dose):
+            if dose is not None:
+                dose.zero_()
         self.block_dead.copy_(_block_dead(~L.alive))
         words = [0] * CTRL_WORDS
         words[CTRL_REMAINING] = int(n_histories)
@@ -747,10 +802,12 @@ class EngineState:
 
     @classmethod
     def start(cls, carry_in: LaneState, n_histories: int, n_pixels: int, key=(0, 0),
-              drain: bool = True, max_iterations: int = 1 << 30) -> "EngineState":
+              drain: bool = True, max_iterations: int = 1 << 30,
+              dose: Tuple[int, int] | None = None) -> "EngineState":
         """A newly allocated state of a call that starts from ``carry_in``
-        (copied: the phases update lanes in place)."""
-        st = cls.allocate(carry_in.px.shape[0], n_pixels, carry_in.px.device)
+        (copied: the phases update lanes in place); ``dose`` as in
+        :meth:`allocate`."""
+        st = cls.allocate(carry_in.px.shape[0], n_pixels, carry_in.px.device, dose)
         st.reset(carry_in, n_histories, key, drain, max_iterations)
         return st
 
@@ -766,6 +823,8 @@ class EngineState:
             ctrl=self.ctrl.clone(), block_dead=self.block_dead.clone(),
             image=self.image.clone(), counters=self.counters.clone(),
             energy=self.energy.clone(), key=self.key,
+            voxel_dose=None if self.voxel_dose is None else self.voxel_dose.clone(),
+            material_dose=None if self.material_dose is None else self.material_dose.clone(),
         )
 
     def carry(self) -> LaneState:
@@ -813,7 +872,10 @@ def sample_photons(C: EngineConsts, bits: torch.Tensor, pool: int):
     ``pool``: (energy, direction, entry point on the volume wall, accepted)."""
     n = C.n_lanes
     u = uniform_from_bits(bits[pool : pool + PHOTON_ROWS])
-    e = samplers.sample_spectrum_energy_cdf_u(u[:2], C.spec)
+    if C.config.spectrum_mode == "alias":
+        e = samplers.sample_spectrum_energy_u(u[:2], C.spec.view(-1, 5))
+    else:
+        e = samplers.sample_spectrum_energy_cdf_u(u[:2], C.spec)
     sdx, sdy, sdz, ok = samplers.sample_source_direction_u(u[2:], C.source)
     src = [C.source.position[a].expand(n) for a in range(3)]
     sx, sy, sz, _ = _move_to_bbox(*src, sdx, sdy, sdz, C.bbox)
@@ -859,11 +921,14 @@ def refill_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
 
 def _resolve_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, row: int,
                        gather_fn=gather_reference) -> None:
-    """Resolve every pending real event in place: Compton / Rayleigh from the
-    tabulated angle inverse CDFs, photoelectric absorption."""
+    """Resolve every pending real event in place: Compton from the tabulated
+    angle inverse CDF, Rayleigh from its inverse CDF or by RITA
+    (``rayleigh_mode``), photoelectric absorption; with ``tally_dose`` each
+    photoelectric and Compton deposit is added to its voxel and material in
+    lane order (``index_add_``, the JAX engine's scatter-adds)."""
     L, T = st.lanes, C.tables
     n_mats = T.n_mats
-    u = uniform_from_bits(bits[row : row + RESOLVE_ROWS])
+    u = uniform_from_bits(bits[row : row + C.rows.resolve_rows])
     pending = L.pending & L.alive
     energy, mat_evt = L.energy, L.mat_evt
     inv_com, inv_ray, _ = eval_sigma_partials(T, energy, mat_evt, C.flight.coeffs)
@@ -872,19 +937,29 @@ def _resolve_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, row
     took_photo = pending & ~want_c & ~want_r
 
     icdf_rows = C.icdf.view(2 * C.n_icdf_rows, -1)
+    rita = C.config.rayleigh_mode == "rita"
     cdt1 = samplers.sample_icdf_rows_cdt1(
         u[:2], energy,
-        lambda j_e: torch.where(want_r, C.n_icdf_rows, 0) + j_e * n_mats + mat_evt,
+        lambda j_e: (0 if rita else torch.where(want_r, C.n_icdf_rows, 0))
+        + j_e * n_mats + mat_evt,
         icdf_rows, T, gather_fn=gather_fn,
     )
-    costh_ray = 1.0 - cdt1
+    if rita:
+        # pmax of the next energy bin, the bin clipped into the grid
+        pmax = T.rayleigh_pmax[
+            (torch.clamp(L.ebin + 1, 0, C.n_bins - 1) * n_mats + mat_evt).long()]
+        costh_ray = samplers.rayleigh_scatter_rows_u(
+            u[RESOLVE_ROWS:], energy, mat_evt, pmax, T, want_r)
+    else:
+        costh_ray = 1.0 - cdt1
     m = mat_evt.long()
     new_e_c, costh_c = samplers.compton_scatter_rows_tab_u(
-        u[2:-1], energy, cdt1, C.shells[0][m], C.shells[1][m], C.shells[2][m], want_c,
+        u[2:RESOLVE_ROWS - 1], energy, cdt1, C.shells[0][m], C.shells[1][m], C.shells[2][m],
+        want_c,
     )
     new_energy = torch.where(want_c, new_e_c, energy)
     costh = torch.where(want_c, costh_c, torch.where(want_r, costh_ray, 1.0))
-    phi = u[-1] * TWO_PI
+    phi = u[RESOLVE_ROWS - 1] * TWO_PI
     rdx, rdy, rdz = samplers.rotate_direction(L.dx, L.dy, L.dz, costh, phi)
     rotate = want_c | want_r
     _set(L.dx, rotate, rdx)
@@ -894,6 +969,16 @@ def _resolve_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, row
     new_ebin = _ebin_of(new_energy, C)
     absorbed = took_photo | (want_c & (new_ebin < 0))
     L.alive.logical_and_(~absorbed)
+    if C.config.tally_dose:
+        # KERMA: the whole energy of a photoelectric event, the energy a
+        # Compton event takes from the photon (electrons not transported)
+        edep = torch.where(took_photo, energy, torch.where(want_c, energy - new_energy, 0.0))
+        deposit = took_photo | want_c
+        st.voxel_dose.index_add_(
+            0, torch.where(deposit, L.vox, st.voxel_dose.shape[0] - 1).long(), edep)
+        st.material_dose.index_add_(
+            0, torch.where(deposit, mat_evt, st.material_dose.shape[0] - 1).long(),
+            torch.stack([edep, edep * edep], dim=1))
     L.energy.copy_(new_energy)
     _set(L.ebin, want_c, new_ebin)
     first = L.scatter == 0
@@ -1076,7 +1161,9 @@ class EngineWorkspace:
         self.scene = (tables, woodcock, volume)
         self.pixels = (n_pixels_x, n_pixels_z)
         self.config = config
-        self.state = EngineState.allocate(config.n_lanes, n_pixels_x * n_pixels_z, self.device)
+        dose = (int(volume.packed.shape[0]), tables.n_mats) if config.tally_dose else None
+        self.state = EngineState.allocate(config.n_lanes, n_pixels_x * n_pixels_z, self.device,
+                                          dose)
         self.consts: EngineConsts | None = None
         # iterations per replay -> (torch.cuda.CUDAGraph, its launches per kernel)
         self.graphs: dict = {}
@@ -1154,7 +1241,12 @@ def run_projection(
     ``iterations`` / ``remaining`` / ``counts`` (the JAX engine's 10-slot
     layout, f64: [0] records tallied, [2] Compton, [3] Rayleigh,
     [4] photoelectric, [5] refills, [6] adoptions + mid-refills,
-    [7] flight slots active, [8] energy tallied) and ``carry``.
+    [7] flight slots active, [8] energy tallied) and ``carry``. With
+    ``config.tally_dose`` it always returns ``(image, extras)``, extras
+    holding ``voxel_dose`` (f32[n_voxels], eV deposited per voxel, KERMA)
+    and ``material_dose`` (f32[n_materials, 2]: eV and eV^2 per material),
+    accumulated in float32 as the JAX engine does (on the card per block
+    and by atomics, so their order, and their last bits, vary).
 
     Chunked runs: ``return_carry=True`` stops as soon as the budget is spent
     and returns the surviving photons in ``extras["carry"]``; feed it to the
@@ -1196,7 +1288,13 @@ def run_projection_stepwise(*args, **kwargs):
     launch, the angle inverse-CDF knots of every resolve are two ``gather``
     launches and the tally is one ``tally`` launch (on the CPU their plain
     versions). This is the path the phase kernels replaced; it stays as the
-    path on which those kernels are driven and timed."""
+    path on which those kernels are driven and timed, in the production
+    configuration only (the v4 options are refused by name)."""
+    config = kwargs.get("config", args[9] if len(args) > 9 else EngineConfig())
+    options = options_on(config)
+    if options:
+        raise NotImplementedError("the stepwise path runs the production configuration; "
+                                  "not on it: " + ", ".join(options))
     return _run_projection(_stepwise_phases(), *args, **kwargs)
 
 
@@ -1231,6 +1329,8 @@ def _run_projection(phases, tables, woodcock, volume, source, detector, n_histor
     npix = n_pixels_x * n_pixels_z
     image = st.image[: 4 * npix].reshape(4, n_pixels_z, n_pixels_x)
     extras = {}
+    if config.tally_dose:
+        extras.update(voxel_dose=st.voxel_dose[:-1], material_dose=st.material_dose[:-1])
     if return_stats:
         extras.update(iterations=words[CTRL_ITERATION], remaining=st.remaining.clone(),
                       counts=st.counts())

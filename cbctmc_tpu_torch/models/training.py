@@ -10,9 +10,11 @@ trainers' ``optax.chain(clip_by_global_norm(grad_clip), adam(schedule))``
 computes, as functions on tensors. :func:`flax_init` draws flax's
 initialisation (``lecun_normal`` kernels, zero biases) from an explicit
 ``torch.Generator``. Batches come as the datasets make them (numpy,
-channels last) and go to the trainer's one device channels first; the JAX
-package shards them over a mesh (``shard_batch``), which the port does not
-have yet. Checkpoints are flax's format (:func:`cbctmc_tpu_torch.models.
+channels last) and go to the trainer's one device channels first; over
+several ranks, :func:`shard_batch` gives each rank its slice of a batch
+(the JAX package's ``shard_batch`` over a mesh axis) and a train step on
+the slices is the step of the whole batch: the gradients and the loss are
+averaged over the axis's ranks before the clip. Checkpoints are flax's format (:func:`cbctmc_tpu_torch.models.
 checkpoints.save_params`), the tree of the JAX model of the same
 configuration.
 
@@ -52,6 +54,56 @@ Params = Dict[str, torch.Tensor]
 # jax.nn.initializers.lecun_normal: a normal truncated at +-2 sigma, its
 # stddev divided by that of the standard normal truncated there
 _TRUNCATED_STD = 0.87962566103423978
+
+
+class ShardedBatch(dict):
+    """A rank's slice of a batch (:func:`shard_batch`), with the process
+    group of the mesh axis it was cut along (``group``, of ``size`` ranks)."""
+
+    def __init__(self, items, group, size: int):
+        super().__init__(items)
+        self.group, self.size = group, size
+
+
+def shard_batch(batch: dict, mesh, axis_name: str = "photons") -> ShardedBatch:
+    """This rank's slice along axis 0 of every array of ``batch`` (numpy or
+    tensors, channels last as the datasets make them), on this rank's device
+    (the mesh's: the CPU, or the current card), cut along the mesh axis
+    ``axis_name`` as the JAX package's ``NamedSharding(mesh, P(axis_name))``
+    cuts it: contiguous equal slices in the axis's rank order. A batch the
+    axis's size does not divide is refused."""
+    dim = mesh.mesh_dim_names.index(axis_name)
+    size, rank = mesh.size(dim), mesh.get_local_rank(axis_name)
+    dev = (torch.device("cpu") if mesh.device_type == "cpu"
+           else torch.device(mesh.device_type, torch.cuda.current_device()))
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % size:
+            raise ValueError(f"batch[{k!r}] of {n} rows does not divide over the "
+                             f"{size} ranks of mesh axis {axis_name!r}")
+        rows = v[rank * (n // size):(rank + 1) * (n // size)]
+        out[k] = (rows if isinstance(rows, torch.Tensor) else
+                  torch.from_numpy(np.ascontiguousarray(rows))).to(dev)
+    return ShardedBatch(out, mesh.get_group(axis_name) if size > 1 else None, size)
+
+
+def _mean_over(group, size: int, loss: torch.Tensor,
+               grads: Params) -> Tuple[torch.Tensor, Params]:
+    """The loss and the gradients averaged over the ``size`` ranks of
+    ``group`` (one ``all_reduce`` of them all, flattened)."""
+    import torch.distributed as dist
+
+    names = list(grads)
+    flat = torch.cat([loss.reshape(1)] + [grads[k].reshape(-1) for k in names])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = flat / torch.full_like(flat, float(size))
+    out, at = {}, 1
+    for k in names:
+        n = grads[k].numel()
+        out[k] = flat[at:at + n].view_as(grads[k])
+        at += n
+    return flat[0], out
 
 
 def flax_init(model: nn.Module, generator: torch.Generator) -> Params:
@@ -203,7 +255,10 @@ class BaseTrainer:
 
     def to_device(self, batch: dict) -> Dict[str, torch.Tensor]:
         """A dataset's batch (numpy, channels last) as channels-first float32
-        tensors on the trainer's device."""
+        tensors on the trainer's device; a :class:`ShardedBatch` stays one."""
+        if isinstance(batch, ShardedBatch):
+            return ShardedBatch({k: v.to(self.device, torch.float32).movedim(-1, 1).contiguous()
+                                 for k, v in batch.items()}, batch.group, batch.size)
         return {k: torch.from_numpy(np.ascontiguousarray(np.moveaxis(
                     np.asarray(v, np.float32), -1, 1))).to(self.device)
                 for k, v in batch.items()}
@@ -227,6 +282,8 @@ class BaseTrainer:
 
     def _train_step(self, params: Params, opt_state: AdamState, batch, step: int):
         loss, grads = self.gradients(params, batch, step)
+        if getattr(batch, "group", None) is not None:  # one rank's slice of the batch
+            loss, grads = _mean_over(batch.group, batch.size, loss, grads)
         params, opt_state, _ = self.optimizer.update(grads, opt_state, params)
         return params, opt_state, loss
 

@@ -12,8 +12,10 @@ reference's ``sitk.GetImageFromArray(arr.swapaxes(0, 2))`` convention
 from __future__ import annotations
 
 import gzip
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Tuple
 
@@ -39,6 +41,32 @@ _NIFTI_CODES = {
     np.dtype(np.float64): 64,
 }
 _NIFTI_CODES_INV = {v: k for k, v in _NIFTI_CODES.items()}
+
+# A MetaImage payload of at least this size is deflated in chunks on threads,
+# as pigz does: each chunk a raw deflate stream ended by a sync flush (the
+# last one finished), under one zlib header and the whole payload's Adler-32.
+# Any zlib reader inflates it as one stream; a smaller payload is written by
+# one zlib.compress, byte for byte as the JAX package writes it.
+_PARALLEL_DEFLATE_BYTES = 64 << 20
+_DEFLATE_CHUNK_BYTES = 16 << 20
+_DEFLATE_THREADS = 8
+
+
+def _deflate(raw: bytes, level: int) -> bytes:
+    if len(raw) < _PARALLEL_DEFLATE_BYTES:
+        return zlib.compress(raw, level)
+    view = memoryview(raw)
+    starts = range(0, len(raw), _DEFLATE_CHUNK_BYTES)
+
+    def chunk(start: int) -> bytes:
+        stream = zlib.compressobj(level, zlib.DEFLATED, -zlib.MAX_WBITS)
+        flush = zlib.Z_FINISH if start == starts[-1] else zlib.Z_SYNC_FLUSH
+        return stream.compress(view[start:start + _DEFLATE_CHUNK_BYTES]) + stream.flush(flush)
+
+    threads = min(_DEFLATE_THREADS, len(os.sched_getaffinity(0)), len(starts))
+    with ThreadPoolExecutor(threads) as pool:
+        body = b"".join(pool.map(chunk, starts))
+    return zlib.compress(b"", level)[:2] + body + struct.pack(">I", zlib.adler32(raw))
 
 
 def write_mha(
@@ -67,7 +95,7 @@ def write_mha(
         f"CompressedData = {'True' if compress else 'False'}",
     ]
     if compress:
-        payload = zlib.compress(raw, 6)
+        payload = _deflate(raw, 6)
         lines.append(f"CompressedDataSize = {len(payload)}")
     else:
         payload = raw

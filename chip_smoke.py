@@ -193,7 +193,28 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     ``parse_ascii_floats`` (materials equal, densities within 5e-7); the
     native codecs against their plain versions (two planes of the scene, the
     slab's image); walls by step;
-18. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+18. the engine's v4 options and the engine sharded over ranks
+    (:func:`options_path`), the launch counters zeroed just before and read
+    just after: (a) on the main path's scanner, the production configuration
+    and each option (``spectrum_mode="alias"``, ``sigma_mode="table"``,
+    ``rayleigh_mode="rita"``, ``tally_dose=True``) alone and all four
+    together: each variant's ``refill`` / ``flight_resolve`` instantiations
+    against their plain versions on a state before the 5th iteration (as
+    phase 8; the dose tallies within 1e-5 of the plain sums), their device
+    time per launch beside the production instantiation's, a short run of 2e7
+    histories (finite, every channel > 0; with the dose deposited + detected
+    below 1.01 x emitted and the float32 material totals against the float64
+    sum of the voxel tallies printed); (b) the golden slab under each
+    sampling option (4 keys x 120,000, within 4 combined standard errors)
+    and one slab run with the dose (voxel and material totals within 1e-3);
+    (c) world size 1 on NCCL: ``run_projection_sharded`` of one view and
+    ``run_scan_sharded`` of 4 views at 2e7, each equal to ``run_projection``
+    under the same folded keys (channel sums within 1e-4), their histories/s
+    beside ``MCScanner``'s on the same views; then a gloo world of 2 spawned
+    ranks on the card on the slab with the dose (4 keys): every rank's
+    results equal and finite, the totals within 4 combined standard errors
+    of world size 1's;
+19. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -476,9 +497,17 @@ def build(kernels, card):
     OUT.mkdir(exist_ok=True)
     log = "\n".join(f"== {k}\n{v}" for k, v in kernels.build_logs.items())
     (OUT / "build_log.txt").write_text(log)
+    entry = ""
     for line in log.splitlines():
+        if "entry function" in line:
+            # the engine's option instantiations by their template flags
+            # (refill: alias; flight_resolve: table sigma, RITA, dose)
+            name = line.split("'")[1] if "'" in line else ""
+            kernel = next((k for k in ("refill", "flight_resolve") if f"{k}_kernel" in name), "")
+            flags = re.findall(r"Lb([01])E", name)
+            entry = f"{kernel}<{','.join(flags)}> " if kernel and flags else ""
         if "registers" in line or "spill" in line:
-            say(f"ptxas: {line.strip()}")
+            say(f"ptxas: {entry}{line.strip()}")
     say(f"built {len(paths)} kernels in {dt:.1f} s: {', '.join(sorted(paths))}")
 
 
@@ -823,16 +852,17 @@ def stepwise_path(kernels, scanner, card):
     return {k: launches[k] for k in want}
 
 
-def state_before_an_iteration(scanner):
-    """``(consts, state)`` of an engine call on the main path's scene after
-    CAPTURE_ITERATION outer iterations (through the phase kernels), ready to
-    run the next one."""
+def state_before_an_iteration(scanner, config=None):
+    """``(consts, state)`` of an engine call on the main path's scene (under
+    ``config``, the scanner's unless given) after CAPTURE_ITERATION outer
+    iterations (through the phase kernels), ready to run the next one."""
     import dataclasses
 
     from cbctmc_tpu_torch.engine import transport
     from cbctmc_tpu_torch.engine.rng import make_key
 
-    cfg = dataclasses.replace(scanner.engine_config, max_outer_iterations=CAPTURE_ITERATION)
+    cfg = dataclasses.replace(config or scanner.engine_config,
+                              max_outer_iterations=CAPTURE_ITERATION)
     args = projection_args(scanner, cfg)
     ws = transport.EngineWorkspace(args["tables"], args["woodcock"], args["volume"],
                                    args["n_pixels_x"], args["n_pixels_z"], cfg, DEVICE)
@@ -1090,6 +1120,7 @@ def check_flight_prototype(kernels, card, scanner):
 # the phase kernels against their plain versions
 # ---------------------------------------------------------------------------
 PHASE_LANE_SHARE = 1e-4  # lanes that may part from the plain version
+DOSE_TOL = 1e-5  # of the plain version's largest voxel / material sum (float32 atomics)
 PHASE_FLOAT_TOL = 1e-6  # |kernel - plain| <= tol * (1 + |plain|) on the others
 PHASE_IMAGE_TOL = 1e-5  # relative, image sums
 
@@ -1191,6 +1222,16 @@ def phase_bound(kernel, before, after, C) -> tuple:
                  + n_c * (C.shells.shape[2] * 40 + 60 + PHILOX_OPS))
         what = (f"{active} flights, {n_c} Compton, {n_r} Rayleigh, {n_p} photoelectric, "
                 f"{adopted} adoptions")
+        cfg = C.config
+        if cfg.sigma_mode == "table":  # a float2 row a flight in place of the Clenshaw sums
+            n_bytes += active * 8
+            n_ops -= active * (3 * clenshaw - 2)
+        if cfg.rayleigh_mode == "rita":  # a trip's bisection and 6 reads, 40 operations
+            n_bytes += n_r * 13 * 4
+            n_ops += n_r * 40
+        if cfg.tally_dose:  # a deposit's voxel word read and written, the block sums out
+            n_bytes += (n_c + n_p) * 8 + before.block_dead.numel() * 8 * C.tables.n_mats
+            n_ops += (n_c + n_p) * 4
         if with_tally:
             n_bytes += tally_bytes(L0.alive)
             n_ops += int(L1.escaped.sum()) * 40
@@ -1207,6 +1248,9 @@ def compare_phase(card, label, call, engine, plain, st, n):
     """Run one phase through the kernel and through the plain version on
     clones of ``st``; returns ``(plain outcome, max float diff)``."""
     got, want = st.clone(), st.clone()
+    for dose in (got.voxel_dose, got.material_dose, want.voxel_dose, want.material_dose):
+        if dose is not None:  # tally_dose: the two sides' sums of this launch's deposits
+            dose.zero_()
     call(engine, got)
     call(plain, want)
     torch.cuda.synchronize()
@@ -1231,6 +1275,14 @@ def compare_phase(card, label, call, engine, plain, st, n):
         raise AssertionError(f"{label}: control words or counters differ")
     if image_rel > PHASE_IMAGE_TOL or abs(e_k - e_p) > PHASE_IMAGE_TOL * max(e_p, 1.0):
         raise AssertionError(f"{label}: image sums differ by {image_rel:.3e}")
+    if want.voxel_dose is not None:  # tally_dose: both tallies against the plain sums
+        for name in ("voxel_dose", "material_dose"):
+            g, w = getattr(got, name).double(), getattr(want, name).double()
+            off = float((g - w).abs().max()) / max(float(w.abs().max()), 1.0)
+            say(f"{label}: {name} max |kernel - plain| {off:.3e} of the plain version's "
+                f"largest sum (sum {float(w.sum()):.6e} eV)", card)
+            if off > DOSE_TOL:
+                raise AssertionError(f"{label}: {name} parts from the plain version by {off:.3e}")
     return want, err
 
 
@@ -4160,6 +4212,335 @@ def interchange_path(kernels, card, shipped_slab):
     return {"walls": walls, "launches": launches, "slabs": slabs}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the engine's v4 options at full width, and the engine sharded
+# over ranks
+# ---------------------------------------------------------------------------
+OPTION_VARIANTS = {
+    "production": {},
+    "alias": dict(spectrum_mode="alias"),
+    "table": dict(sigma_mode="table"),
+    "rita": dict(rayleigh_mode="rita"),
+    "dose": dict(tally_dose=True),
+    "all": dict(spectrum_mode="alias", sigma_mode="table", rayleigh_mode="rita",
+                tally_dose=True),
+}
+OPTION_HISTORIES = 20_000_000  # the short run of each variant on the main path's scene
+OPTION_TIMING_REPS = 10
+SLAB_OPTIONS = ("alias", "table", "rita")  # the sampling options on the golden slab
+SHARDED_VIEWS = 4
+SHARDED_HISTORIES = 20_000_000
+WORLD_RANKS = 2
+WORLD_KEYS = 4
+WORLD_TIMEOUT_S = 120.0
+
+
+def option_variant(kernels, card, scanner, name):
+    """One variant of the production configuration at full width: its phase
+    kernels against their plain versions on a state before the 5th
+    iteration (the dose tallies within DOSE_TOL), the device time of the
+    first refill and flight_resolve launch of the iteration with the timer
+    that gave it (``{kernel: (ms, timer)}``, :func:`kernel_ms`), and a short run
+    on the main path's scene (finite, every channel > 0; with the dose the
+    energy accounting and the float32 totals against a float64 sum)."""
+    from cbctmc_tpu_torch.engine import transport
+    from cbctmc_tpu_torch.engine.rng import make_key
+    from cbctmc_tpu_torch.engine.transport import production_engine_config
+
+    cfg = production_engine_config(**ENGINE_OVERRIDES, **OPTION_VARIANTS[name])
+    C, st = state_before_an_iteration(scanner, cfg)
+    engine, plain = transport._engine_phases(), transport._plain_phases()
+    times = {}
+    for kernel, label, call in phase_steps(C):
+        want, _ = compare_phase(card, f"{name}: {label}", call, engine, plain, st, C.n_lanes)
+        if kernel not in times:
+            reps = [st.clone() for _ in range(OPTION_TIMING_REPS + 1)]
+            ms, timer = kernel_ms([(lambda s=s: call(engine, s)) for s in reps], kernel, 1)
+            n_bytes, n_ops, what = phase_bound(kernel, st, want, C)
+            b_ms, b_by = bound(n_bytes, n_ops)
+            times[kernel] = (ms, timer)
+            say(f"{name}: {label}: {what}; {ms:.5f} ms by the {timer} (bound {b_ms:.6f} by "
+                f"{b_by})", card)
+        st = want
+
+    t0 = time.monotonic()
+    out = transport.run_projection(n_histories=OPTION_HISTORIES, key=make_key(18, 1),
+                                   **projection_args(scanner, cfg))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    image, extras = out if cfg.tally_dose else (out, None)
+    sums = image.double().sum(dim=(1, 2)).cpu().numpy()
+    say(f"{name}: {OPTION_HISTORIES} histories in {wall:.3f} s (workspace and graph "
+        f"included) = {OPTION_HISTORIES / wall:.6e} hist/s; channel sums {sums.tolist()} eV",
+        card)
+    if not (torch.isfinite(image).all() and (sums > 0).all()):
+        raise AssertionError(f"{name}: a non-finite image or an empty channel")
+    if extras is not None:
+        vox64 = float(extras["voxel_dose"].double().sum())
+        mat = extras["material_dose"].double()
+        emitted = OPTION_HISTORIES * scanner.spectrum.mean_energy
+        accounted = (vox64 + float(sums.sum())) / emitted
+        gap = (float(mat[:, 0].sum()) - vox64) / vox64
+        say(f"{name}: deposited {vox64:.6e} eV + detected {float(sums.sum()):.6e} eV = "
+            f"{accounted:.6f} x emitted; float32 material totals against the float64 sum of "
+            f"the voxel tallies {gap:+.3e} relative (the largest material's sum "
+            f"{float(mat[:, 0].max()):.6e} eV, float32 ulp "
+            f"{float(np.spacing(np.float32(float(mat[:, 0].max())))):.0f} eV)", card)
+        if not (0 < accounted < 1.01 and torch.isfinite(mat).all()):
+            raise AssertionError(f"{name}: deposited + detected not within 1.01 x emitted")
+    return times
+
+
+def slab_options(card, slab):
+    """The golden slab (SLAB_SEEDS keys x SLAB_HISTORIES) under each sampling
+    option, each channel within 4 combined standard errors of the JAX
+    engine's golden sums; then one slab run with the dose: the voxel and
+    material totals within 1e-3, deposited + detected < 1.01 x emitted."""
+    import dataclasses
+
+    from cbctmc_tpu_torch.engine.rng import make_key
+    from cbctmc_tpu_torch.engine.transport import run_projection
+
+    scene, cfg = slab
+    golden = np.array(json.loads((ROOT / "tests" / "golden_slab_values.json").read_text())
+                      ["channel_sums"])
+    for name in SLAB_OPTIONS:
+        opt = dataclasses.replace(cfg, **OPTION_VARIANTS[name])
+        sums = np.array([
+            run_projection(*scene, SLAB_HISTORIES, make_key(1234 + k), 32, 32, config=opt,
+                           device=DEVICE).double().cpu().numpy().sum(axis=(1, 2))
+            for k in range(SLAB_SEEDS)])
+        mean, s = sums.mean(axis=0), sums.std(axis=0, ddof=1)
+        limit = 4.0 * np.sqrt(s**2 / SLAB_SEEDS + s**2)
+        say(f"golden slab, {name}: |diff| / limit "
+            f"{dict(zip(CHANNELS, (np.abs(mean - golden) / limit).round(4).tolist()))}", card)
+        if not ((np.abs(mean - golden) <= limit).all() and (s > 0).all()):
+            raise AssertionError(f"golden slab, {name}: outside 4 combined standard errors")
+    opt = dataclasses.replace(cfg, tally_dose=True)
+    image, extras = run_projection(*scene, SLAB_HISTORIES, make_key(1234), 32, 32, config=opt,
+                                   device=DEVICE)
+    vox = float(extras["voxel_dose"].double().sum())
+    mat = float(extras["material_dose"][:, 0].double().sum())
+    detected = float(image.double().sum())
+    emitted = SLAB_HISTORIES * 60_000.0
+    say(f"slab dose: voxel total {vox:.6e} eV, material total {mat:.6e} eV (rel "
+        f"{(mat - vox) / vox:+.3e}), deposited + detected {(vox + detected) / emitted:.6f} x "
+        "emitted", card)
+    if not (abs(mat - vox) <= 1e-3 * vox and vox + detected < 1.01 * emitted and vox > 0):
+        raise AssertionError("slab dose: tallies disagree or the energy accounting fails")
+
+
+def world_rank(rank: int, world: int, folder: str, device: str) -> None:
+    """A rank of the gloo world on ``device`` (spawned; the card, all ranks on
+    card 0): the slab scene the parent saved, WORLD_KEYS sharded projections
+    with the dose, each rank's results saved beside the inputs."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from cbctmc_tpu_torch.engine.rng import make_key
+    from cbctmc_tpu_torch.parallel import sharded
+
+    folder = Path(folder)
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        else:  # the ranks share the host's cores
+            torch.set_num_threads(1)
+        sharded.initialize_multi_host(f"file://{folder / 'store'}", world, rank, backend="gloo")
+        mesh = sharded.make_mesh(1, device_type=device)
+        inputs = torch.load(folder / "inputs.pt", weights_only=False)
+        out = []
+        for k in range(WORLD_KEYS):
+            image, extras = sharded.run_projection_sharded(
+                mesh, *inputs["scene"], SLAB_HISTORIES, make_key(1800 + k), 32, 32,
+                config=inputs["config"], device=device)
+            out.append([t.double().cpu() for t in (image, extras["voxel_dose"],
+                                                    extras["material_dose"])])
+        torch.save(out, folder / f"rank{rank}.pt")
+    except BaseException:
+        (folder / f"rank{rank}.error").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def card_world(card, slab):
+    """A WORLD_RANKS-rank gloo world on the card (NCCL takes one rank a
+    card), spawned, on the slab scene with the dose: every rank's images and
+    reduced dose finite and equal, the totals (channels and dose) of its
+    WORLD_KEYS keys within 4 combined standard errors of world size 1's
+    (``run_projection`` under each key folded with shard 0)."""
+    import dataclasses
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from cbctmc_tpu_torch.engine.rng import fold_in, make_key
+    from cbctmc_tpu_torch.engine.transport import run_projection
+
+    scene, cfg = slab
+    cfg = dataclasses.replace(cfg, tally_dose=True)
+    folder = OUT / "card_world"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    torch.save({"scene": scene, "config": cfg}, folder / "inputs.pt")
+    t0 = time.monotonic()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=world_rank, args=(r, WORLD_RANKS, str(folder), DEVICE))
+             for r in range(WORLD_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.1, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.terminate()
+        p.join(10)
+    if hung or any(p.exitcode != 0 for p in procs):
+        errors = "\n".join(f.read_text() for f in sorted(folder.glob("rank*.error")))
+        raise AssertionError(f"card world: {len(hung)} ranks hung, exit codes "
+                             f"{[p.exitcode for p in procs]}\n{errors}")
+    wall = time.monotonic() - t0
+    ranks = [torch.load(folder / f"rank{r}.pt", weights_only=False) for r in range(WORLD_RANKS)]
+    for r in ranks[1:]:
+        if not all(torch.equal(a, b) for ka, kb in zip(r, ranks[0]) for a, b in zip(ka, kb)):
+            raise AssertionError("card world: the ranks' reduced results differ")
+
+    def totals(parts):
+        image, vox, _ = parts
+        return np.append(image.sum(dim=(1, 2)).numpy(), float(vox.sum()))
+
+    world = np.array([totals(parts) for parts in ranks[0]])
+    single = []
+    for k in range(WORLD_KEYS):
+        image, extras = run_projection(*scene, SLAB_HISTORIES, fold_in(make_key(1800 + k), 0),
+                                       32, 32, config=cfg, device=DEVICE)
+        single.append(totals([image.double().cpu(), extras["voxel_dose"].double().cpu(), None]))
+    single = np.array(single)
+    finite = all(torch.isfinite(t).all() for parts in ranks[0] for t in parts)
+    limit = 4.0 * np.sqrt(world.var(axis=0, ddof=1) / WORLD_KEYS
+                          + single.var(axis=0, ddof=1) / WORLD_KEYS)
+    ratio = np.abs(world.mean(axis=0) - single.mean(axis=0)) / limit
+    say(f"card world: {WORLD_RANKS} gloo ranks on the card, {WORLD_KEYS} keys x "
+        f"{SLAB_HISTORIES} histories on the slab with the dose, {wall:.1f} s with the spawn; "
+        f"|diff| / limit against world size 1 (channels, voxel dose) "
+        f"{ratio.round(4).tolist()}", card)
+    if not (finite and (ratio <= 1.0).all() and (limit > 0).all()):
+        raise AssertionError("card world: non-finite results or totals beyond 4 combined "
+                             "standard errors of world size 1")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_path(kernels, card, scanner):
+    """World size 1 on NCCL at full width: ``run_projection_sharded`` of one
+    view and ``run_scan_sharded`` of SHARDED_VIEWS views at
+    SHARDED_HISTORIES, each equal to ``run_projection`` under the same
+    folded keys (channel sums within 1e-4), their histories/s beside
+    ``MCScanner``'s on the same views."""
+    import torch.distributed as dist
+
+    from cbctmc_tpu_torch.engine.ct import build_scan, select_projection
+    from cbctmc_tpu_torch.engine.rng import fold_in, make_key
+    from cbctmc_tpu_torch.engine.transport import run_projection
+    from cbctmc_tpu_torch.parallel import sharded
+
+    sharded.initialize_multi_host(f"localhost:{_free_port()}", 1, 0)
+    try:
+        mesh = sharded.make_mesh(1, device_type="cuda")
+        args = projection_args(scanner)
+        cfg, key = args.pop("config"), make_key(18)
+        geo = scanner.scan_geometry
+        npx, npz = args.pop("n_pixels_x"), args.pop("n_pixels_z")
+        args.pop("device")
+
+        def sums(t):
+            return t.double().sum(dim=(-2, -1)).cpu().numpy()
+
+        def check(label, got, want):
+            rel = np.abs(got - want) / np.abs(want)
+            say(f"sharded, world size 1 (NCCL), {label}: channel sums rel diff to "
+                f"run_projection under the folded keys {rel.max():.3e}", card)
+            if not (rel <= 1e-4).all():
+                raise AssertionError(f"sharded, {label}: parts from run_projection")
+
+        t0 = time.monotonic()
+        image = sharded.run_projection_sharded(mesh, **args, n_histories=SHARDED_HISTORIES,
+                                               key=key, n_pixels_x=npx, n_pixels_z=npz,
+                                               config=cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        rate_p = SHARDED_HISTORIES / (time.monotonic() - t0)
+        want = run_projection(**args, n_histories=SHARDED_HISTORIES, key=fold_in(key, 0),
+                              n_pixels_x=npx, n_pixels_z=npz, config=cfg, device=DEVICE)
+        check("one view", sums(image), sums(want))
+
+        angles = [float(a) for a in np.linspace(0.0, 360.0, SHARDED_VIEWS, endpoint=False)]
+        source, detector = build_scan(geo, angles, device=DEVICE)
+        tables, woodcock, volume = args["tables"], args["woodcock"], args["volume"]
+        t0 = time.monotonic()
+        stack = sharded.run_scan_sharded(mesh, tables, woodcock, volume, source, detector,
+                                         SHARDED_VIEWS, SHARDED_HISTORIES, key, npx, npz,
+                                         config=cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        rate_s = SHARDED_VIEWS * SHARDED_HISTORIES / (time.monotonic() - t0)
+        row_key = fold_in(fold_in(key, 0), 0)
+        want = np.stack([sums(run_projection(
+            tables, woodcock, volume, select_projection(source, v),
+            select_projection(detector, v), SHARDED_HISTORIES, fold_in(row_key, v), npx, npz,
+            config=cfg, device=DEVICE)) for v in range(SHARDED_VIEWS)])
+        check(f"scan of {SHARDED_VIEWS} views", sums(stack), want)
+        if not (torch.isfinite(stack).all() and (want > 0).all()):
+            raise AssertionError("sharded scan: non-finite or empty images")
+    finally:
+        dist.destroy_process_group()
+    _, info = scanner.simulate(angles_deg=angles, n_histories=SHARDED_HISTORIES, seed=18,
+                               progress=False)
+    torch.cuda.synchronize()
+    say(f"sharded, world size 1: run_projection_sharded {rate_p:.6e} hist/s (one view of "
+        f"{SHARDED_HISTORIES}, its workspace and graph included), run_scan_sharded "
+        f"{rate_s:.6e} hist/s ({SHARDED_VIEWS} views); MCScanner on the same views "
+        f"{info.histories_per_second:.6e} hist/s", card)
+    return {"projection": rate_p, "scan": rate_s, "scanner": info.histories_per_second}
+
+
+def options_path(kernels, card, scanner, slab):
+    """Phase 18: (a) the v4 options at full width (:func:`option_variant`
+    for the production configuration and each variant), (b) the golden slab
+    under each sampling option (:func:`slab_options`), (c) the engine sharded
+    at world size 1 on NCCL (:func:`sharded_path`) and over a gloo world of
+    WORLD_RANKS ranks on the card (:func:`card_world`). The launch counters
+    are zeroed just before and read just after: ``refill`` and
+    ``flight_resolve`` must have run."""
+    t0 = time.monotonic()
+    kernels.reset_launch_counts()
+    times = {name: option_variant(kernels, card, scanner, name) for name in OPTION_VARIANTS}
+    t_a = time.monotonic() - t0
+    slab_options(card, slab)
+    t_b = time.monotonic() - t0 - t_a
+    rates = sharded_path(kernels, card, scanner)
+    launches = {k: kernels.launch_counts[k] for k in ("refill", "flight_resolve")}
+    card_world(card, slab)
+    wall = time.monotonic() - t0
+    for kernel in ("refill", "flight_resolve"):
+        say(f"{kernel} per launch by variant (ms, timer): "
+            f"{ {name: (round(t[kernel][0], 5), t[kernel][1]) for name, t in times.items()} }",
+            card)
+    say(f"phase 18: {wall:.1f} s (options at full width {t_a:.1f} s, golden slab {t_b:.1f} s, "
+        f"sharded {wall - t_a - t_b:.1f} s); launches {launches}", card)
+    if not all(launches.values()):
+        raise AssertionError(f"phase 18: launches {launches}")
+    return {"launches": launches, "times": times, "rates": rates, "wall": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -4223,6 +4604,12 @@ def main() -> int:
     exported = interchange_path(kernels, card, (scene, slab_cfg))
     for name in ("refill", "flight_resolve"):
         launches[name] += exported["launches"][name]
+    options = options_path(kernels, card, scanner, (scene, slab_cfg))
+    for name in ("refill", "flight_resolve"):
+        launches[name] += options["launches"][name]
+        # each v4 option's instantiation, timed in phase 18 beside production's
+        results[name]["variants_ms"] = {k: t[name][0] for k, t in options["times"].items()}
+        results[name]["variants_timer"] = {k: t[name][1] for k, t in options["times"].items()}
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -4258,7 +4645,8 @@ def main() -> int:
         f"{validation['phase']:.3f} s; CLI {cli['walls']['phase']:.3f} s (its checks "
         f"{cli['walls']['checks']:.3f} s); training {trained['walls']['phase']:.3f} s (its "
         f"checks {trained['walls']['checks']:.3f} s); interchange "
-        f"{exported['walls']['phase']:.3f} s; whole script "
+        f"{exported['walls']['phase']:.3f} s; options and sharding {options['wall']:.1f} s; "
+        f"whole script "
         f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

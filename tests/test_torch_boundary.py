@@ -76,6 +76,8 @@ SLICE_MODULES = [
     "cbctmc_tpu_torch.native",
     "cbctmc_tpu_torch.utils.interchange",
     "cbctmc_tpu_torch.utils.common",
+    "cbctmc_tpu_torch.parallel",
+    "cbctmc_tpu_torch.parallel.sharded",
 ]
 # the port's scripts, imported as modules (scripts/ on the path)
 PORT_SCRIPTS = ["torch_validation_records"]

@@ -119,6 +119,16 @@ PHASE_CONFIGS = {
     "production": transport.production_engine_config(n_lanes=1 << 14),
     "slab": SLAB_CONFIG,
 }
+#: the engine's v4 options on the production configuration, alone and together
+OPTIONS = {
+    "alias": dict(spectrum_mode="alias"), "table": dict(sigma_mode="table"),
+    "rita": dict(rayleigh_mode="rita"), "dose": dict(tally_dose=True),
+    "all": dict(spectrum_mode="alias", sigma_mode="table", rayleigh_mode="rita",
+                tally_dose=True),
+}
+PHASE_CONFIGS.update({name: transport.production_engine_config(n_lanes=1 << 14, **ov)
+                      for name, ov in OPTIONS.items()})
+DOSE_TOL = 1e-5  # of the plain version's largest voxel / material sum (float32 atomics)
 
 
 def _phase_steps(C):
@@ -147,6 +157,12 @@ def _assert_phase_matches(got, want, n, name):
     assert image_rel <= 1e-5, (name, image_rel)
 
 
+def _assert_dose_matches(got, want):
+    for name in ("voxel_dose", "material_dose"):
+        g, w = getattr(got, name).double(), getattr(want, name).double()
+        assert float((g - w).abs().max()) <= DOSE_TOL * max(float(w.abs().max()), 1.0), name
+
+
 def _check_phase(cuda, kernel, config_name, remaining=None):
     config = PHASE_CONFIGS[config_name]
     scene = slab_engine(cuda, config, mono=config_name == "slab")
@@ -157,6 +173,9 @@ def _check_phase(cuda, kernel, config_name, remaining=None):
     seen = 0
     for name, call in _phase_steps(C):
         got, want = st.clone(), st.clone()
+        for dose in (got.voxel_dose, got.material_dose, want.voxel_dose, want.material_dose):
+            if dose is not None:  # tally_dose: each side's sums of this launch's deposits
+                dose.zero_()
         call(transport._engine_phases(), got)
         call(transport._plain_phases(), want)
         torch.cuda.synchronize()
@@ -165,6 +184,8 @@ def _check_phase(cuda, kernel, config_name, remaining=None):
             # the launches that did work count themselves on the device
             assert _launches(got, name) > _launches(st, name)
             _assert_phase_matches(got, want, n, name)
+            if config.tally_dose:
+                _assert_dose_matches(got, want)
         st = want
     assert seen > 0
     assert int(st.ctrl[transport.CTRL_ITERATION]) == 5  # the tally rode on the last launch
@@ -207,6 +228,44 @@ def test_tally_kernel_on_card(cuda, config_name):
     assert _launches(got, "tally") == _launches(st, "tally") + 1
     _assert_phase_matches(got, want, config.n_lanes, "tally")
     assert float(want.image.sum()) > float(st.image.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config_name", list(OPTIONS))
+@pytest.mark.parametrize("kernel", ["refill", "flight_resolve"])
+def test_option_variants_on_card(cuda, kernel, config_name):
+    """The refill (alias) and flight_resolve (table sigma, RITA, dose)
+    instantiations of each v4 option, alone and together, against their
+    plain versions; the dose tallies within 1e-5 of the plain sums."""
+    _check_phase(cuda, kernel, config_name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_whole_engine_options_on_card(cuda, name):
+    """The whole engine under each option: the recorded graph of the
+    option's instantiations against the plain version on the card, as
+    test_whole_engine_on_card_matches_plain_version. With the dose: the
+    voxel tallies (small sums each) within 1e-4 of the plain run's total,
+    and on each side the material total within 1e-3 of the float64 sum of
+    its voxel tallies. Over a whole run the material sums pass 2^24 ulps
+    of their deposits, where float32 stagnates and the two orders (lane
+    order in the plain version's scatter-add, block partials in the kernel)
+    part by up to ~1e-3 (the first card run of this test: 1.6e-3 over both
+    columns); one launch's are held to 1e-5 in test_option_variants_on_card."""
+    config = transport.production_engine_config(n_lanes=1 << 14, **OPTIONS[name])
+    scene = slab_engine(cuda, config, mono=False)
+    runs = _run_both(cuda, scene, config, 1_000_000, seed=5)
+    _assert_same_run(*runs, 1_000_000)
+    if config.tally_dose:
+        (_, ex_k), (_, ex_p) = runs
+        vox_k, vox_p = ex_k["voxel_dose"].double(), ex_p["voxel_dose"].double()
+        assert torch.isfinite(vox_k).all()
+        assert float((vox_k - vox_p).abs().sum()) <= 1e-4 * float(vox_p.sum())
+        for ex, vox in ((ex_k, vox_k), (ex_p, vox_p)):
+            mat = ex["material_dose"].double()
+            assert torch.isfinite(mat).all() and float(mat[:, 1].sum()) > 0
+            assert abs(float(mat[:, 0].sum()) - float(vox.sum())) <= 1e-3 * float(vox.sum())
 
 
 @pytest.mark.gpu

@@ -11,6 +11,8 @@ different summation order) and the backprojections agree to rounding
 (tests/test_torch_fdk.py): 1e-5 of the volume's maximum. ``reconstruct_4d``:
 ROOSTER's bound of tests/test_torch_rooster.py, 1e-4."""
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -80,6 +82,30 @@ def test_4d_mha_and_uncompressed_files_cross_read(tmp_path):
     np.testing.assert_array_equal(tio.read_mha(tmp_path / "raw.mha")[0], arr[..., 0])
     with pytest.raises(ValueError, match="Unsupported"):
         tio.write_image(arr, tmp_path / "v.png")
+
+
+def test_chunked_deflate_reads_as_one_zlib_stream(tmp_path, monkeypatch):
+    """A MetaImage payload past the threshold is deflated in chunks on
+    threads (thresholds lowered here: 288,000 bytes in 9 chunks, the last
+    one short): both packages read it back equal and it inflates as one
+    zlib stream of CompressedDataSize bytes. Below the threshold the port
+    writes the file byte for byte as the JAX package does."""
+    arr = np.random.default_rng(2).random((40, 30, 20, 3)).astype(np.float32)
+    monkeypatch.setattr(tio, "_PARALLEL_DEFLATE_BYTES", 1 << 16)
+    monkeypatch.setattr(tio, "_DEFLATE_CHUNK_BYTES", 1 << 15)
+    monkeypatch.setattr(tio, "_DEFLATE_THREADS", 2)
+    tio.write_image(arr, tmp_path / "chunked.mha")
+    np.testing.assert_array_equal(jio.read_image(tmp_path / "chunked.mha")[0], arr)
+    np.testing.assert_array_equal(tio.read_image(tmp_path / "chunked.mha")[0], arr)
+    data = (tmp_path / "chunked.mha").read_bytes()
+    end = b"ElementDataFile = LOCAL\n"
+    payload = data[data.index(end) + len(end):]
+    assert f"CompressedDataSize = {len(payload)}\n".encode() in data
+    assert zlib.decompress(payload) == np.ascontiguousarray(np.transpose(arr)).tobytes()
+    monkeypatch.undo()
+    tio.write_image(arr, tmp_path / "port.mha")
+    jio.write_image(arr, tmp_path / "jax.mha")
+    assert (tmp_path / "port.mha").read_bytes() == (tmp_path / "jax.mha").read_bytes()
 
 
 def test_metrics_match_jax():

@@ -65,6 +65,44 @@ def test_device_table_field_bit_equal(jax_tables, port_tables, field):
     _same(getattr(port_tables, field), getattr(jax_tables, field))
 
 
+def _with_generated_water(gen, materials, tmp_path):
+    """The shipped set with its water replaced by ``generate_material``'s
+    (every element given the shipped water's own attenuation, as the
+    interchange path builds it), written as ``.mcgpu`` and parsed back, by
+    the package ``gen`` / ``materials``."""
+    from chip_smoke import shipped_mu_rho
+
+    shipped_set = materials.default_material_set()
+    mu_rho, shipped = shipped_mu_rho(shipped_set, "h2o")
+    water = gen.generate_material("h2o", "H2O", shipped.density, mu_rho_fn=mu_rho)
+    path = gen.write_mcgpu_file(water, tmp_path / "h2o__5_125kev.mcgpu")
+    mats = list(shipped_set.materials)
+    mats[shipped_set.index_of("h2o")] = materials.parse_mcgpu_material_file(path)
+    return materials.MaterialTableSet(materials=mats)
+
+
+@pytest.fixture(scope="module")
+def generated_water_tables(tmp_path_factory):
+    from cbctmc_tpu.physics import material_generator as jgen
+    from cbctmc_tpu.physics import materials as jmaterials
+    from cbctmc_tpu_torch.physics import material_generator as tgen
+    from cbctmc_tpu_torch.physics import materials as tmaterials
+
+    jset = _with_generated_water(jgen, jmaterials, tmp_path_factory.mktemp("jax_water"))
+    tset = _with_generated_water(tgen, tmaterials, tmp_path_factory.mktemp("port_water"))
+    return (jtables.build_device_tables(jset, jax_spectrum()),
+            ttables.build_device_tables(tset, default_spectrum(), device="cpu"))
+
+
+@pytest.mark.parametrize("field", ttables.DeviceTables._fields)
+def test_generated_water_table_field_bit_equal(generated_water_tables, field):
+    """The device tables of the set whose water ``generate_material`` made
+    (each package generating, writing and parsing its own): every field
+    bit-equal, as for the shipped set."""
+    jt, tt = generated_water_tables
+    _same(getattr(tt, field), getattr(jt, field))
+
+
 @pytest.fixture(scope="module")
 def woodcocks(table_set):
     max_density, soft = _scene_max_density(table_set)

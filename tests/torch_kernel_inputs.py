@@ -153,8 +153,9 @@ def state_in_mid_run(scene, config, n_histories, seed, iterations=4):
     tables, woodcock, volume, src, det, n_pix = scene
     dev = volume.packed.device
     C = T.engine_consts(tables, woodcock, volume, src, det, n_pix, n_pix, config)
+    dose = (int(volume.packed.shape[0]), tables.n_mats) if config.tally_dose else None
     st = T.EngineState.start(T.LaneState.empty(config.n_lanes, n_pix * n_pix, dev),
-                             n_histories, n_pix * n_pix, key=make_key(seed))
+                             n_histories, n_pix * n_pix, key=make_key(seed), dose=dose)
     for _ in range(iterations):
         T.outer_iteration(T._plain_phases(), C, st)
     return C, st, T.iteration_bits(C, st).clone()
