@@ -93,7 +93,10 @@ enum {
   CTRL_KEY1 = 10,
   CTRL_LAUNCHES_REFILL = 11,  // launches that did work, counted per kernel
   CTRL_LAUNCHES_FLIGHT_RESOLVE = 12,
-  CTRL_LAUNCHES_TALLY = 13
+  CTRL_LAUNCHES_TALLY = 13,
+  CTRL_LAUNCHES_COMPACT = 14,  // the v3 kernels (compact.cu, tally_compacted.cu,
+  CTRL_LAUNCHES_TALLY_COMPACTED = 15,  // resolve_compacted.cu)
+  CTRL_LAUNCHES_RESOLVE_COMPACTED = 16
 };
 
 // the 10-slot counters (the JAX engine's layout)
@@ -225,6 +228,13 @@ __device__ __forceinline__ void settle_launch(int32_t* ctrl, int started, int la
     ctrl[CTRL_RUN] = iteration < ctrl[CTRL_MAX_ITERATIONS] &&
                      (remaining > 0 || (any_live && ctrl[CTRL_DRAIN]));
   }
+}
+
+// A launch that settles nothing counts itself in `launch_word` from block 0
+// (after read_ctrl found the loop running; no other block of the launch
+// touches the word).
+__device__ __forceinline__ void count_launch(int32_t* ctrl, int launch_word) {
+  if (ctrl != nullptr && blockIdx.x == 0 && threadIdx.x == 0) ctrl[launch_word] += 1;
 }
 
 __device__ __forceinline__ void count(unsigned long long* counters, int slot, int v) {

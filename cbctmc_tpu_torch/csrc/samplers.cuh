@@ -2,7 +2,8 @@
 // transport engine as __device__ functions: counterparts of the JAX
 // package's cbctmc_tpu/engine/samplers.py (sample_spectrum_energy_cdf,
 // sample_spectrum_energy (Walker alias), sample_source_direction,
-// sample_icdf_rows_cdt1, rayleigh_scatter_rows (RITA), compton_scatter_rows_tab /
+// sample_icdf_rows_cdt1, rayleigh_scatter_rows (RITA), compton_scatter_rows
+// (the GCOa tau rejection), compton_scatter_rows_tab /
 // _shell_doppler_and_energy, rotate_direction) and of
 // cbctmc_tpu/engine/transport.py (_move_to_bbox, ebin_of). On the TPU these
 // are whole-batch XLA operations with one-hot selects in place of gathers;
@@ -19,6 +20,7 @@
 #include "engine.cuh"
 
 #define SOURCE_DIR_TRIPS 2
+#define COMPTON_TAU_TRIPS 16
 #define COMPTON_SHELL_TRIPS 8
 #define RAYLEIGH_TRIPS 12
 #define NP_RAYLEIGH 128
@@ -198,20 +200,20 @@ __device__ __forceinline__ float profile_cdf(float pz) {
   return pz > 0.0f ? 1.0f - val : val;
 }
 
-// Compton with a pre-sampled angle: target shell + Doppler-broadened
-// scattered energy. `sh` points at the material's shell rows, laid out
+// Compton with a pre-sampled angle (tau = E'/E of the unbroadened line and
+// cdt1 = 1 - cos(theta)): target shell + Doppler-broadened scattered
+// energy. `sh` points at the material's shell rows, laid out
 // [3][n_mats][s_max] (f, ui, j0) with `plane` = n_mats * s_max. The shell
 // sums run shell by shell, as the plain version's; a lane walks only its
 // own material's shells and leaves the rejection loop when it accepts, so
 // the warp pays for its slowest lane; it draws (one Philox call per four
 // rows) only the trips it takes.
-__device__ __forceinline__ float compton_shell_energy(
-    float energy, float cdt1, const float* sh, int plane, int s_max, Rng& rng, int row) {
+__device__ __forceinline__ float compton_shell_energy_tau(
+    float energy, float tau, float cdt1, const float* sh, int plane, int s_max, Rng& rng,
+    int row) {
   const float* sh_f = sh;
   const float* sh_ui = sh + plane;
   const float* sh_j0 = sh + 2 * plane;
-  const float ek = energy * INV_MEC2;
-  const float tau = 1.0f / (1.0f + ek * cdt1);
   const float costh = 1.0f - cdt1;
 
   float cum[MAX_SHELLS], rn[MAX_SHELLS];
@@ -269,6 +271,67 @@ __device__ __forceinline__ float compton_shell_energy(
   root = pzomc < 0.0f ? -root : root;
   const float factor = fminf((tau / b1) * (b2 + root), 1.0f);
   return energy * factor;
+}
+
+// the same with tau from the tabulated angle: tau = 1 / (1 + E / mc^2 * cdt1)
+__device__ __forceinline__ float compton_shell_energy(
+    float energy, float cdt1, const float* sh, int plane, int s_max, Rng& rng, int row) {
+  const float ek = energy * INV_MEC2;
+  const float tau = 1.0f / (1.0f + ek * cdt1);
+  return compton_shell_energy_tau(energy, tau, cdt1, sh, plane, s_max, rng, row);
+}
+
+// The Compton angle by PENELOPE-2006's GCOa (engine v3, tau_table=False):
+// tau from the Klein-Nishina composition scheme, accepted against
+// S(E, theta) / S(E, pi) (s0 = S(E, pi)), the incoherent scattering
+// function summed over the material's open shells at each proposal, in at
+// most COMPTON_TAU_TRIPS trips of 3 rows from `row`; a lane that accepts no
+// trip commits its last proposal (below 1e-5 of the lanes). Sets tau and
+// cdt1 = 1 - cos(theta) and returns whether a trip accepted. taumin^u2 is
+// taken in double precision and rounded once (the plain version does the
+// same, so both agree to the bit; the JAX sampler's float32 power is rounded
+// correctly in all but a few lanes in 10^4).
+__device__ __forceinline__ bool compton_tau_gcoa(float energy, float s0, const float* sh,
+                                                 int plane, int s_max, Rng& rng, int row,
+                                                 float& tau, float& cdt1) {
+  const float* sh_f = sh;
+  const float* sh_ui = sh + plane;
+  const float* sh_j0 = sh + 2 * plane;
+  const float ek = energy * INV_MEC2;
+  const float ek2 = ek * 2.0f + 1.0f;
+  const float ek3 = ek * ek;
+  const float ek1 = ek3 - ek2 - 1.0f;
+  const float taumin = 1.0f / ek2;
+  const float a1 = logf(ek2);
+  const float a2 = a1 + 2.0f * ek * (ek + 1.0f) * taumin * taumin;
+  tau = 1.0f;
+  cdt1 = 1.0f;
+  for (int trip = 0; trip < COMPTON_TAU_TRIPS; ++trip) {
+    const float u1 = u_open(rng, row + 3 * trip);
+    const float u2 = u_open(rng, row + 3 * trip + 1);
+    const float u3 = u_open(rng, row + 3 * trip + 2);
+    const float tau_prop = u1 * a2 < a1 ? (float)pow((double)taumin, (double)u2)
+                                        : sqrtf(1.0f + u2 * (taumin * taumin - 1.0f));
+    // the JAX sampler's cap float32(1.99999999), which is 2.0
+    const float cdt1_prop = fminf((1.0f - tau_prop) / (tau_prop * ek), 2.0f);
+    float s_prop = 0.0f;
+    for (int k = 0; k < s_max; ++k) {
+      const bool open = sh_ui[k] < energy;
+      const float ui = open ? sh_ui[k] : 0.0f;
+      const float w =
+          (open ? sh_f[k] : 0.0f) * profile_cdf(shell_pzomc(energy, ui, sh_j0[k], cdt1_prop));
+      s_prop = k == 0 ? w : s_prop + w;
+    }
+    const float t_kn = s_prop * (1.0f + tau_prop * (ek1 + tau_prop * (ek2 + tau_prop * ek3))) /
+                       (ek3 * tau_prop * (tau_prop * tau_prop + 1.0f));
+    const bool accept = u3 * s0 <= t_kn;
+    if (accept || trip == COMPTON_TAU_TRIPS - 1) {
+      tau = tau_prop;
+      cdt1 = cdt1_prop;
+      return accept;
+    }
+  }
+  return false;
 }
 
 // Rayleigh cos(theta) by RITA (rayleigh_mode "rita"): rational

@@ -1,12 +1,12 @@
 """The port's hand-written CUDA kernels: the engine's, with their plain
 PyTorch versions, the build of all of them, and the launch counters.
 
-Sixteen kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
+Nineteen kernels live in ``cbctmc_tpu_torch/csrc/`` (each source opens with
 what it replaces, what bounds it and how its design answers that). Two are
 the phases of the engine's outer iteration, the only device work
 :func:`cbctmc_tpu_torch.engine.transport.run_projection` issues on the card
-(their random numbers are Philox words made in registers,
-``csrc/philox.cuh``):
+in the production configuration (their random numbers are Philox words made
+in registers, ``csrc/philox.cuh``):
 
 - ``refill``: the history budget, the refill of dead lanes and the
   candidate pool (:func:`launch_refill`);
@@ -21,7 +21,26 @@ two (``refill`` for ``spectrum_mode="alias"``; ``flight_resolve`` for
 ``sigma_mode="table"``, ``rayleigh_mode="rita"`` and ``tally_dose``, in any
 combination), chosen at the launch from the configuration; the production
 configuration runs the instantiation with every option off. Their plain
-versions are the ``*_phase_reference`` functions of ``transport.py``. Five more are single-purpose kernels, each still checked
+versions are the ``*_phase_reference`` functions of ``transport.py``.
+
+Three more run the engine's v3 body (``resolve_inplace=False``), whose
+sub-phase is the flights (``flight_resolve`` launches that fly only, on
+the pair table), then a compacted tally and a compacted resolve
+(:func:`launch_tally_compacted`, :func:`launch_resolve_compacted`):
+
+- ``compact``: the order-preserving compaction of a mask into a batch of
+  static size and each entry's rank (:func:`compact`; entry
+  ``compact_count`` for the counts per block where no kernel left them);
+- ``tally_compacted``: the primary pass of the tally and, on the doubles'
+  ranks, the second pass with the overflow carry;
+- ``resolve_compacted``: a thread per event slot: the branch and the
+  Compton sampler (tabulated or GCOa angle), then the Rayleigh sampler, the
+  write-back and the lane's finish; its entry ``resolve_finish`` ends the
+  iteration (the dead lanes per block, the loop's control words).
+
+Their plain versions are ``transport.compact_indices``,
+``tally_compacted_phase_reference`` and ``resolve_compacted_reference``.
+Five more are single-purpose kernels, each still checked
 and timed on its own (``transport.run_projection_stepwise`` drives all but
 ``flight_prototype``):
 
@@ -109,10 +128,15 @@ BUILD_DIR = _PKG / "_build"
 KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_resolve",
            "tally", "philox_block", "primary_trace", "backproject", "joseph_project",
            "joseph_splat", "tv_spatial", "tv_temporal", "demons_force", "demons_blur",
-           "demons_jacobian")
+           "demons_jacobian", "compact", "tally_compacted", "resolve_compacted")
 #: the control word (csrc/engine.cuh CTRL_LAUNCHES_*) in which each phase
 #: kernel counts its launches that did work
-PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13}
+PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13, "compact": 14,
+                      "tally_compacted": 15, "resolve_compacted": 16}
+#: the launch functions of the v3 kernels, by ``kernel:entry``
+V3_ENTRIES = ("compact", "compact:compact_count", "tally_compacted",
+              "tally_compacted:tally_doubles", "resolve_compacted",
+              "resolve_compacted:resolve_scatter", "resolve_compacted:resolve_finish")
 #: lanes per block of the phase kernels (PHASE_THREADS in csrc/engine.cuh)
 PHASE_BLOCK = 256
 # -fmad=false: every product and sum rounds on its own, as the plain
@@ -136,6 +160,12 @@ _BIG = 1.0e30
 _DEN_MASK = (1 << 21) - 1
 MAX_POLY = 16
 MAX_SHELLS = 32  # per-lane shell arrays of csrc/samplers.cuh
+
+
+def phase_entries(config) -> tuple:
+    """The launch functions an outer iteration under ``config`` calls."""
+    v3 = () if config.resolve_inplace else V3_ENTRIES
+    return ("refill", "flight_resolve") + v3
 
 
 def reset_launch_counts() -> None:
@@ -300,6 +330,16 @@ _SIGNATURES = {
     "demons_force:warp_volume": [_P, _P, _I, _I, _I, _P, _P],
     "demons_blur": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_F), _I, _P, _P],
     "demons_jacobian": [_P, _P, _I, _I, _I, _F, _P, _P],
+    "compact": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "compact:compact_count": [_P, _P, _I, _P, _P, _P],
+    "tally_compacted": [_LP, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tally_compacted:tally_doubles": [_LP, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "resolve_compacted": [_LP, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _P],
+    "resolve_compacted:resolve_scatter": [_LP, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I,
+                                          _P, _P, _P, _I, _I, ctypes.POINTER(_OptionsC), _I,
+                                          _P],
+    "resolve_compacted:resolve_finish": [_LP, _I, _P, _P, _P],
 }
 
 
@@ -323,14 +363,22 @@ def load_kernels(names=KERNELS) -> None:
         _launcher(name)
 
 
-def _launch(name: str, *args) -> None:
+def _call(name: str, *args) -> None:
     err = _launcher(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    if name in PHASE_LAUNCH_WORDS:  # whether it did work is counted on the device
-        enqueued_counts[name] += 1
+
+
+def _launch(name: str, *args) -> None:
+    """Launch ``name`` (``kernel`` or ``kernel:entry``) and count it: the
+    phase kernels count on the device whether a launch did work, so here
+    they count as enqueued."""
+    _call(name, *args)
+    kernel = name.partition(":")[0]
+    if kernel in PHASE_LAUNCH_WORDS:
+        enqueued_counts[kernel] += 1
     else:
-        launch_counts[name.partition(":")[0]] += 1
+        launch_counts[kernel] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -960,9 +1008,10 @@ class _PhaseArgs:
                (F.ints["n_mats"], 3 * F.ints["cheb_d"] + 6), dev)
         Q = C.phase_params.ints
         cfg = C.config
-        alias = cfg.spectrum_mode == "alias"
+        alias = cfg.alias_spectrum
         _check(C.spec, "spec", torch.float32,
                (5 * Q["n_spec_bins"] if alias else 3 * Q["n_spec_bins"] - 1,), dev)
+        v3 = not cfg.resolve_inplace
         _check(C.icdf, "icdf", torch.float32, (2 * Q["n_icdf_rows"] * Q["k_knots"],), dev)
         _check(C.shells, "shells", torch.float32, (3, Q["n_mats"], Q["s_max"]), dev)
         if F.ints["n"] != n or Q["n"] != n or Q["n_mats"] != F.ints["n_mats"]:
@@ -975,10 +1024,11 @@ class _PhaseArgs:
             if F.pair.shape[0] % Q["n_mats"]:
                 raise ValueError("pair: rows not a multiple of the material count")
             opt.pair, opt.n_pair = F.pair.data_ptr(), F.pair.shape[0]
-        if cfg.rayleigh_mode == "rita":
+        if cfg.rayleigh_mode == "rita" or v3:
             _check(C.rita, "rita", torch.float32, (4, Q["n_mats"] * 128), dev)
-            _check(C.pmax, "pmax", torch.float32, None, dev)
             opt.rita, opt.rita_plane = C.rita.data_ptr(), Q["n_mats"] * 128
+        if cfg.rayleigh_mode == "rita":
+            _check(C.pmax, "pmax", torch.float32, None, dev)
             opt.pmax, opt.n_pmax = C.pmax.data_ptr(), C.pmax.numel()
         if cfg.tally_dose:
             if st.voxel_dose is None or st.material_dose is None:
@@ -990,10 +1040,19 @@ class _PhaseArgs:
             opt.dose_len = 2 * Q["n_mats"]
         self.options = opt
         #: the refill's instantiation (alias) and flight_resolve's (bits:
-        #: table sigma, RITA, dose); all 0 for the production configuration
+        #: table sigma, RITA, dose); all 0 for the production configuration.
+        #: v3's flight_resolve launches fly only, on the pair table (1)
         self.alias = int(alias)
         self.variant = (int(F.pair is not None) | int(cfg.rayleigh_mode == "rita") << 1
                         | int(cfg.tally_dose) << 2)
+        self.compact = None
+        if v3:
+            if F.pair is None:
+                raise ValueError("v3 flies on the pair table: the flight constants hold none")
+            self.variant = 1
+            _check(C.event_pair, "event_pair", torch.float32,
+                   (6 * F.pair.shape[0],), dev)
+            self.compact = CompactBuffers.allocate(n, cfg.event_lanes, dev)
         self.consts = C
         self.n = n
         self.lanes = _LanesC(*(getattr(st.lanes, k).data_ptr() for k in FlightLanes._fields))
@@ -1011,6 +1070,39 @@ class _PhaseArgs:
         host = bytes(C.flight.params()) + bytes(C.phase_params.params())
         self.params_dev.copy_(torch.frombuffer(bytearray(host), dtype=torch.uint8))
         self.view = C.view
+
+
+class CompactBuffers(NamedTuple):
+    """Scratch of the v3 kernels, written and read within one compacted
+    tally or resolve: the doubles byte per lane, their counts per block and
+    ranks; the events' counts per block and slots; each slot's outcome; the
+    Rayleigh slots' bytes, counts per block and ranks."""
+
+    doubles: torch.Tensor  # u8[n]
+    doubles_count: torch.Tensor  # i32[blocks of n]
+    doubles_order: torch.Tensor  # i32[n]
+    events_count: torch.Tensor  # i32[blocks of n]
+    events_idx: torch.Tensor  # i32[c_e]
+    slot_energy: torch.Tensor  # f32[c_e]
+    slot_costh: torch.Tensor  # f32[c_e]
+    slot_code: torch.Tensor  # u8[c_e]
+    rayleigh: torch.Tensor  # u8[c_e]
+    rayleigh_count: torch.Tensor  # i32[blocks of c_e]
+    rayleigh_order: torch.Tensor  # i32[c_e]
+
+    @classmethod
+    def allocate(cls, n: int, c_e: int, device) -> "CompactBuffers":
+        def blocks(m):
+            return -(-m // PHASE_BLOCK)
+
+        u8, i32, f32 = torch.uint8, torch.int32, torch.float32
+        shapes = dict(doubles=(n, u8), doubles_count=(blocks(n), i32), doubles_order=(n, i32),
+                      events_count=(blocks(n), i32), events_idx=(c_e, i32),
+                      slot_energy=(c_e, f32), slot_costh=(c_e, f32), slot_code=(c_e, u8),
+                      rayleigh=(c_e, u8), rayleigh_count=(blocks(c_e), i32),
+                      rayleigh_order=(c_e, i32))
+        return cls(**{k: torch.zeros((m,), dtype=dt, device=device)
+                      for k, (m, dt) in shapes.items()})
 
 
 def _phase_args(C, st) -> _PhaseArgs:
@@ -1059,6 +1151,104 @@ def launch_flight_resolve(C, st, flight_row: int, resolve_row: int,
             st.image.data_ptr(), st.ctrl.data_ptr(), st.counters.data_ptr(),
             st.energy.data_ptr(), st.block_dead.data_ptr(), a.params_ptr, a.phase_ptr,
             ctypes.byref(a.options), a.variant, _stream(st.ctrl))
+
+
+def launch_compact(mask_a, mask_b, counts, budget: int, fill: int, idx, order, ctrl,
+                   stream: int, count: bool = False) -> None:
+    """Launch ``compact`` on the mask ``mask_a & mask_b`` (byte tensors;
+    ``mask_b`` may be None), its per-block counts in ``counts`` (written
+    first by the entry ``compact_count`` when ``count``): ``idx`` and
+    ``order`` (either may be None) as :func:`compact` returns them;
+    ``ctrl`` the engine's control words or None."""
+    m = mask_a.shape[0]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def launch(name, *args):
+        if ctrl is None:  # outside the engine no control word counts it
+            _call(name, *args)
+            launch_counts["compact"] += 1
+        else:
+            _launch(name, *args)
+
+    if count:
+        launch("compact:compact_count", ptr(mask_a), ptr(mask_b), m, counts.data_ptr(),
+               ptr(ctrl), stream)
+    launch("compact", ptr(mask_a), ptr(mask_b), m, counts.data_ptr(), budget, fill, ptr(idx),
+           ptr(order), ptr(ctrl), stream)
+
+
+def compact(mask: torch.Tensor, budget: int, fill: int):
+    """The ``compact`` kernel on a bool mask [m] of a CUDA device:
+    ``(idx i32[budget], order i32[m])`` of ``transport.compact_indices``
+    (its plain version, which the caller runs on the CPU). Two launches:
+    the counts per block, then the ranks and the slots."""
+    _check(mask, "mask", torch.bool)
+    if mask.ndim != 1 or mask.device.type != "cuda":
+        raise ValueError("compact takes a 1-D bool mask on a CUDA device")
+    m, dev = mask.shape[0], mask.device
+    idx = torch.full((budget,), fill, dtype=torch.int32, device=dev)
+    order = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m:
+        counts = torch.empty((-(-m // PHASE_BLOCK),), dtype=torch.int32, device=dev)
+        launch_compact(mask.view(torch.uint8), None, counts, budget, fill, idx, order, None,
+                       _stream(mask), count=True)
+    return idx, order
+
+
+def launch_tally_compacted(C, st) -> None:
+    """The v3 tally of a sub-phase on the engine state of a CUDA device:
+    ``tally_compacted`` (every lane's stash or parked record; the doubles
+    byte and counts per block), ``compact`` of the doubles (their ranks),
+    ``tally_compacted:tally_doubles`` (the doubles below ``doubles_lanes``,
+    the overflow carry, the parked flags cleared). Plain version:
+    ``transport.tally_compacted_phase_reference``."""
+    a = _phase_args(C, st)
+    B, n, stream = a.compact, a.n, _stream(st.ctrl)
+    common = (ctypes.byref(a.lanes), n, st.image.data_ptr(), st.ctrl.data_ptr(),
+              st.counters.data_ptr(), st.energy.data_ptr())
+    _launch("tally_compacted", *common, B.doubles.data_ptr(), B.doubles_count.data_ptr(),
+            a.params_ptr, stream)
+    launch_compact(B.doubles, None, B.doubles_count, C.config.doubles_lanes, n, None,
+                   B.doubles_order, st.ctrl, stream)
+    _launch("tally_compacted:tally_doubles", *common, B.doubles.data_ptr(),
+            B.doubles_order.data_ptr(), C.config.doubles_lanes, a.params_ptr, stream)
+
+
+def launch_resolve_compacted(C, st, r: int, ends_iteration: bool = False) -> None:
+    """The v3 resolve of sub-phase ``r`` on the engine state of a CUDA
+    device: ``compact`` of the pending events (``compact_count`` first: no
+    kernel left their counts), ``resolve_compacted`` (branch and Compton;
+    the Rayleigh slots' bytes and counts), ``compact`` of the Rayleigh slots
+    (their ranks), ``resolve_compacted:resolve_scatter`` (Rayleigh, the
+    write-back, the lanes' finish) and, ``ends_iteration``,
+    ``resolve_compacted:resolve_finish``. Plain version:
+    ``transport.resolve_compacted_reference``."""
+    a = _phase_args(C, st)
+    B, n, stream, cfg = a.compact, a.n, _stream(st.ctrl), C.config
+    L = st.lanes
+    c_e, c_r = cfg.event_lanes, cfg.rayleigh_lanes
+    base = C.rows.resolve[r]
+    angle, shell, rita, azimuth = (base + k for k in C.rows.v3_offsets)
+    n_rows = C.event_pair.numel() // 6
+    launch_compact(L.pending.view(torch.uint8), L.alive.view(torch.uint8), B.events_count, c_e,
+                   n, B.events_idx, None, st.ctrl, stream, count=True)
+    slots = (B.slot_energy.data_ptr(), B.slot_costh.data_ptr(), B.slot_code.data_ptr())
+    _launch("resolve_compacted", ctypes.byref(a.lanes), B.events_idx.data_ptr(), c_e,
+            C.event_pair.data_ptr(), n_rows, C.icdf.data_ptr(), C.shells.data_ptr(),
+            C.shells.numel(), *slots, B.rayleigh.data_ptr(), B.rayleigh_count.data_ptr(),
+            st.ctrl.data_ptr(), a.phase_ptr, angle, shell, int(cfg.tau_table), stream)
+    launch_compact(B.rayleigh, None, B.rayleigh_count, c_r, c_e, None, B.rayleigh_order,
+                   st.ctrl, stream)
+    _launch("resolve_compacted:resolve_scatter", ctypes.byref(a.lanes),
+            B.events_idx.data_ptr(), c_e, C.event_pair.data_ptr(), n_rows, C.rita.data_ptr(),
+            C.rita.shape[1], *slots, B.rayleigh_order.data_ptr(), c_r, st.ctrl.data_ptr(),
+            st.counters.data_ptr(), a.phase_ptr, rita, azimuth, ctypes.byref(a.options),
+            int(cfg.tally_dose), stream)
+    if ends_iteration:
+        _launch("resolve_compacted:resolve_finish", ctypes.byref(a.lanes), n,
+                st.ctrl.data_ptr(), st.block_dead.data_ptr(), stream)
 
 
 def launch_tally(C, st) -> None:

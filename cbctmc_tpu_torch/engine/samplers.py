@@ -3,8 +3,10 @@
 Ports of the JAX package's ``engine/samplers.py`` functions that the
 engine calls: inverse-CDF and Walker-alias spectrum sampling, the
 square-field fan-beam direction rejection, the tabulated angle inverse CDF,
-RITA Rayleigh sampling with Thomson rejection, the Compton target-shell +
-Doppler stage, and the direction rotation. Fixed-trip masked rejection
+RITA Rayleigh sampling with Thomson rejection, the analytic GCOa Compton
+sampler (Klein-Nishina x S(E, theta) tau rejection, engine v3 with
+``tau_table=False``), the Compton target-shell + Doppler stage, and the
+direction rotation. Fixed-trip masked rejection
 loops run over the whole lane batch (exhausted lanes commit their last
 proposal, as in the JAX engine).
 
@@ -38,6 +40,7 @@ _SQRT_HALF = 0.70710678118654502
 _SQRT_TWO = 1.4142135623731
 
 SOURCE_DIR_TRIPS = 2
+COMPTON_TAU_TRIPS = 16
 COMPTON_SHELL_TRIPS = 8
 RAYLEIGH_TRIPS = 12
 
@@ -76,6 +79,116 @@ def _shell_pzomc(energy, ui, j0, cdt1):
     denom = torch.rsqrt(torch.clamp(aux + aux + ui * ui, min=1.0e-30))
     pz = j0 * (aux - ui * ELECTRON_REST_ENERGY_EV) * denom * INV_ELECTRON_REST_ENERGY
     return torch.where(safe, pz, 0.002)
+
+
+def compton_scatter_rows(generator, energy, s0, f_rows, ui_rows, j0_rows, mask,
+                         return_accepted: bool = False):
+    """:func:`compton_scatter_rows_u` on ``3 * COMPTON_TAU_TRIPS`` rows of tau
+    uniforms, then ``3 * COMPTON_SHELL_TRIPS`` rows of shell uniforms, drawn
+    from ``generator``."""
+    n, dev = energy.shape[0], energy.device
+    u_tau = uniform_open(generator, (3 * COMPTON_TAU_TRIPS, n), dev)
+    u_shell = uniform_open(generator, (3 * COMPTON_SHELL_TRIPS, n), dev)
+    return compton_scatter_rows_u(u_tau, u_shell, energy, s0, f_rows, ui_rows, j0_rows, mask,
+                                  return_accepted)
+
+
+def compton_scatter_rows_u(
+    u_tau: torch.Tensor,
+    u_shell: torch.Tensor,
+    energy: torch.Tensor,
+    s0: torch.Tensor,
+    f_rows: torch.Tensor,
+    ui_rows: torch.Tensor,
+    j0_rows: torch.Tensor,
+    mask: torch.Tensor,
+    return_accepted: bool = False,
+):
+    """Compton scattering by PENELOPE-2006's GCOa from per-lane shell rows:
+    tau from the Klein-Nishina composition scheme, accepted against
+    S(E, theta) / S(E, pi) (``s0`` is S(E, pi)) in ``COMPTON_TAU_TRIPS``
+    trips of uniforms ``u_tau`` [3 * COMPTON_TAU_TRIPS, n] (a lane that
+    accepts none commits its last proposal), then the target shell and
+    Doppler-broadened energy on ``u_shell`` [3 * COMPTON_SHELL_TRIPS, n].
+    Shell rows are lane-major [n, s_max]. Returns (new_energy, cos_theta),
+    and the tau-acceptance mask (True for masked-out lanes) when
+    ``return_accepted``. The shell sum of a trip is taken shell by shell, as
+    the CUDA sampler's loop takes it."""
+    open_shell = ui_rows < energy[:, None]
+    f_open = torch.where(open_shell, f_rows, 0.0)
+    # closed and padded shells: arithmetic kept finite, contribution masked
+    ui = torch.where(open_shell, ui_rows, 0.0)
+    tau, cdt1, accepted = compton_tau_rejection_u(u_tau, energy, s0, f_open, ui, j0_rows, mask)
+    new_energy, costh = _shell_doppler_and_energy(
+        u_shell, energy, tau, cdt1, f_open, open_shell, ui, j0_rows, mask
+    )
+    if return_accepted:
+        return new_energy, costh, accepted
+    return new_energy, costh
+
+
+def compton_tau_rejection_u(u_tau, energy, s0, f_open, ui, j0, mask):
+    """The angle stage of :func:`compton_scatter_rows_u`: ``(tau, cdt1,
+    accepted)`` from the tau uniforms [3 * COMPTON_TAU_TRIPS, n], the open
+    shells' ``f`` and ``ui`` (0 for closed ones) and ``j0``, lane-major."""
+    ek = energy * INV_ELECTRON_REST_ENERGY
+    ek2 = ek * 2.0 + 1.0
+    ek3 = ek * ek
+    ek1 = ek3 - ek2 - 1.0
+    taumin = 1.0 / ek2
+    a1 = torch.log(ek2)
+    a2 = a1 + 2.0 * ek * (ek + 1.0) * taumin * taumin
+    s_max = f_open.shape[1]
+
+    tau = torch.ones_like(energy)
+    cdt1 = torch.ones_like(energy)
+    accepted = ~mask
+    # each trip proposes for the lanes that have accepted none yet (the
+    # others' proposals would be discarded: the same values, less work)
+    act = torch.nonzero(mask).squeeze(1)
+    for i in range(COMPTON_TAU_TRIPS):
+        if act.numel() == 0:
+            break
+        u1, u2, u3 = (u_tau[3 * i + k][act] for k in range(3))
+        e_a, ek_a, taumin_a = energy[act], ek[act], taumin[act]
+        # taumin ** u2 correctly rounded (in float64, as the CUDA sampler
+        # takes it; XLA's float32 power is rounded correctly in all but a
+        # few lanes in 10^4, PyTorch's float32 one in fewer of them)
+        tau_prop = torch.where(
+            u1 * a2[act] < a1[act],
+            torch.pow(taumin_a.double(), u2.double()).float(),
+            torch.sqrt(1.0 + u2 * (taumin_a * taumin_a - 1.0)),
+        )
+        # the JAX sampler's cap float32(1.99999999), which is 2.0
+        cdt1_prop = torch.clamp((1.0 - tau_prop) / (tau_prop * ek_a), max=2.0)
+        pz = _shell_pzomc(e_a[:, None], ui[act], j0[act], cdt1_prop[:, None])
+        weighted = f_open[act] * _profile_cdf_complement_terms(pz)
+        s_prop = weighted[:, 0]
+        for k in range(1, s_max):
+            s_prop = s_prop + weighted[:, k]
+        # Klein-Nishina x S ratio rejection
+        t_kn = (
+            s_prop
+            * (1.0 + tau_prop * (ek1[act] + tau_prop * (ek2[act] + tau_prop * ek3[act])))
+            / (ek3[act] * tau_prop * (tau_prop * tau_prop + 1.0))
+        )
+        accept_now = u3 * s0[act] <= t_kn
+        take = accept_now | (i == COMPTON_TAU_TRIPS - 1)
+        tau[act[take]] = tau_prop[take]
+        cdt1[act[take]] = cdt1_prop[take]
+        accepted[act[accept_now]] = True
+        act = act[~accept_now]
+    return tau, cdt1, accepted
+
+
+def compton_scatter(generator, energy, mat, ebin, tables, mask):
+    """:func:`compton_scatter_rows` with the per-lane shell rows and
+    S(E, pi) fetched from the tables (the JAX package's convenience
+    wrapper: the raw shell table, padded shells at ui = +inf)."""
+    m = mat.long()
+    s0 = tables.compton_s0[(torch.clamp(ebin, min=0) * tables.n_mats + mat).long()]
+    return compton_scatter_rows(generator, energy, s0, tables.shell_f[m], tables.shell_ui[m],
+                                tables.shell_j0[m], mask)
 
 
 def compton_scatter_rows_tab(generator, energy, cdt1, f_rows, ui_rows, j0_rows, mask):

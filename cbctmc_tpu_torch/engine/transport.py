@@ -1,4 +1,5 @@
-"""The photon-transport engine: batched Woodcock delta-tracking, engine v4.
+"""The photon-transport engine: batched Woodcock delta-tracking, engines v4
+and v3.
 
 The port of the JAX package's ``engine/transport.py`` engine-v4 body
 (``resolve_inplace=True``): the production configuration
@@ -42,6 +43,20 @@ host enqueues ``k`` iterations at a time (on the card a CUDA graph of the
 control words once per ``k``; iterations enqueued past the end of the loop
 change nothing. All state lives in an :class:`EngineState` and is updated in
 place.
+
+The engine-v3 body (``resolve_inplace=False``, the JAX engine's v3.4 A/B
+anchor, with the tabulated or, ``tau_table=False``, the analytic GCOa
+Compton angle) keeps the refill and the flights (the flights fly only, on
+the pair table) and replaces the in-place resolve and the one tally an
+iteration by, per sub-phase, a compacted tally (each lane's stash or parked
+record, then the doubles in a batch of ``doubles_lanes``, the overflow
+carried) and a compacted resolve (the pending events in a batch of
+``event_lanes``, the Rayleigh ones in ``rayleigh_lanes``; events past a
+budget stay pending), with no refill between sub-phases; the last resolve
+ends the iteration. Its kernels are ``compact``, ``tally_compacted`` and
+``resolve_compacted`` (``csrc/``), its plain versions
+:func:`compact_indices`, :func:`tally_compacted_phase_reference` and
+:func:`resolve_compacted_reference`.
 
 Detector images accumulate energy in eV (float32) per (primary, Compton,
 Rayleigh, multi-scatter); the caller normalises to eV/cm^2/history.
@@ -337,11 +352,18 @@ def _tally_pixel(px, py, pz, dx, dy, dz, detector: DetectorGeom, n_pixels_x: int
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Engine parameters (the JAX package's EngineConfig). The port runs the
-    engine-v4 body (``resolve_inplace=True``) with each of its options;
-    ``rng_impl`` and ``paired_voxel_gather`` are TPU choices it accepts and
-    does not need (one Philox generator; the flat packed word is read
-    directly), and ``event_fraction`` / ``doubles_fraction`` size budgets of
-    the v3 body, which is not ported."""
+    engine-v4 body (``resolve_inplace=True``) with each of its options, and
+    the engine-v3 body (``resolve_inplace=False``, with the tabulated or,
+    ``tau_table=False``, the analytic GCOa Compton angle), whose compacted
+    batches ``event_fraction`` and ``doubles_fraction`` size
+    (:attr:`event_lanes`, :attr:`rayleigh_lanes`, :attr:`doubles_lanes`).
+    As in the JAX engine, v3 ignores ``spectrum_mode``, ``sigma_mode``,
+    ``rayleigh_mode`` and ``paired_voxel_gather``: it samples the spectrum
+    by the Walker alias, takes the flight's total inverse MFP and the
+    branch partials from the pair tables, and the Rayleigh angle by RITA.
+    ``rng_impl`` and ``paired_voxel_gather`` are TPU choices the port accepts
+    and does not need (one Philox generator; the flat packed word is read
+    directly)."""
 
     n_lanes: int = 1 << 17
     max_virtual_trips: int = 16
@@ -359,6 +381,35 @@ class EngineConfig:
     rayleigh_mode: str = "icdf"
     paired_voxel_gather: bool = True
     doubles_fraction: float = 0.25
+
+    @property
+    def event_lanes(self) -> int:
+        """Slots of a v3 resolve's compacted event batch."""
+        return max(1024, int(self.n_lanes * self.event_fraction))
+
+    @property
+    def rayleigh_lanes(self) -> int:
+        """Slots of a v3 resolve's Rayleigh sub-batch (Rayleigh is about an
+        order of magnitude rarer than Compton)."""
+        return max(1024, int(self.n_lanes * self.event_fraction / 6))
+
+    @property
+    def alias_spectrum(self) -> bool:
+        """Whether the refill samples the spectrum by the Walker alias
+        (``spectrum_mode="alias"``, and always in v3)."""
+        return self.spectrum_mode == "alias" or not self.resolve_inplace
+
+    @property
+    def pair_sigma(self) -> bool:
+        """Whether the flight's total inverse MFP comes from the fused pair
+        table (``sigma_mode="table"``, and always in v3)."""
+        return self.sigma_mode == "table" or not self.resolve_inplace
+
+    @property
+    def doubles_lanes(self) -> int:
+        """Slots of a v3 tally's second pass (lanes holding both a stash and
+        a parked record); the doubles past it are carried, not dropped."""
+        return max(32, int(self.n_lanes * self.doubles_fraction))
 
 
 #: the recorded engine sweep winner (the JAX package's
@@ -387,14 +438,20 @@ _MODES = {"sigma_mode": ("cheb", "table"), "spectrum_mode": ("cdf", "alias"),
           "rayleigh_mode": ("icdf", "rita")}
 
 
-def _check_supported(config: EngineConfig) -> None:
+#: materials the v3 resolve's packed word ``max(ebin, 0) * 32 + mat`` holds
+V3_MAX_MATERIALS = 32
+
+
+def _check_supported(config: EngineConfig, n_mats: int | None = None) -> None:
     if config.resolve_inplace and not config.tau_table:
         raise ValueError(
             "resolve_inplace requires tau_table=True; set "
             "resolve_inplace=False for the analytic-tau A/B path"
         )
-    if not config.resolve_inplace:
-        raise NotImplementedError("not ported yet: resolve_inplace=False (engine v3 path)")
+    if not config.resolve_inplace and n_mats is not None and n_mats > V3_MAX_MATERIALS:
+        # the JAX engine's `mat & 31` would mix materials silently
+        raise ValueError(f"resolve_inplace=False packs the material in 5 bits: {n_mats} "
+                         f"materials, at most {V3_MAX_MATERIALS}")
     for name, modes in _MODES.items():
         if getattr(config, name) not in modes:
             raise ValueError(f"{name}={getattr(config, name)!r}: expected one of {modes}")
@@ -403,10 +460,11 @@ def _check_supported(config: EngineConfig) -> None:
 
 
 def options_on(config: EngineConfig) -> list:
-    """The v4 options ``config`` turns on, by name (empty for the production
-    configuration)."""
+    """The options ``config`` turns on, by name (empty for the production
+    configuration): the v4 options, and the v3 body."""
     on = [f"{name}={getattr(config, name)!r}" for name, modes in _MODES.items()
           if getattr(config, name) != modes[0]]
+    on += ["resolve_inplace=False"] * (not config.resolve_inplace)
     return on + ["tally_dose=True"] * bool(config.tally_dose)
 
 
@@ -533,6 +591,9 @@ class BitsRows(NamedTuple):
     flight: int
     resolve: Tuple[int, ...]  # one group per sub-phase
     resolve_rows: int = RESOLVE_ROWS  # rows of each resolve group
+    # v3: the first rows of the angle, shell, RITA and azimuth uniforms
+    # within a resolve group (None in v4, whose layout is the fixed one above)
+    v3_offsets: Tuple[int, int, int, int] | None = None
 
     def groups(self) -> dict:
         """``{consumer: range of rows}`` over every consumer."""
@@ -551,8 +612,27 @@ class BitsRows(NamedTuple):
 def bits_row_map(config: EngineConfig) -> BitsRows:
     """The row map of ``config``: (2 + R - 1) photon pools, 2 rows per
     flight, R resolves. The production config reads 18 + 4 + 54 = 76 rows;
-    ``rayleigh_mode="rita"`` adds ``RITA_ROWS`` (36) to each resolve."""
+    ``rayleigh_mode="rita"`` adds ``RITA_ROWS`` (36) to each resolve.
+
+    v3 (``resolve_inplace=False``) has no mid-iteration refill, so 2 photon
+    pools; a resolve group is the angle rows (2 with the tau table,
+    ``3 * COMPTON_TAU_TRIPS`` for the analytic rejection), the shell
+    trips, the RITA trips and the azimuth: 63 or 109 rows. In v3 an event's
+    words are those of its lane, whatever slot of the compacted batch it
+    takes."""
     R = max(1, config.n_resolves)
+    if not config.resolve_inplace:
+        angle = 2 if config.tau_table else 3 * samplers.COMPTON_TAU_TRIPS
+        shell = angle
+        rita = shell + 3 * samplers.COMPTON_SHELL_TRIPS
+        per_resolve = rita + RITA_ROWS + 1
+        flight = 2 * PHOTON_ROWS
+        first_resolve = flight + 2 * config.max_virtual_trips
+        return BitsRows(n_rows=first_resolve + per_resolve * R, refill=0, cand=PHOTON_ROWS,
+                        mid=(), flight=flight,
+                        resolve=tuple(first_resolve + per_resolve * r for r in range(R)),
+                        resolve_rows=per_resolve,
+                        v3_offsets=(0, shell, rita, per_resolve - 1))
     per_resolve = RESOLVE_ROWS + (RITA_ROWS if config.rayleigh_mode == "rita" else 0)
     mid = tuple(PHOTON_ROWS * (2 + r) for r in range(R - 1))
     flight = PHOTON_ROWS * (R + 1)
@@ -572,7 +652,7 @@ def bits_row_map(config: EngineConfig) -> BitsRows:
 CTRL_REMAINING, CTRL_LIVE = 0, 1
 CTRL_ITERATION, CTRL_RUN, CTRL_DRAIN, CTRL_MAX_ITERATIONS = 5, 6, 7, 8
 CTRL_KEY0, CTRL_KEY1 = 9, 10
-CTRL_WORDS = 16  # 11..13 count launches (kernels.PHASE_LAUNCH_WORDS)
+CTRL_WORDS = 20  # 11..16 count launches (kernels.PHASE_LAUNCH_WORDS)
 
 #: outer iterations enqueued per host read of the control words on the card
 ITERATIONS_PER_READ = 16
@@ -603,9 +683,12 @@ class EngineConsts:
     n_pixels_x: int
     n_pixels_z: int
     phase_params: PhaseParams
-    # rayleigh_mode="rita": f32[4, n_mats * 128] (x, p, a, b) and pmax
+    # rayleigh_mode="rita" and v3: f32[4, n_mats * 128] (x, p, a, b); the
+    # next bin's pmax of rayleigh_mode="rita"
     rita: torch.Tensor | None = None
     pmax: torch.Tensor | None = None
+    # v3: the event table f32[n_bins * n_mats * 6] (event_pair_table)
+    event_pair: torch.Tensor | None = None
     view: int = 0  # bumped by set_view: the kernels' parameter structs follow
 
     @property
@@ -634,15 +717,14 @@ def engine_consts(tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVo
     small scalars; derived values are computed in float32 as the plain path
     derives them)."""
     coeffs = sigma_coeff_table(tables)
+    v3 = not config.resolve_inplace
     flight = flight_consts(
         tables, woodcock, volume, detector, n_pixels_x, n_pixels_z, config.n_lanes,
         air_skip=config.air_skip, soft_skip=config.soft_skip, coeffs=coeffs,
-        pair=_flight_pair_tables(tables) if config.sigma_mode == "table" else None,
+        pair=_flight_pair_tables(tables) if config.pair_sigma else None,
     )
-    # padded shells carry ui=+inf; a large finite value keeps the arithmetic
-    # NaN-free exactly as the JAX engine's shell table does
-    shell_ui = torch.where(torch.isinf(tables.shell_ui), 1.0e30, tables.shell_ui)
-    shells = torch.stack([tables.shell_f, shell_ui, tables.shell_j0]).contiguous()
+    # (f, ui, j0) of each material's shells, [3, n_mats, s_max]
+    shells = shell_cat_table(tables).view(tables.n_mats, 3, -1).transpose(0, 1).contiguous()
     # fused Compton|Rayleigh angular inverse CDF: one row index serves both
     icdf = torch.cat([tables.compton_icdf, tables.rayleigh_icdf], dim=0).reshape(-1)
     n_bins = int(woodcock.a.shape[0])
@@ -666,18 +748,19 @@ def engine_consts(tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVo
             icdf_scale=float((n_ie - 1.0) / (f32(tables.icdf_log_hi) - f32(tables.icdf_log_lo))),
         ),
     )
-    rita = config.rayleigh_mode == "rita"
+    rita = config.rayleigh_mode == "rita" or v3
     return EngineConsts(
         config=config, rows=bits_row_map(config), flight=flight, tables=tables,
         source=source, detector=detector, bbox=volume.bbox,
         spec=(samplers.spectrum_alias_table(tables).reshape(-1)
-              if config.spectrum_mode == "alias" else samplers.spectrum_search_table(tables)),
+              if config.alias_spectrum else samplers.spectrum_search_table(tables)),
         icdf=icdf.contiguous(),
         n_icdf_rows=int(tables.compton_icdf.shape[0]), shells=shells, n_bins=n_bins,
         n_pixels_x=n_pixels_x, n_pixels_z=n_pixels_z, phase_params=phase_params,
         rita=torch.stack([tables.rita_x, tables.rita_p, tables.rita_a,
                           tables.rita_b]).contiguous() if rita else None,
-        pmax=tables.rayleigh_pmax.contiguous() if rita else None,
+        pmax=tables.rayleigh_pmax.contiguous() if config.rayleigh_mode == "rita" else None,
+        event_pair=event_pair_table(tables).reshape(-1).contiguous() if v3 else None,
     )
 
 
@@ -686,6 +769,28 @@ def _flight_pair_tables(tables: DeviceTables) -> torch.Tensor:
     ``f32[n_bins * n_mats, 2]``: ``inv_mfp(E) = a + E * b`` at the fused
     index ``ebin * n_mats + mat`` (the JAX engine's ``_flight_pair_tables``)."""
     return tables.mfp_total_ab.reshape(-1, tables.n_mats, 2).reshape(-1, 2).contiguous()
+
+
+def event_pair_table(tables: DeviceTables) -> torch.Tensor:
+    """The v3 resolve's event table ``f32[n_bins * n_mats, 6]`` at the fused
+    index ``ebin * n_mats + mat``: (Compton a, b, Rayleigh a, b, S(E, pi),
+    pmax of the next energy bin, the last bin's repeated); one 6-wide row per
+    event (the JAX engine's ``_event_pair_table``)."""
+    n_mats = tables.n_mats
+    cr = tables.mfp_cr_ab.reshape(-1, n_mats, 4)
+    n_bins = cr.shape[0]
+    s0 = tables.compton_s0.reshape(n_bins, n_mats)
+    pmax = tables.rayleigh_pmax.reshape(n_bins, n_mats)
+    pmax_next = torch.cat([pmax[1:], pmax[-1:]], dim=0)
+    return torch.cat([cr, s0[:, :, None], pmax_next[:, :, None]], dim=2).reshape(-1, 6)
+
+
+def shell_cat_table(tables: DeviceTables) -> torch.Tensor:
+    """The Compton shell table ``[n_mats, 3 * max_shells]`` (f | ui | j0),
+    the +inf ui of padded shells replaced by 1e30 so the arithmetic stays
+    NaN-free (the JAX engine's ``_shell_cat_table``)."""
+    ui = torch.where(torch.isinf(tables.shell_ui), 1.0e30, tables.shell_ui)
+    return torch.cat([tables.shell_f, ui, tables.shell_j0], dim=1)
 
 
 def _block_dead(dead: torch.Tensor) -> torch.Tensor:
@@ -872,7 +977,7 @@ def sample_photons(C: EngineConsts, bits: torch.Tensor, pool: int):
     ``pool``: (energy, direction, entry point on the volume wall, accepted)."""
     n = C.n_lanes
     u = uniform_from_bits(bits[pool : pool + PHOTON_ROWS])
-    if C.config.spectrum_mode == "alias":
+    if C.config.alias_spectrum:
         e = samplers.sample_spectrum_energy_u(u[:2], C.spec.view(-1, 5))
     else:
         e = samplers.sample_spectrum_energy_cdf_u(u[:2], C.spec)
@@ -1021,15 +1126,34 @@ def tally_phase_reference(C: EngineConsts, st: EngineState) -> None:
     tallied = primary_idx < 4 * npix
     st.counters[0] += tallied.sum()
     st.energy += torch.where(tallied, primary_val, 0.0).sum(dtype=torch.float64)
-    st.block_dead.copy_(_block_dead(~L.alive))
+    _end_iteration(st, L.alive.any() | doubles.any())
+
+
+def _end_iteration(st: EngineState, live: torch.Tensor) -> None:
+    """The loop's control words at the end of an outer iteration (``live``:
+    any lane alive or holding a record), and the dead lanes per block that
+    the next iteration's refill reads."""
+    st.block_dead.copy_(_block_dead(~st.lanes.alive))
     ctrl = st.ctrl
-    live = L.alive.any() | doubles.any()
     iteration = ctrl[CTRL_ITERATION] + 1
     ctrl[CTRL_LIVE] = live.to(torch.int32)
     ctrl[CTRL_ITERATION] = iteration
     ctrl[CTRL_RUN] = ((iteration < ctrl[CTRL_MAX_ITERATIONS])
                       & ((ctrl[CTRL_REMAINING] > 0) | (live & (ctrl[CTRL_DRAIN] != 0)))
                       ).to(torch.int32)
+
+
+def _flights_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, r: int,
+                       flight=flight_step_reference) -> None:
+    """The flights of sub-phase ``r``, each reading the budget its
+    predecessor left."""
+    t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
+    for i in range(r * t_sub, (r + 1) * t_sub):
+        u = uniform_from_bits(bits[C.rows.flight + 2 * i : C.rows.flight + 2 * i + 2])
+        counts = torch.zeros((2,), dtype=torch.int32, device=bits.device)
+        flight(st.lanes, st.cand, u[0].contiguous(), u[1].contiguous(), C.flight,
+               st.remaining, counts)
+        st.counters[6:8] += counts
 
 
 def flight_resolve_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
@@ -1041,20 +1165,219 @@ def flight_resolve_phase_reference(C: EngineConsts, st: EngineState, bits: torch
     in-place resolve of the pending events and, ``with_tally`` (the last
     sub-phase of an iteration), the tally. ``flight`` / ``gather_fn`` /
     ``tally`` let :func:`run_projection_stepwise` put the single-purpose
-    kernels in."""
+    kernels in. In v3 (``resolve_inplace=False``) the sub-phase is
+    :func:`subphase_v3_reference`."""
     if not _running(st):
         return
-    t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
-    for i in range(r * t_sub, (r + 1) * t_sub):
-        u = uniform_from_bits(bits[C.rows.flight + 2 * i : C.rows.flight + 2 * i + 2])
-        counts = torch.zeros((2,), dtype=torch.int32, device=bits.device)
-        flight(st.lanes, st.cand, u[0].contiguous(), u[1].contiguous(), C.flight,
-               st.remaining, counts)
-        st.counters[6:8] += counts
+    if not C.config.resolve_inplace:
+        subphase_v3_reference(C, st, bits, r, with_tally, flight)
+        return
+    _flights_reference(C, st, bits, r, flight)
     _resolve_reference(C, st, bits, C.rows.resolve[r], gather_fn)
     st.block_dead.copy_(_block_dead(~st.lanes.alive & ~st.lanes.escaped))
     if with_tally:
         tally(C, st)
+
+
+# ---------------------------------------------------------------------------
+# engine v3 (resolve_inplace=False): the compacted tally and resolve, plain
+# ---------------------------------------------------------------------------
+def compact_indices(mask: torch.Tensor, budget: int, fill: int):
+    """Stream-compact the true entries of ``mask`` (bool [m]) into ``idx``
+    (i32 [budget]): the first ``budget`` of them in index order, ``fill`` in
+    the slots left empty; ``order`` (i32 [m]) is the inclusive running count
+    less one, so a true entry's rank. The JAX engine's ``_compact_indices``
+    op for op (cumsum, a masked position, one scatter into ``budget + 1``
+    slots whose last is dropped), and the plain version of the ``compact``
+    kernel."""
+    n = mask.shape[0]
+    order = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos = torch.where(mask & (order < budget), order, budget).long()
+    idx = torch.full((budget + 1,), fill, dtype=torch.int32, device=mask.device)
+    idx[pos] = torch.arange(n, dtype=torch.int32, device=mask.device)
+    return idx[:budget], order
+
+
+def tally_compacted_phase_reference(C: EngineConsts, st: EngineState) -> None:
+    """Plain version of the ``tally_compacted`` kernel, the v3 tally of a
+    sub-phase (the JAX engine's :1196-1232): each lane's stash or else its
+    parked record into the image in one pass; the lanes holding both
+    (doubles) compacted into a batch of ``doubles_lanes`` whose parked
+    records a second pass adds; the doubles past the budget carry their
+    parked record as the stash (overflow carry: never dropped). It also
+    clears the sub-phase's parked flags (the JAX body clears them after the
+    resolve, which does not read them)."""
+    if not _running(st):
+        return
+    L, npix, n = st.lanes, C.n_pixels, C.n_lanes
+    pix, hit = _tally_pixel(L.px, L.py, L.pz, L.dx, L.dy, L.dz, C.detector,
+                            C.n_pixels_x, C.n_pixels_z)
+    tally_mask = L.escaped & hit
+    tally_idx = torch.where(tally_mask, L.scatter * npix + pix, 4 * npix)
+    has_stash_rec = L.stash_valid & (L.stash_idx < 4 * npix)
+    primary_idx = torch.where(has_stash_rec, L.stash_idx, tally_idx)
+    primary_val = torch.where(
+        has_stash_rec, L.stash_energy, torch.where(tally_mask, L.energy, 0.0)
+    )
+    st.image.index_add_(0, primary_idx.long(), primary_val)
+
+    doubles = has_stash_rec & tally_mask
+    c_d = C.config.doubles_lanes
+    idx_d, order_d = compact_indices(doubles, c_d, n)
+    valid_d = idx_d < n
+    idd = torch.clamp(idx_d, max=n - 1).long()
+    second_idx = torch.where(valid_d, tally_idx[idd], 4 * npix)
+    second_val = torch.where(valid_d, L.energy[idd], 0.0)
+    st.image.index_add_(0, second_idx.long(), second_val)
+    overflow = doubles & (order_d >= c_d)
+    _set(L.stash_idx, overflow, tally_idx)
+    _set(L.stash_energy, overflow, L.energy)
+    L.stash_valid.copy_(overflow)
+    L.escaped.zero_()
+
+    tallied = primary_idx < 4 * npix
+    st.counters[0] += tallied.sum() + (valid_d & (second_idx < 4 * npix)).sum()
+    st.energy += (torch.where(tallied, primary_val, 0.0).sum(dtype=torch.float64)
+                  + second_val.sum(dtype=torch.float64))
+
+
+def resolve_compacted_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
+                                r: int, ends_iteration: bool = False) -> None:
+    """Plain version of the ``resolve_compacted`` kernel, the v3 resolve of
+    sub-phase ``r`` (the JAX engine's ``_resolve``, op for op): the pending
+    events compacted into ``event_lanes`` slots (the rest stay pending), one
+    gather of each slot's (energy, xi, ``max(ebin, 0) * 32 + mat``) and one
+    of its 6-wide event row, the branch on the pair-table partials, Compton
+    by the tabulated angle or (``tau_table=False``) the GCOa rejection, the
+    Rayleigh slots sub-compacted into ``rayleigh_lanes`` (the rest stay
+    pending) and sampled by RITA, each slot's outcome written back to its
+    lane as ``(energy + code * 2e6, cos theta)`` and decoded there (so every
+    resolved energy makes the float32 round trip the JAX engine's does),
+    then over all lanes the azimuth, the rotation, absorption, the dose,
+    ``ebin``, ``scatter`` and ``pending``. A slot reads the random words of
+    its lane. ``ends_iteration``: the loop's control words and the dead
+    lanes per block after it."""
+    if not _running(st):
+        return
+    L, T, cfg = st.lanes, C.tables, C.config
+    n, n_mats, n_bins = C.n_lanes, T.n_mats, C.n_bins
+    c_e, c_r = cfg.event_lanes, cfg.rayleigh_lanes
+    pending = L.pending & L.alive
+    idx_e, _ = compact_indices(pending, c_e, n)
+    valid_e = idx_e < n
+    idx_es = torch.clamp(idx_e, max=n - 1).long()
+
+    e_e, xi_e = L.energy[idx_es], L.xi[idx_es]
+    em_e = (torch.clamp(L.ebin, min=0) * 32 + L.mat_evt)[idx_es]
+    ebin_e, mat_e = em_e >> 5, em_e & 31
+    event_pair = C.event_pair.view(-1, 6)
+    row = torch.clamp(torch.clamp(ebin_e, 0, n_bins - 1) * n_mats + mat_e, 0,
+                      event_pair.shape[0] - 1)
+    e6 = event_pair[row.long()]
+    inv_com = e6[:, 0] + e_e * e6[:, 1]
+    inv_ray = e6[:, 2] + e_e * e6[:, 3]
+    want_c = valid_e & (xi_e < inv_com)
+    want_r = valid_e & ~want_c & (xi_e < inv_com + inv_ray)
+    photo = valid_e & ~want_c & ~want_r
+
+    base = C.rows.resolve[r]
+    angle, shell, rita, azimuth = C.rows.v3_offsets
+
+    def slot_uniforms(first: int, count: int) -> torch.Tensor:
+        return uniform_from_bits(bits[base + first : base + first + count][:, idx_es])
+
+    m = mat_e.long()
+    rows = (C.shells[0][m], C.shells[1][m], C.shells[2][m])
+    u_shell = slot_uniforms(shell, 3 * samplers.COMPTON_SHELL_TRIPS)
+    if cfg.tau_table:
+        cdt1 = samplers.sample_compton_cdt1_tab(slot_uniforms(angle, 2), e_e, mat_e, T,
+                                                gather_fn=gather_reference)
+        new_e_c, costh_c = samplers.compton_scatter_rows_tab_u(u_shell, e_e, cdt1, *rows,
+                                                               want_c)
+    else:
+        new_e_c, costh_c = samplers.compton_scatter_rows_u(
+            slot_uniforms(angle, 3 * samplers.COMPTON_TAU_TRIPS), u_shell, e_e, e6[:, 4],
+            *rows, want_c)
+
+    sub, order_r = compact_indices(want_r, c_r, c_e)
+    valid_r = sub < c_e
+    subs = torch.clamp(sub, max=c_e - 1).long()
+    took_r = want_r & (order_r < c_r)  # over-budget Rayleigh events stay pending
+    costh_r = samplers.rayleigh_scatter_rows_u(
+        slot_uniforms(rita, RITA_ROWS)[:, subs], e_e[subs], mat_e[subs], e6[:, 5][subs], T,
+        valid_r)
+
+    new_energy_e = torch.where(want_c, new_e_c, e_e)
+    costh_e = torch.cat([torch.where(want_c, costh_c, 1.0), costh_c.new_ones(1)])
+    costh_e[sub.long()] = torch.where(valid_r, costh_r, 1.0)  # slot c_e: dropped
+    costh_e = costh_e[:c_e]
+    code_e = torch.where(want_c, 1, torch.where(took_r, 2, torch.where(photo, 3, 0)))
+
+    # the 2-column write-back: (energy + code * 2e6, cos theta), slot n dropped
+    enc_e = new_energy_e + code_e.to(torch.float32) * 2.0e6
+    slots = idx_e.long()
+    enc = torch.cat([L.energy, L.energy.new_zeros(1)])
+    enc[slots] = torch.where(valid_e, enc_e, 0.0)
+    costh = torch.ones((n + 1,), dtype=torch.float32, device=enc.device)
+    costh[slots] = torch.where(valid_e, costh_e, 1.0)
+    enc, costh = enc[:n], costh[:n]
+    code = torch.round(enc * 5.0e-7).to(torch.int32)
+    energy = enc - code.to(torch.float32) * 2.0e6
+    took_compton, took_rayleigh, took_photo = code == 1, code == 2, code == 3
+
+    phi = uniform_from_bits(bits[base + azimuth]) * TWO_PI
+    rdx, rdy, rdz = samplers.rotate_direction(L.dx, L.dy, L.dz, costh, phi)
+    rotate = took_compton | took_rayleigh
+    _set(L.dx, rotate, rdx)
+    _set(L.dy, rotate, rdy)
+    _set(L.dz, rotate, rdz)
+
+    new_ebin = _ebin_of(energy, C)
+    absorbed = took_photo | (took_compton & (new_ebin < 0))
+    L.alive.logical_and_(~absorbed)
+    if cfg.tally_dose:
+        # KERMA: a photoelectric event's (decoded) energy, what a Compton
+        # event takes from the photon
+        edep = torch.where(took_photo, energy,
+                           torch.where(took_compton, L.energy - energy, 0.0))
+        deposit = took_photo | took_compton
+        st.voxel_dose.index_add_(
+            0, torch.where(deposit, L.vox, st.voxel_dose.shape[0] - 1).long(), edep)
+        st.material_dose.index_add_(
+            0, torch.where(deposit, L.mat_evt, st.material_dose.shape[0] - 1).long(),
+            torch.stack([edep, edep * edep], dim=1))
+    L.energy.copy_(energy)
+    _set(L.ebin, took_compton, new_ebin)
+    first = L.scatter == 0
+    L.scatter.copy_(torch.where(
+        took_compton, torch.where(first, COMPTON, MULTI),
+        torch.where(took_rayleigh, torch.where(first, RAYLEIGH, MULTI), L.scatter)))
+    L.pending.logical_and_(~(took_compton | took_rayleigh | took_photo))
+    st.counters[2] += took_compton.sum()
+    st.counters[3] += took_rayleigh.sum()
+    st.counters[4] += took_photo.sum()
+    if ends_iteration:
+        _end_iteration(st, L.alive.any() | L.stash_valid.any())
+
+
+def flights_phase_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, r: int,
+                            flight=flight_step_reference) -> None:
+    """Plain version of a v3 sub-phase's flights (``flight_resolve`` launches
+    that fly only): the flights, and the lanes per block that are dead and
+    hold no parked record, as those launches leave them."""
+    if not _running(st):
+        return
+    _flights_reference(C, st, bits, r, flight)
+    st.block_dead.copy_(_block_dead(~st.lanes.alive & ~st.lanes.escaped))
+
+
+def subphase_v3_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor, r: int,
+                          ends_iteration: bool = False, flight=flight_step_reference) -> None:
+    """Sub-phase ``r`` of a v3 iteration, plain: its flights, the compacted
+    tally, the compacted resolve."""
+    flights_phase_reference(C, st, bits, r, flight)
+    tally_compacted_phase_reference(C, st)
+    resolve_compacted_reference(C, st, bits, r, ends_iteration)
 
 
 # ---------------------------------------------------------------------------
@@ -1072,15 +1395,54 @@ def flight_resolve_phase(C: EngineConsts, st: EngineState, r: int, with_tally: b
     flight reads the budget as the previous flight of the whole grid left
     it, and a kernel boundary is what orders the grid); the last carries the
     resolve and, ``with_tally``, the tally. The production configuration
-    flies once per sub-phase."""
+    flies once per sub-phase. In v3 every flight launch flies only, and the
+    sub-phase goes on with :func:`tally_compacted_phase` and
+    :func:`resolve_compacted_phase` (``with_tally``: the resolve ends the
+    iteration)."""
     if st.ctrl.device.type == "cpu":
         flight_resolve_phase_reference(C, st, iteration_bits(C, st), r, with_tally)
+        return
+    if not C.config.resolve_inplace:
+        flights_phase(C, st, r)
+        tally_compacted_phase(C, st)
+        resolve_compacted_phase(C, st, r, with_tally)
         return
     t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
     for i in range(r * t_sub, (r + 1) * t_sub):
         last = i == (r + 1) * t_sub - 1
         launch_flight_resolve(C, st, C.rows.flight + 2 * i,
                               C.rows.resolve[r] if last else -1, with_tally and last)
+
+
+def flights_phase(C: EngineConsts, st: EngineState, r: int) -> None:
+    """The flights of a v3 sub-phase: a ``flight_resolve`` launch a flight
+    that flies only (the table-sigma instantiation)."""
+    if st.ctrl.device.type == "cpu":
+        flights_phase_reference(C, st, iteration_bits(C, st), r)
+        return
+    t_sub = C.config.max_virtual_trips // max(1, C.config.n_resolves)
+    for i in range(r * t_sub, (r + 1) * t_sub):
+        launch_flight_resolve(C, st, C.rows.flight + 2 * i, -1, False)
+
+
+def tally_compacted_phase(C: EngineConsts, st: EngineState) -> None:
+    """The v3 tally of a sub-phase: ``tally_compacted`` on the card (its two
+    passes around a ``compact`` of the doubles)."""
+    if st.ctrl.device.type == "cpu":
+        tally_compacted_phase_reference(C, st)
+    else:
+        kernels.launch_tally_compacted(C, st)
+
+
+def resolve_compacted_phase(C: EngineConsts, st: EngineState, r: int,
+                            ends_iteration: bool = False) -> None:
+    """The v3 resolve of sub-phase ``r``: ``compact`` of the events,
+    ``resolve_compacted``'s branch and samplers, ``compact`` of the Rayleigh
+    slots, the samplers' write-back and, ``ends_iteration``, its finish."""
+    if st.ctrl.device.type == "cpu":
+        resolve_compacted_reference(C, st, iteration_bits(C, st), r, ends_iteration)
+    else:
+        kernels.launch_resolve_compacted(C, st, r, ends_iteration)
 
 
 def tally_phase(C: EngineConsts, st: EngineState) -> None:
@@ -1123,13 +1485,14 @@ def _stepwise_phases() -> Phases:
 
 def outer_iteration(phases: Phases, C: EngineConsts, st: EngineState) -> None:
     """One outer iteration: refill + candidate pool, then per sub-phase the
-    flights, the resolve and (between sub-phases) the refill of lanes that
-    died; the last sub-phase carries the tally."""
+    flights, the resolve and (between sub-phases, v4 only) the refill of
+    lanes that died; the last sub-phase carries the tally (v4) or ends the
+    iteration after its own tally and resolve (v3)."""
     R = max(1, C.config.n_resolves)
     phases.refill(C, st, C.rows.refill, True)
     for r in range(R):
         phases.flight_resolve(C, st, r, r == R - 1)
-        if r < R - 1:
+        if r < R - 1 and C.rows.mid:
             phases.refill(C, st, C.rows.mid[r], False)
 
 
@@ -1152,7 +1515,7 @@ class EngineWorkspace:
 
     def __init__(self, tables: DeviceTables, woodcock: WoodcockTable, volume: VoxelVolume,
                  n_pixels_x: int, n_pixels_z: int, config: EngineConfig, device=None):
-        _check_supported(config)
+        _check_supported(config, tables.n_mats)
         validate_volume(volume)
         self.device = resolve_device(device)
         for what, on in (("volume", volume.packed.device), ("tables", tables.e0.device)):
@@ -1198,7 +1561,7 @@ class EngineWorkspace:
         # device up to date here
         kernels.prepare_phase_launches(C, st)
         if k not in self.graphs:
-            kernels.load_kernels(("refill", "flight_resolve"))  # no build inside a capture
+            kernels.load_kernels(kernels.phase_entries(C.config))  # no build inside a capture
             graph = torch.cuda.CUDAGraph()
             before = dict(kernels.enqueued_counts)
             with torch.cuda.graph(graph):

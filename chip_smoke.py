@@ -4,7 +4,7 @@ NVIDIA card and hold every hand-written kernel against its plain version.
 
 Phases (each raises on failure; nothing lets the run exit 0 after one):
 
-1. print the card (``nvidia-smi`` name, power limit); build the sixteen kernels
+1. print the card (``nvidia-smi`` name, power limit); build the nineteen kernels
    from ``cbctmc_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. ``probe_gather("cuda")`` must be True; Philox in a kernel
    (``csrc/philox.cuh``) against the plain version: Random123's three
@@ -139,7 +139,7 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     plain functions, the launch counters zeroed just before and read just
     after: ``run_mc`` from a CT image (the CIRS thorax at (350, 260, 142), 1
     mm, as HU) with the packaged weights: the segmenter at the production
-    patch (256, 256, 128) with overlap 0.5, the mappers, the MC at 16 views x
+    patch (256, 256, 128) with overlap 0.5, the mappers, the MC at 12 views x
     2e7 histories (``--reference-n-histories 2e8 --speedups 10``, the air
     flat at 1e9), ``--forward-projection``, the speedup net,
     ``--reconstruct-3d``; the 4D branch on the scene it segmented with the
@@ -214,7 +214,28 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     ranks on the card on the slab with the dose (4 keys): every rank's
     results equal and finite, the totals within 4 combined standard errors
     of world size 1's;
-19. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
+19. the engine's v3 body (:func:`v3_path`, ``resolve_inplace=False``, with
+    the tabulated and with the analytic Compton angle): on the main path's
+    scene under both and under v3 with the dose tally (one launch's voxel
+    and material dose within 1e-5), each launch group of the 5th iteration
+    (the refill, per sub-phase the flights, the compacted tally, the
+    compacted resolve) against its plain version on the state before it
+    (phase 8's limits), ``compact`` on that iteration's events bit-equal at
+    the event budget and at a tenth of it, the device times of the three v3
+    kernels with plain times, bounds and ``torch.cumsum`` beside
+    ``compact``; on the slab, the whole v3 engine from one key as the
+    recorded graph, the eager loop and the plain version (iterations and
+    integer counters equal, channel sums within 1e-4, the tallied energy
+    within 1e-6), the golden slab under both configurations (4 keys x
+    120,000, within 4 combined standard errors) and v3 starved (the event
+    budget at 1,024 slots, the doubles' at 32) against the unstarved v3 (4
+    combined standard errors, every history started once); then
+    run_projection's histories/s at 2e7 on the main path's scene under
+    production, v3 and v3 with the analytic angle, the launch counters
+    zeroed just before each run and read just after, each run's launches an
+    iteration by kernel held to ``expected_phase_launches`` (the v3 runs'
+    launches are the kernels line's);
+20. the ``kernels`` JSON line, the card line, and the ``ok`` JSON line last.
 
 Usage: ``python3 chip_smoke.py [--read-every-sweep]`` from the repository
 root, on a machine with one CUDA card (the kernels build into
@@ -387,7 +408,7 @@ MTF_BINNING = 2
 # the CLI path: run-mc from a CT image of the thorax at the run-mc path's grid
 CLI_PATCH = (256, 256, 128)  # the segmenter's production patch
 CLI_OVERLAP = 0.5
-CLI_VIEWS = 16
+CLI_VIEWS = 12  # the depth cut that pays for phase 19 (16 before; the reference 894)
 CLI_REFERENCE_HISTORIES = 200_000_000  # per view; 2e7 after the speedup factor
 CLI_SPEEDUP = 10.0
 CLI_AIR_HISTORIES = 1_000_000_000
@@ -641,10 +662,18 @@ def expected_phase_launches(iterations: int, cfg) -> dict:
     """Launches of the phase kernels that do work over ``iterations`` outer
     iterations of the main path: one refill at the start and one after every
     sub-phase but the last, one flight_resolve per flight (the last of an
-    iteration carries the tally, so ``tally`` itself is not launched)."""
+    iteration carries the tally, so ``tally`` itself is not launched). In
+    v3 (``resolve_inplace=False``): one refill, one flight-only
+    flight_resolve per flight, and per sub-phase two tally_compacted
+    launches, four compact (the doubles, the events' counts and scan, the
+    Rayleigh slots) and two resolve_compacted, plus the iteration's finish."""
     R = max(1, cfg.n_resolves)
+    if not cfg.resolve_inplace:
+        return {"refill": iterations, "flight_resolve": iterations * cfg.max_virtual_trips,
+                "tally": 0, "compact": iterations * R * 4, "tally_compacted": iterations * R * 2,
+                "resolve_compacted": iterations * (2 * R + 1)}
     return {"refill": iterations * R, "flight_resolve": iterations * cfg.max_virtual_trips,
-            "tally": 0}
+            "tally": 0, "compact": 0, "tally_compacted": 0, "resolve_compacted": 0}
 
 
 class Counted:
@@ -1223,7 +1252,7 @@ def phase_bound(kernel, before, after, C) -> tuple:
         what = (f"{active} flights, {n_c} Compton, {n_r} Rayleigh, {n_p} photoelectric, "
                 f"{adopted} adoptions")
         cfg = C.config
-        if cfg.sigma_mode == "table":  # a float2 row a flight in place of the Clenshaw sums
+        if cfg.pair_sigma:  # a float2 row a flight in place of the Clenshaw sums
             n_bytes += active * 8
             n_ops -= active * (3 * clenshaw - 2)
         if cfg.rayleigh_mode == "rita":  # a trip's bisection and 6 reads, 40 operations
@@ -4541,6 +4570,349 @@ def options_path(kernels, card, scanner, slab):
     return {"launches": launches, "times": times, "rates": rates, "wall": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the engine's v3 body (resolve_inplace=False)
+# ---------------------------------------------------------------------------
+V3_VARIANTS = {
+    "v3": dict(resolve_inplace=False),
+    "v3_analytic": dict(resolve_inplace=False, tau_table=False),
+}
+#: the configurations each launch group is held against its plain version in
+#: at full width: the two above and v3 with the dose tally (the kDose scatter)
+V3_CHECKS = {**V3_VARIANTS, "v3_dose": dict(resolve_inplace=False, tally_dose=True)}
+V3_STARVED = dict(event_fraction=0.02, doubles_fraction=1e-9)  # budgets of 1,024 and 32
+V3_HISTORIES = 20_000_000  # run_projection's histories/s on the main path's scene
+V3_WHOLE_HISTORIES = 300_000  # the whole v3 engine on the slab, three ways from one key
+V3_TIMING_REPS = 10
+
+
+def v3_steps(C):
+    """The launch groups of a v3 outer iteration in the order they run:
+    ``(kernel, label, engine call(st), plain call(st))``: the refill, then
+    per sub-phase its flights, the compacted tally and the compacted
+    resolve (the last one ends the iteration)."""
+    from cbctmc_tpu_torch.engine import transport as T
+
+    def bits(st):
+        return T.iteration_bits(C, st)
+
+    R = max(1, C.config.n_resolves)
+    steps = [("refill", "refill + candidates",
+              lambda st: T.refill_phase(C, st, C.rows.refill, True),
+              lambda st: T.refill_phase_reference(C, st, bits(st), C.rows.refill, True))]
+    for r in range(R):
+        last = r == R - 1
+        steps += [
+            ("flight_resolve", f"flights {r}", lambda st, r=r: T.flights_phase(C, st, r),
+             lambda st, r=r: T.flights_phase_reference(C, st, bits(st), r)),
+            ("tally_compacted", f"tally_compacted {r}", lambda st: T.tally_compacted_phase(C, st),
+             lambda st: T.tally_compacted_phase_reference(C, st)),
+            ("resolve_compacted", f"resolve_compacted {r}" + " + finish" * last,
+             lambda st, r=r, last=last: T.resolve_compacted_phase(C, st, r, last),
+             lambda st, r=r, last=last: T.resolve_compacted_reference(C, st, bits(st), r, last)),
+        ]
+    return steps
+
+
+def v3_bound(kernel, before, after, C) -> tuple:
+    """The least bytes and operations of one sub-phase's ``tally_compacted``
+    (its two passes) or ``resolve_compacted`` (the branch and the scatter)
+    on this state: each input the function needs read once and each output
+    written once; the kernels' own scratch (the doubles byte, the slot
+    arrays, the per-block counts, the Rayleigh ranks, the per-block copies
+    of the shell table) is left out, and the compactions between them are
+    ``compact``'s. Data-dependent parts are counted from the outcome."""
+    from cbctmc_tpu_torch.engine import transport
+
+    L0, L1 = before.lanes, after.lanes
+    n, npix = C.n_lanes, C.n_pixels
+    d = (after.counters - before.counters).tolist()
+    if kernel == "tally_compacted":
+        parked = int(L0.escaped.sum())
+        stashed = int(L0.stash_valid.sum())
+        kept = int(L1.stash_valid.sum())
+        n_bytes = (2 * n + parked * 32 + stashed * 8  # the flags, the records, the stashes
+                   + d[0] * 8  # a record: 4 B of image read and written
+                   + 2 * n + kept * 8)  # the flags and the carried stashes written
+        n_ops = parked * 40 + d[0]  # a parked record's pixel, a stash's add
+        _, hit = transport._tally_pixel(L0.px, L0.py, L0.pz, L0.dx, L0.dy, L0.dz, C.detector,
+                                        C.n_pixels_x, C.n_pixels_z)
+        doubles = int((L0.stash_valid & (L0.stash_idx < 4 * npix) & L0.escaped & hit).sum())
+        what = f"{d[0]} records tallied, {doubles} doubles, {kept} carried"
+        return n_bytes, n_ops, what
+    c_e = C.config.event_lanes
+    events = min(int((L0.pending & L0.alive).sum()), c_e)
+    n_c, n_r, n_p = d[2], d[3], d[4]
+    s_max = C.shells.shape[2]
+    n_bytes = (events * (4 + 16 + 24)  # its lane, (energy, xi, ebin, material), table row
+               + (n_c * 8 if C.config.tau_table else 0)  # the Compton angle's two knots
+               + C.shells.numel() * 4 + n_r * 13 * 4  # the shell table, RITA intervals
+               + (n_c + n_r) * 12 + (n_c + n_r + n_p) * 26)  # directions read, lanes written
+    trips = 1 if C.config.tau_table else 2  # the GCOa: at least one tau trip
+    n_ops = (events * 20 + n_c * (s_max * 40 + 60 + PHILOX_OPS)
+             + (0 if C.config.tau_table else n_c * trips * (s_max * 40 + 40))
+             + n_r * 60 + (n_c + n_r) * (80 + PHILOX_OPS))
+    if C.config.tally_dose:  # a deposit: its voxel, 4 B of dose read and written; the sums
+        n_bytes += (n_c + n_p) * 12 + before.material_dose.numel() * 8
+    what = (f"{events} events in {c_e} slots, {n_c} Compton, {n_r} Rayleigh, {n_p} "
+            "photoelectric")
+    return n_bytes, n_ops, what
+
+
+def _entries_ms(make_call, st, names) -> tuple:
+    """Device time per call of the named kernels' launches (fresh clones of
+    ``st`` for each), summed; and the timer that gave each."""
+    total, timers = 0.0, set()
+    for name in names:
+        reps = [st.clone() for _ in range(V3_TIMING_REPS + 1)]
+        ms, timer = kernel_ms([(lambda s=s: make_call(s)) for s in reps], name, 1)
+        total += ms
+        timers.add(timer)
+    return total, "+".join(sorted(timers))
+
+
+def check_v3_variant(kernels, card, scanner, name) -> dict:
+    """One v3 configuration at full width: each launch group of the 5th
+    iteration against its plain version on the state before it (phase 8's
+    limits; both sides get the plain version's output of the group
+    before); ``compact`` on that iteration's event mask (bit-equal idx and
+    ranks, at the budget and a starved one); the device times of
+    ``tally_compacted`` and ``resolve_compacted`` beside their plain
+    versions and bounds."""
+    from cbctmc_tpu_torch.engine import transport
+    from cbctmc_tpu_torch.engine.transport import production_engine_config
+
+    cfg = production_engine_config(**ENGINE_OVERRIDES, **V3_CHECKS[name])
+    C, st = state_before_an_iteration(scanner, cfg)
+    n = C.n_lanes
+
+    def call(fn, s):
+        fn(s)
+
+    rows = {}
+    for kernel, label, engine, plain in v3_steps(C):
+        want, err = compare_phase(card, f"{name}: {label}", call, engine, plain, st, n)
+        if kernel == "tally_compacted" and kernel not in rows:
+            mask = want.lanes.pending & want.lanes.alive  # the events the resolve compacts
+            rows["compact"] = check_compact(kernels, card, name, mask, cfg)
+        if kernel in ("tally_compacted", "resolve_compacted") and kernel not in rows:
+            names = (("tally_primary_kernel", "tally_doubles_kernel")
+                     if kernel == "tally_compacted" else
+                     ("resolve_branch_kernel", "resolve_scatter_kernel"))
+            ms, timer = _entries_ms(lambda s: engine(s), st, names)
+            plain_calls = [(lambda s=s: plain(s)) for s in (st.clone() for _ in range(3))]
+            p_ms = kernel_ms(plain_calls, None)[0]
+            n_bytes, n_ops, what = v3_bound(kernel, st, want, C)
+            b_ms, b_by = bound(n_bytes, n_ops)
+            say(f"{name}: {label}: {what}; {ms:.5f} ms by the {timer} (plain {p_ms:.5f}; "
+                f"bound {b_ms:.6f} by {b_by}: {n_bytes} B, {n_ops} ops)", card)
+            rows[kernel] = dict(max_abs_err=err, ms=ms, timer=timer, plain_ms=p_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        elif kernel in rows:
+            rows[kernel]["max_abs_err"] = max(rows[kernel]["max_abs_err"], err)
+        if label.endswith("finish"):
+            ms, timer = _entries_ms(lambda s: engine(s), st, ("resolve_finish_kernel",))
+            say(f"{name}: the iteration's finish (resolve_finish) {ms:.5f} ms by the {timer}",
+                card)
+        st = want
+    if int(st.ctrl[transport.CTRL_ITERATION]) != CAPTURE_ITERATION + 1:
+        raise AssertionError(f"{name}: the last resolve did not end the iteration")
+    return rows
+
+
+def check_compact(kernels, card, name, mask, cfg) -> dict:
+    """``compact`` on the iteration's event mask (pending and alive lanes
+    after its first tally) at the event budget and at a tenth of it, and on
+    a seeded mask of the Rayleigh sub-batch's shape: idx and ranks
+    bit-equal to ``compact_indices`` on the card; its device time at the
+    event budget (two launches: the counts per block, the scan) beside the
+    plain version's, its bound and ``torch.cumsum`` of the mask."""
+    from cbctmc_tpu_torch.engine.transport import compact_indices
+
+    n, c_e = mask.shape[0], cfg.event_lanes
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(19)
+    slots = torch.rand((c_e,), generator=g, device=DEVICE) < 0.1
+    cases = ((mask, c_e, n), (mask, c_e // 10, n), (slots, cfg.rayleigh_lanes, c_e))
+    for m, budget, fill in cases:
+        idx, order = kernels.compact(m, budget, fill)
+        want_idx, want_order = compact_indices(m, budget, fill)
+        if not (torch.equal(idx, want_idx) and torch.equal(order, want_order)):
+            raise AssertionError(f"{name}: compact differs at budget {budget} of {m.shape[0]}")
+    say(f"{name}: compact bit-equal on the {int(mask.sum())} events of {n} lanes at budgets "
+        f"{c_e} and {c_e // 10}, and on {int(slots.sum())} of {c_e} slots at "
+        f"{cfg.rayleigh_lanes}", card)
+    ms, timer = kernel_ms([(lambda: kernels.compact(mask, c_e, n))] * (V3_TIMING_REPS + 1),
+                          "compact_")
+    p_ms = kernel_ms([(lambda: compact_indices(mask, c_e, n))] * 3, None)[0]
+    cums = [(lambda: torch.cumsum(mask, 0, dtype=torch.int32))] * (V3_TIMING_REPS + 1)
+    lib_ms = kernel_ms(cums, None)[0]
+    n_bytes = n + 4 * n + 4 * c_e + 2 * 4 * -(-n // 256)  # mask, ranks, slots, counts
+    b_ms, b_by = bound(n_bytes, n)
+    say(f"{name}: compact of {n} lanes into {c_e} slots {ms:.5f} ms by the {timer} (two "
+        f"launches; plain {p_ms:.5f}, torch.cumsum of the mask {lib_ms:.5f}; bound "
+        f"{b_ms:.6f} by {b_by}: {n_bytes} B)", card)
+    return dict(max_abs_err=0.0, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def whole_engine_v3(card, scene, cfg, name):
+    """The v3 engine on the slab from one key three ways on the card: the
+    recorded graph, the eager loop, the plain version. Iterations and
+    integer counters equal, channel sums within 1e-4, every history
+    started once."""
+    from cbctmc_tpu_torch.engine.rng import make_key
+    from cbctmc_tpu_torch.engine.transport import run_projection, run_projection_reference
+
+    out = {}
+    for way, run, k in (("graph", run_projection, None), ("eager", run_projection, 1),
+                        ("plain", run_projection_reference, None)):
+        image, extras = run(*scene, V3_WHOLE_HISTORIES, make_key(5), 32, 32, config=cfg,
+                            return_stats=True, device=DEVICE, iterations_per_read=k)
+        out[way] = (image.double().sum(dim=(1, 2)).cpu().numpy(), extras["iterations"],
+                    extras["counts"].cpu().numpy())
+    ints = list(INT_COUNTERS)
+    sums_p, it_p, counts_p = out["plain"]
+    for way, (sums, it, counts) in out.items():
+        rel = np.abs(sums - sums_p) / np.abs(sums_p)
+        say(f"whole engine {name}, {V3_WHOLE_HISTORIES} histories on the slab, {way}: "
+            f"iterations {it}, integer counters {counts[ints].tolist()}, channel sums rel diff "
+            f"to plain {rel.tolist()}", card)
+        if it != it_p or not np.array_equal(counts[ints], counts_p[ints]):
+            raise AssertionError(f"whole engine {name}, {way}: iterations or counters differ")
+        if counts[5] + counts[6] != V3_WHOLE_HISTORIES or not (rel <= 1e-4).all():
+            raise AssertionError(f"whole engine {name}, {way}: histories or channel sums")
+        if abs(counts[8] - counts_p[8]) > 1e-6 * counts_p[8]:
+            raise AssertionError(f"whole engine {name}, {way}: tallied energy beyond 1e-6")
+
+
+def slab_v3(card, slab):
+    """The golden slab (SLAB_SEEDS keys x SLAB_HISTORIES) under v3 and v3
+    with the analytic angle, each channel within 4 combined standard errors
+    of the JAX engine's golden sums; then v3 starved (V3_STARVED: the event
+    budget at its floor of 1,024 slots, the doubles' at 32) on the same
+    keys, within 4 combined standard errors of the unstarved v3 and every
+    history started once."""
+    import dataclasses
+
+    from cbctmc_tpu_torch.engine.rng import make_key
+    from cbctmc_tpu_torch.engine.transport import run_projection
+
+    scene, cfg = slab
+    golden = np.array(json.loads((ROOT / "tests" / "golden_slab_values.json").read_text())
+                      ["channel_sums"])
+    sums = {}
+    for name, over in (*V3_VARIANTS.items(), ("v3_starved", {**V3_VARIANTS["v3"],
+                                                             **V3_STARVED})):
+        opt = dataclasses.replace(cfg, **over)
+        rows = []
+        for k in range(SLAB_SEEDS):
+            image, extras = run_projection(*scene, SLAB_HISTORIES, make_key(1234 + k), 32, 32,
+                                           config=opt, return_stats=True, device=DEVICE)
+            if int(extras["counts"][5] + extras["counts"][6]) != SLAB_HISTORIES:
+                raise AssertionError(f"golden slab, {name}: histories started != budget")
+            rows.append(image.double().cpu().numpy().sum(axis=(1, 2)))
+        sums[name] = np.array(rows)
+    for name, ref in (("v3", golden), ("v3_analytic", golden), ("v3_starved", None)):
+        mean, s = sums[name].mean(axis=0), sums[name].std(axis=0, ddof=1)
+        if ref is None:
+            other = sums["v3"]
+            ref = other.mean(axis=0)
+            limit = 4.0 * np.sqrt(s**2 / SLAB_SEEDS + other.std(axis=0, ddof=1)**2 / SLAB_SEEDS)
+            against = "the unstarved v3"
+        else:
+            limit = 4.0 * np.sqrt(s**2 / SLAB_SEEDS + s**2)
+            against = "the JAX engine's golden sums"
+        say(f"golden slab, {name}: |diff| / limit against {against} "
+            f"{dict(zip(CHANNELS, (np.abs(mean - ref) / limit).round(4).tolist()))}", card)
+        if not ((np.abs(mean - ref) <= limit).all() and (s > 0).all()):
+            raise AssertionError(f"golden slab, {name}: outside 4 combined standard errors")
+
+
+def v3_rates(kernels, card, scanner) -> tuple:
+    """Histories/s of run_projection at V3_HISTORIES on the main path's
+    scene under production, v3 and v3 with the analytic angle, in this call
+    (a workspace each, warmed by a short call: its graph recorded before the
+    timed one), and each run's launches an iteration by kernel, held to
+    ``expected_phase_launches``: the launch counters are zeroed just before
+    each timed run and read just after it. Returns the rates and the v3
+    runs' launches by kernel (v3's main path)."""
+    import dataclasses
+
+    from cbctmc_tpu_torch.engine import transport
+    from cbctmc_tpu_torch.engine.rng import make_key
+
+    rates, v3_launches = {}, dict.fromkeys(kernels.PHASE_LAUNCH_WORDS, 0)
+    for name, over in (("production", {}), *V3_VARIANTS.items()):
+        args = projection_args(scanner, dataclasses.replace(scanner.engine_config, **over))
+        cfg = args["config"]
+        ws = transport.EngineWorkspace(args["tables"], args["woodcock"], args["volume"],
+                                       args["n_pixels_x"], args["n_pixels_z"], cfg, DEVICE)
+        transport.run_projection(n_histories=1_000_000, key=make_key(19, 0), workspace=ws,
+                                 **args)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        _, extras = transport.run_projection(n_histories=V3_HISTORIES, key=make_key(19, 1),
+                                             workspace=ws, return_stats=True, **args)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        it = extras["iterations"]
+        got = {k: kernels.launch_counts[k] for k in kernels.PHASE_LAUNCH_WORDS}
+        want = expected_phase_launches(it, cfg)
+        rates[name] = V3_HISTORIES / wall
+        say(f"{name}: run_projection of {V3_HISTORIES} histories {wall:.3f} s = "
+            f"{rates[name]:.6e} hist/s, {it} iterations ({wall / it * 1e6:.1f} us each); "
+            f"launches an iteration {({k: round(v / it, 3) for k, v in got.items()})}", card)
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        if name != "production":
+            for k, v in got.items():
+                v3_launches[k] += v
+    return rates, v3_launches
+
+
+def v3_path(kernels, card, scanner, slab) -> dict:
+    """Phase 19: the engine's v3 body at full width and on the slab
+    (:func:`check_v3_variant` for both configurations and v3 with the dose
+    tally, :func:`whole_engine_v3`,
+    :func:`slab_v3`, :func:`v3_rates`). The main path of v3 is
+    ``run_projection`` of V3_HISTORIES on the main path's scene under both
+    configurations (:func:`v3_rates`, the launch counters zeroed just before
+    each run and read just after): the three v3 kernels must have run there;
+    the launches that hold them against their plain versions are not
+    counted."""
+    import dataclasses
+
+    t0 = time.monotonic()
+    walls = {}
+    rows = {name: check_v3_variant(kernels, card, scanner, name) for name in V3_CHECKS}
+    walls["full width"] = time.monotonic() - t0
+    scene, cfg = slab
+    for name, over in V3_VARIANTS.items():
+        whole_engine_v3(card, scene, dataclasses.replace(cfg, **over), name)
+    walls["whole engine"] = time.monotonic() - t0 - sum(walls.values())
+    slab_v3(card, slab)
+    walls["golden slab"] = time.monotonic() - t0 - sum(walls.values())
+    rates, v3_launches = v3_rates(kernels, card, scanner)
+    walls["rates"] = time.monotonic() - t0 - sum(walls.values())
+    launches = {k: v3_launches[k] for k in ("compact", "tally_compacted", "resolve_compacted")}
+    if not all(launches.values()):
+        raise AssertionError(f"phase 19: launches {launches}")
+    wall = time.monotonic() - t0
+    say(f"phase 19: {wall:.1f} s ({ {k: round(v, 1) for k, v in walls.items()} } s); "
+        f"launches of v3's main path (run_projection under both configurations) {launches}",
+        card)
+    # the kernels line: the tabulated angle's rows, the analytic one's times beside them
+    out = rows["v3"]
+    for kernel, row in out.items():
+        row["max_abs_err"] = max(r[kernel]["max_abs_err"] for r in rows.values())
+        for name in ("v3_analytic", "v3_dose"):
+            row[f"{name[3:]}_ms"] = rows[name][kernel]["ms"]
+            row[f"{name[3:]}_bound_ms"] = rows[name][kernel]["bound_ms"]
+    return {"rows": out, "launches": launches, "rates": rates, "wall": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device, nothing run", file=sys.stderr)
@@ -4610,6 +4982,10 @@ def main() -> int:
         # each v4 option's instantiation, timed in phase 18 beside production's
         results[name]["variants_ms"] = {k: t[name][0] for k, t in options["times"].items()}
         results[name]["variants_timer"] = {k: t[name][1] for k, t in options["times"].items()}
+    v3 = v3_path(kernels, card, scanner, (scene, slab_cfg))
+    results.update(v3["rows"])
+    for name in ("compact", "tally_compacted", "resolve_compacted"):
+        launches[name] = v3["launches"][name]
 
     pallas = "cbctmc_tpu/engine/pallas_kernels.py"
     jax_engine = "cbctmc_tpu/engine/transport.py"
@@ -4630,6 +5006,9 @@ def main() -> int:
         "demons_force": ("demons_force.cu", "cbctmc_tpu/registration/demons.py:54"),
         "demons_blur": ("demons_blur.cu", "cbctmc_tpu/registration/demons.py:36"),
         "demons_jacobian": ("demons_jacobian.cu", "cbctmc_tpu/registration/demons.py:102"),
+        "compact": ("compact.cu", f"{jax_engine}:549"),
+        "tally_compacted": ("tally_compacted.cu", f"{jax_engine}:1196"),
+        "resolve_compacted": ("resolve_compacted.cu", f"{jax_engine}:1280"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": f"cbctmc_tpu_torch/csrc/{meta[name][0]}",
@@ -4646,7 +5025,8 @@ def main() -> int:
         f"{cli['walls']['checks']:.3f} s); training {trained['walls']['phase']:.3f} s (its "
         f"checks {trained['walls']['checks']:.3f} s); interchange "
         f"{exported['walls']['phase']:.3f} s; options and sharding {options['wall']:.1f} s; "
-        f"whole script "
+        f"v3 {v3['wall']:.1f} s (run_projection hist/s "
+        f"{ {k: float(f'{v:.6e}') for k, v in v3['rates'].items()} }); whole script "
         f"{time.monotonic() - t_start:.1f} s", card)
     print(json.dumps(line))
     print(card_line())

@@ -115,6 +115,21 @@ def test_port_sources_name_no_jax_import():
             assert needle not in text, f"{path.name}: {needle.strip()}"
 
 
+def test_every_kernel_source_is_built():
+    """Every CUDA source of ``csrc/`` is a kernel the package builds and
+    counts (``kernels.KERNELS``), and every kernel has its source: the
+    nineteen, the v3 body's ``compact``, ``tally_compacted`` and
+    ``resolve_compacted`` among them."""
+    from cbctmc_tpu_torch.engine import kernels
+
+    sources = {p.stem for p in (REPO / "cbctmc_tpu_torch" / "csrc").glob("*.cu")}
+    assert sources == set(kernels.KERNELS) and len(sources) == 19
+    assert {"compact", "tally_compacted", "resolve_compacted"} <= set(kernels.PHASE_LAUNCH_WORDS)
+    for entry in kernels.V3_ENTRIES:
+        assert f"{entry.partition(':')[2] or entry}_launch" in (
+            REPO / "cbctmc_tpu_torch" / "csrc" / f"{entry.partition(':')[0]}.cu").read_text()
+
+
 def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

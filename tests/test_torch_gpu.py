@@ -5,6 +5,7 @@ without the JAX package's dependencies:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 Without a card they skip."""
 
+import dataclasses
 import functools
 import importlib.util
 from pathlib import Path
@@ -269,8 +270,9 @@ def test_whole_engine_options_on_card(cuda, name):
 
 
 @pytest.mark.gpu
-def test_phases_do_nothing_once_the_loop_has_ended_on_card(cuda):
-    config = PHASE_CONFIGS["production"]
+@pytest.mark.parametrize("name", ["production", "v3"])
+def test_phases_do_nothing_once_the_loop_has_ended_on_card(cuda, name):
+    config = {**PHASE_CONFIGS, **V3_CONFIGS}[name]
     C, st, _ = state_in_mid_run(slab_engine(cuda, config, mono=False), config, 10_000_000, 11)
     st.ctrl[transport.CTRL_RUN] = 0
     got = st.clone()
@@ -410,6 +412,86 @@ def test_workspace_and_graph_across_views_and_chunks_on_card(cuda):
                 for name, a, b in zip(carries[0]._fields, *carries):
                     assert torch.equal(a, b), name
     assert len(shared.graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# the engine's v3 body (resolve_inplace=False): compact, tally_compacted and
+# resolve_compacted against their plain versions (the limits of the phase
+# kernels above), and the whole v3 engine as graph against plain
+# ---------------------------------------------------------------------------
+V3_CONFIGS = {
+    "v3": transport.production_engine_config(n_lanes=1 << 14, resolve_inplace=False),
+    "v3_analytic": transport.production_engine_config(
+        n_lanes=1 << 14, resolve_inplace=False, tau_table=False),
+    "v3_dose": transport.production_engine_config(
+        n_lanes=1 << 14, resolve_inplace=False, tally_dose=True),
+    # the event budget (its floor of 1,024) and the doubles budget (32) bind
+    "v3_starved": transport.production_engine_config(
+        n_lanes=1 << 14, resolve_inplace=False, event_fraction=0.02, doubles_fraction=1e-9),
+    "v3_slab": dataclasses.replace(SLAB_CONFIG, resolve_inplace=False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,budget,share", [
+    (1, 4, 1.0), (1_000, 300, 0.5), (70_001, 50_000, 0.5), (4_096, 8_192, 0.3),
+    (5_000, 100, 0.0), (65_536, 22_937, 0.3), (22_937, 3_822, 0.1)])
+def test_compact_kernel_on_card(cuda, m, budget, share):
+    """Over budget, under budget, a budget past the mask's length, an empty
+    mask, the production event and Rayleigh batches: idx and ranks equal to
+    the plain version's, two launches counted."""
+    rng = np.random.default_rng(m)
+    mask = torch.from_numpy(rng.random(m) < share).to(cuda)
+    kernels.reset_launch_counts()
+    idx, order = kernels.compact(mask, budget, m)
+    want_idx, want_order = transport.compact_indices(mask, budget, m)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_idx) and torch.equal(order, want_order)
+    assert kernels.launch_counts["compact"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config_name", list(V3_CONFIGS))
+def test_v3_kernels_on_card(cuda, config_name):
+    """Each launch group of a v3 iteration on the state before the 5th
+    iteration, kernel against plain version; each launch counted on the
+    device; with the dose the tallies within 1e-5 of the plain sums."""
+    from torch_kernel_inputs import v3_phase_steps
+
+    config = V3_CONFIGS[config_name]
+    scene = slab_engine(cuda, config, mono=config_name == "v3_slab")
+    C, st, _ = state_in_mid_run(scene, config, 10_000_000, seed=11)
+    n = config.n_lanes
+    seen = set()
+    for name, engine, plain in v3_phase_steps(C):
+        got, want = st.clone(), st.clone()
+        for dose in (got.voxel_dose, got.material_dose, want.voxel_dose, want.material_dose):
+            if dose is not None:
+                dose.zero_()
+        engine(got)
+        plain(want)
+        torch.cuda.synchronize()
+        assert _launches(got, name) > _launches(st, name), name
+        _assert_phase_matches(got, want, n, name)
+        if config.tally_dose:
+            _assert_dose_matches(got, want)
+        seen.add(name)
+        st = want
+    assert seen == {"refill", "flight_resolve", "tally_compacted", "resolve_compacted"}
+    assert int(st.ctrl[transport.CTRL_ITERATION]) == 5  # the last resolve ended it
+    if config_name == "v3_starved":
+        assert bool(st.lanes.pending.any())  # events past the budget wait
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config_name", ["v3", "v3_analytic", "v3_starved", "v3_slab"])
+def test_whole_engine_v3_on_card(cuda, config_name):
+    """The v3 engine from one key as the recorded graph and as the plain
+    version on the card: iterations and integer counters equal, channel
+    sums within 1e-4; every history started once."""
+    config = V3_CONFIGS[config_name]
+    scene = slab_engine(cuda, config, mono=config_name == "v3_slab")
+    _assert_same_run(*_run_both(cuda, scene, config, 1_000_000, seed=5), 1_000_000)
 
 
 # ---------------------------------------------------------------------------

@@ -211,12 +211,15 @@ def test_golden_slab_channel_sums(table_set, tables):
     assert (s > 0).all()
 
 
-@pytest.mark.parametrize("override", [dict(resolve_inplace=False)])
+@pytest.mark.parametrize("override", [dict(tau_table=False)])
 def test_unported_paths_raise(table_set, tables, override):
+    """The one configuration the engine refuses, as the JAX engine does:
+    the analytic Compton angle under the v4 body (it runs under v3,
+    resolve_inplace=False)."""
     mats, dens = _scene(table_set, False)
     run = _make_run(table_set, tables, mats, dens,
                     config=EngineConfig(n_lanes=256, max_virtual_trips=2, **override))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="resolve_inplace requires tau_table"):
         run(100, 0)
 
 

@@ -161,6 +161,36 @@ def state_in_mid_run(scene, config, n_histories, seed, iterations=4):
     return C, st, T.iteration_bits(C, st).clone()
 
 
+def v3_phase_steps(C):
+    """The launches of a v3 outer iteration (``resolve_inplace=False``)
+    grouped by kernel, in the order they run: ``(kernel, engine call(st),
+    plain call(st))``: the refill, then per sub-phase its flights (the
+    ``flight_resolve`` launches that fly only), the compacted tally (two
+    ``tally_compacted`` passes around a ``compact``) and the compacted resolve
+    (``compact``, ``resolve_compacted``'s entries; the last sub-phase's ends
+    the iteration)."""
+    from cbctmc_tpu_torch.engine import transport as T
+
+    def bits(st):
+        return T.iteration_bits(C, st)
+
+    R = max(1, C.config.n_resolves)
+    steps = [("refill", lambda st: T.refill_phase(C, st, C.rows.refill, True),
+              lambda st: T.refill_phase_reference(C, st, bits(st), C.rows.refill, True))]
+    for r in range(R):
+        last = r == R - 1
+        steps += [
+            ("flight_resolve", lambda st, r=r: T.flights_phase(C, st, r),
+             lambda st, r=r: T.flights_phase_reference(C, st, bits(st), r)),
+            ("tally_compacted", lambda st: T.tally_compacted_phase(C, st),
+             lambda st: T.tally_compacted_phase_reference(C, st)),
+            ("resolve_compacted", lambda st, r=r, last=last: T.resolve_compacted_phase(
+                C, st, r, last),
+             lambda st, r=r, last=last: T.resolve_compacted_reference(C, st, bits(st), r, last)),
+        ]
+    return steps
+
+
 def state_diff(a, b):
     """How two engine states differ: ``(lanes where an integer or flag field
     of the lanes or candidates differs, the largest |a - b| / (1 + |b|) of a
