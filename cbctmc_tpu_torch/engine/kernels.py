@@ -26,16 +26,21 @@ versions are the ``*_phase_reference`` functions of ``transport.py``.
 Three more run the engine's v3 body (``resolve_inplace=False``), whose
 sub-phase is the flights (``flight_resolve`` launches that fly only, on
 the pair table), then a compacted tally and a compacted resolve
-(:func:`launch_tally_compacted`, :func:`launch_resolve_compacted`):
+(:func:`launch_tally_compacted`, :func:`launch_resolve_compacted`), four
+launches a sub-phase and the iteration's finish:
 
 - ``compact``: the order-preserving compaction of a mask into a batch of
-  static size and each entry's rank (:func:`compact`; entry
-  ``compact_count`` for the counts per block where no kernel left them);
-- ``tally_compacted``: the primary pass of the tally and, on the doubles'
-  ranks, the second pass with the overflow carry;
-- ``resolve_compacted``: a thread per event slot: the branch and the
-  Compton sampler (tabulated or GCOa angle), then the Rayleigh sampler, the
-  write-back and the lane's finish; its entry ``resolve_finish`` ends the
+  static size and each entry's rank, one launch (:func:`compact`): a
+  single-pass scan by decoupled look-back (``csrc/compact.cuh``), whose
+  blocks take tickets and tag their flags with the launch's epoch, so its
+  scratch (:func:`scan_words` words) is zeroed once and never reset; the
+  other two kernels run the same scan where they make their masks;
+- ``tally_compacted``: the primary pass of the tally, which also ranks the
+  doubles, and the second pass over them with the overflow carry;
+- ``resolve_compacted``: a tile of threads per event slot: the branch, the
+  Rayleigh slots' ranks, the Compton sampler (tabulated or GCOa angle, its
+  shell terms and trips spread over the tile), RITA, the write-back and the
+  lane's finish in one launch; its entry ``resolve_finish`` ends the
   iteration (the dead lanes per block, the loop's control words).
 
 Their plain versions are ``transport.compact_indices``,
@@ -134,11 +139,12 @@ KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_
 PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13, "compact": 14,
                       "tally_compacted": 15, "resolve_compacted": 16}
 #: the launch functions of the v3 kernels, by ``kernel:entry``
-V3_ENTRIES = ("compact", "compact:compact_count", "tally_compacted",
-              "tally_compacted:tally_doubles", "resolve_compacted",
-              "resolve_compacted:resolve_scatter", "resolve_compacted:resolve_finish")
+V3_ENTRIES = ("compact", "tally_compacted", "tally_compacted:tally_doubles",
+              "resolve_compacted", "resolve_compacted:resolve_finish")
 #: lanes per block of the phase kernels (PHASE_THREADS in csrc/engine.cuh)
 PHASE_BLOCK = 256
+#: entries per block of ``compact`` (COMPACT_BLOCK in csrc/compact.cu)
+COMPACT_BLOCK = 1024
 # -fmad=false: every product and sum rounds on its own, as the plain
 # versions' separate PyTorch operations do (no --use_fast_math: the physics
 # needs logf/expf/expm1f to full accuracy)
@@ -160,6 +166,9 @@ _BIG = 1.0e30
 _DEN_MASK = (1 << 21) - 1
 MAX_POLY = 16
 MAX_SHELLS = 32  # per-lane shell arrays of csrc/samplers.cuh
+#: threads a slot of resolve_compacted (RESOLVE_TILE in its source), and the
+#: most it may be: its scan scratch holds the blocks of a grid at that tile
+RESOLVE_TILE, RESOLVE_TILE_MAX = 4, 8
 
 
 def phase_entries(config) -> tuple:
@@ -304,7 +313,7 @@ def _fill_struct(struct, ints: dict, floats: dict):
     return struct
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _LP, _CP = ctypes.POINTER(_LanesC), ctypes.POINTER(_CandidatesC)
 _SIGNATURES = {
     "refill": [_LP, _CP, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P],
@@ -330,15 +339,12 @@ _SIGNATURES = {
     "demons_force:warp_volume": [_P, _P, _I, _I, _I, _P, _P],
     "demons_blur": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_F), _I, _P, _P],
     "demons_jacobian": [_P, _P, _I, _I, _I, _F, _P, _P],
-    "compact": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
-    "compact:compact_count": [_P, _P, _I, _P, _P, _P],
-    "tally_compacted": [_LP, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "tally_compacted:tally_doubles": [_LP, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
-    "resolve_compacted": [_LP, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _P],
-    "resolve_compacted:resolve_scatter": [_LP, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I,
-                                          _P, _P, _P, _I, _I, ctypes.POINTER(_OptionsC), _I,
-                                          _P],
+    "compact": [_P, _P, _I, _P, _LL, _I, _I, _P, _P, _P, _P],
+    "compact:control_floor": [_P, _I, _P],
+    "tally_compacted": [_LP, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
+    "tally_compacted:tally_doubles": [_LP, _I, _P, _P, _P, _P, _P, _P, _P],
+    "resolve_compacted": [_LP, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _P,
+                          _I, _I, _I, _I, ctypes.POINTER(_OptionsC), _I, _I, _P],
     "resolve_compacted:resolve_finish": [_LP, _I, _P, _P, _P],
 }
 
@@ -1072,35 +1078,43 @@ class _PhaseArgs:
         self.view = C.view
 
 
-class CompactBuffers(NamedTuple):
-    """Scratch of the v3 kernels, written and read within one compacted
-    tally or resolve: the doubles byte per lane, their counts per block and
-    ranks; the events' counts per block and slots; each slot's outcome; the
-    Rayleigh slots' bytes, counts per block and ranks."""
+def scan_words(blocks: int) -> int:
+    """Words (int64) of the scan scratch of a launch of ``blocks`` blocks
+    (``csrc/compact.cuh``): the ticket, then a flag a block."""
+    return 1 + blocks
 
-    doubles: torch.Tensor  # u8[n]
-    doubles_count: torch.Tensor  # i32[blocks of n]
-    doubles_order: torch.Tensor  # i32[n]
-    events_count: torch.Tensor  # i32[blocks of n]
+
+def _blocks(m: int, per_block: int = PHASE_BLOCK) -> int:
+    return -(-m // per_block)
+
+
+def _check_scan(scan: torch.Tensor, words: int, what: str) -> None:
+    """A scan scratch: int64, contiguous, ``words`` long."""
+    _check(scan, what, torch.int64)
+    if scan.ndim != 1 or scan.shape[0] != words:
+        raise ValueError(f"{what}: {tuple(scan.shape)} words, expected {words}")
+
+
+class CompactBuffers(NamedTuple):
+    """Scratch of the v3 kernels: the doubles byte per lane (written by the
+    tally's first pass, read by its second), the events' slots, and the
+    scan scratch of each of the three scans (the events' compaction, the
+    doubles' ranks in the tally, the Rayleigh slots' ranks in the resolve):
+    zeroed once here, never reset (the flags carry the launch's epoch)."""
+
+    doubles: torch.Tensor  # u8[n]: 0, 1 a double below the budget, 2 past it
+    doubles_scan: torch.Tensor  # i64[scan_words(blocks of n)]
+    events_scan: torch.Tensor  # i64[scan_words(compact's blocks of n)]
     events_idx: torch.Tensor  # i32[c_e]
-    slot_energy: torch.Tensor  # f32[c_e]
-    slot_costh: torch.Tensor  # f32[c_e]
-    slot_code: torch.Tensor  # u8[c_e]
-    rayleigh: torch.Tensor  # u8[c_e]
-    rayleigh_count: torch.Tensor  # i32[blocks of c_e]
-    rayleigh_order: torch.Tensor  # i32[c_e]
+    rayleigh_scan: torch.Tensor  # i64[scan_words(blocks of c_e * RESOLVE_TILE_MAX)]
 
     @classmethod
     def allocate(cls, n: int, c_e: int, device) -> "CompactBuffers":
-        def blocks(m):
-            return -(-m // PHASE_BLOCK)
-
-        u8, i32, f32 = torch.uint8, torch.int32, torch.float32
-        shapes = dict(doubles=(n, u8), doubles_count=(blocks(n), i32), doubles_order=(n, i32),
-                      events_count=(blocks(n), i32), events_idx=(c_e, i32),
-                      slot_energy=(c_e, f32), slot_costh=(c_e, f32), slot_code=(c_e, u8),
-                      rayleigh=(c_e, u8), rayleigh_count=(blocks(c_e), i32),
-                      rayleigh_order=(c_e, i32))
+        u8, i32, i64 = torch.uint8, torch.int32, torch.int64
+        shapes = dict(doubles=(n, u8), doubles_scan=(scan_words(_blocks(n)), i64),
+                      events_scan=(scan_words(_blocks(n, COMPACT_BLOCK)), i64),
+                      events_idx=(c_e, i32),
+                      rayleigh_scan=(scan_words(_blocks(c_e * RESOLVE_TILE_MAX)), i64))
         return cls(**{k: torch.zeros((m,), dtype=dt, device=device)
                       for k, (m, dt) in shapes.items()})
 
@@ -1153,99 +1167,113 @@ def launch_flight_resolve(C, st, flight_row: int, resolve_row: int,
             ctypes.byref(a.options), a.variant, _stream(st.ctrl))
 
 
-def launch_compact(mask_a, mask_b, counts, budget: int, fill: int, idx, order, ctrl,
-                   stream: int, count: bool = False) -> None:
-    """Launch ``compact`` on the mask ``mask_a & mask_b`` (byte tensors;
-    ``mask_b`` may be None), its per-block counts in ``counts`` (written
-    first by the entry ``compact_count`` when ``count``): ``idx`` and
-    ``order`` (either may be None) as :func:`compact` returns them;
-    ``ctrl`` the engine's control words or None."""
+def launch_compact(mask_a, mask_b, scan, budget: int, fill: int, idx, order, ctrl,
+                   stream: int) -> None:
+    """Launch ``compact`` (one launch) on the mask ``mask_a & mask_b`` (byte
+    tensors; ``mask_b`` may be None) with the scan scratch ``scan``
+    (int64[scan_words(blocks of COMPACT_BLOCK entries)], the same mask length
+    at every launch on it): ``idx`` and ``order`` (either may be None) as
+    :func:`compact` returns them; ``ctrl`` the engine's control words or
+    None."""
     m = mask_a.shape[0]
+    if budget < 0:
+        raise ValueError(f"compact: budget {budget} < 0")
+    _check_scan(scan, scan_words(_blocks(m, COMPACT_BLOCK)), "compact scan")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    def launch(name, *args):
-        if ctrl is None:  # outside the engine no control word counts it
-            _call(name, *args)
-            launch_counts["compact"] += 1
-        else:
-            _launch(name, *args)
+    args = (ptr(mask_a), ptr(mask_b), m, scan.data_ptr(), scan.shape[0], budget, fill,
+            ptr(idx), ptr(order), ptr(ctrl), stream)
+    if ctrl is None:  # outside the engine no control word counts it
+        _call("compact", *args)
+        launch_counts["compact"] += 1
+    else:
+        _launch("compact", *args)
 
-    if count:
-        launch("compact:compact_count", ptr(mask_a), ptr(mask_b), m, counts.data_ptr(),
-               ptr(ctrl), stream)
-    launch("compact", ptr(mask_a), ptr(mask_b), m, counts.data_ptr(), budget, fill, ptr(idx),
-           ptr(order), ptr(ctrl), stream)
+
+#: the scan scratch of :func:`compact` by (device, blocks), kept across
+#: calls: every launch on one has the same grid, and none needs a reset
+_compact_scans: dict = {}
 
 
 def compact(mask: torch.Tensor, budget: int, fill: int):
     """The ``compact`` kernel on a bool mask [m] of a CUDA device:
     ``(idx i32[budget], order i32[m])`` of ``transport.compact_indices``
-    (its plain version, which the caller runs on the CPU). Two launches:
-    the counts per block, then the ranks and the slots."""
+    (its plain version, which the caller runs on the CPU). One launch."""
     _check(mask, "mask", torch.bool)
     if mask.ndim != 1 or mask.device.type != "cuda":
         raise ValueError("compact takes a 1-D bool mask on a CUDA device")
+    if budget < 0:
+        raise ValueError(f"compact: budget {budget} < 0")
     m, dev = mask.shape[0], mask.device
-    idx = torch.full((budget,), fill, dtype=torch.int32, device=dev)
     order = torch.empty((m,), dtype=torch.int32, device=dev)
-    if m:
-        counts = torch.empty((-(-m // PHASE_BLOCK),), dtype=torch.int32, device=dev)
-        launch_compact(mask.view(torch.uint8), None, counts, budget, fill, idx, order, None,
-                       _stream(mask), count=True)
+    if not m:
+        return torch.full((budget,), fill, dtype=torch.int32, device=dev), order
+    idx = torch.empty((budget,), dtype=torch.int32, device=dev)  # every slot written
+    blocks = _blocks(m, COMPACT_BLOCK)
+    if (dev, blocks) not in _compact_scans:
+        _compact_scans[dev, blocks] = torch.zeros((scan_words(blocks),), dtype=torch.int64,
+                                                  device=dev)
+    launch_compact(mask.view(torch.uint8), None, _compact_scans[dev, blocks], budget, fill, idx,
+                   order, None, _stream(mask))
     return idx, order
 
 
+def control_floor(ctrl: torch.Tensor, blocks: int) -> None:
+    """Launch ``compact``'s entry ``control_floor``: ``blocks`` blocks of
+    ``PHASE_BLOCK`` threads that only read the control words ``ctrl`` (a
+    CUDA int32 tensor), the floor under which no phase launch of that grid
+    runs; counted as a ``compact`` launch."""
+    _check(ctrl, "ctrl", torch.int32)
+    if ctrl.device.type != "cuda" or ctrl.numel() <= max(PHASE_LAUNCH_WORDS.values()):
+        raise ValueError("control_floor takes the engine's control words on a CUDA device")
+    _call("compact:control_floor", ctrl.data_ptr(), blocks, _stream(ctrl))
+    launch_counts["compact"] += 1
+
+
 def launch_tally_compacted(C, st) -> None:
-    """The v3 tally of a sub-phase on the engine state of a CUDA device:
-    ``tally_compacted`` (every lane's stash or parked record; the doubles
-    byte and counts per block), ``compact`` of the doubles (their ranks),
+    """The v3 tally of a sub-phase on the engine state of a CUDA device, two
+    launches: ``tally_compacted`` (every lane's stash or parked record; the
+    doubles ranked by its scan, a byte per lane) and
     ``tally_compacted:tally_doubles`` (the doubles below ``doubles_lanes``,
     the overflow carry, the parked flags cleared). Plain version:
     ``transport.tally_compacted_phase_reference``."""
     a = _phase_args(C, st)
     B, n, stream = a.compact, a.n, _stream(st.ctrl)
     common = (ctypes.byref(a.lanes), n, st.image.data_ptr(), st.ctrl.data_ptr(),
-              st.counters.data_ptr(), st.energy.data_ptr())
-    _launch("tally_compacted", *common, B.doubles.data_ptr(), B.doubles_count.data_ptr(),
-            a.params_ptr, stream)
-    launch_compact(B.doubles, None, B.doubles_count, C.config.doubles_lanes, n, None,
-                   B.doubles_order, st.ctrl, stream)
-    _launch("tally_compacted:tally_doubles", *common, B.doubles.data_ptr(),
-            B.doubles_order.data_ptr(), C.config.doubles_lanes, a.params_ptr, stream)
+              st.counters.data_ptr(), st.energy.data_ptr(), B.doubles.data_ptr())
+    _check_scan(B.doubles_scan, scan_words(_blocks(n)), "doubles scan")
+    _launch("tally_compacted", *common, B.doubles_scan.data_ptr(), B.doubles_scan.shape[0],
+            C.config.doubles_lanes, a.params_ptr, stream)
+    _launch("tally_compacted:tally_doubles", *common, a.params_ptr, stream)
 
 
 def launch_resolve_compacted(C, st, r: int, ends_iteration: bool = False) -> None:
     """The v3 resolve of sub-phase ``r`` on the engine state of a CUDA
-    device: ``compact`` of the pending events (``compact_count`` first: no
-    kernel left their counts), ``resolve_compacted`` (branch and Compton;
-    the Rayleigh slots' bytes and counts), ``compact`` of the Rayleigh slots
-    (their ranks), ``resolve_compacted:resolve_scatter`` (Rayleigh, the
-    write-back, the lanes' finish) and, ``ends_iteration``,
-    ``resolve_compacted:resolve_finish``. Plain version:
+    device: ``compact`` of the pending events (one launch), then
+    ``resolve_compacted`` (one launch: the branch, the Rayleigh slots'
+    ranks, the samplers, the write-back, the lanes' finish) and,
+    ``ends_iteration``, ``resolve_compacted:resolve_finish``. Plain version:
     ``transport.resolve_compacted_reference``."""
     a = _phase_args(C, st)
     B, n, stream, cfg = a.compact, a.n, _stream(st.ctrl), C.config
     L = st.lanes
     c_e, c_r = cfg.event_lanes, cfg.rayleigh_lanes
+    if c_e < 0 or c_r < 0:
+        raise ValueError(f"resolve_compacted: budgets {c_e} / {c_r} must be >= 0")
+    _check_scan(B.rayleigh_scan, scan_words(_blocks(c_e * RESOLVE_TILE_MAX)), "rayleigh scan")
     base = C.rows.resolve[r]
     angle, shell, rita, azimuth = (base + k for k in C.rows.v3_offsets)
     n_rows = C.event_pair.numel() // 6
-    launch_compact(L.pending.view(torch.uint8), L.alive.view(torch.uint8), B.events_count, c_e,
-                   n, B.events_idx, None, st.ctrl, stream, count=True)
-    slots = (B.slot_energy.data_ptr(), B.slot_costh.data_ptr(), B.slot_code.data_ptr())
+    launch_compact(L.pending.view(torch.uint8), L.alive.view(torch.uint8), B.events_scan, c_e,
+                   n, B.events_idx, None, st.ctrl, stream)
     _launch("resolve_compacted", ctypes.byref(a.lanes), B.events_idx.data_ptr(), c_e,
             C.event_pair.data_ptr(), n_rows, C.icdf.data_ptr(), C.shells.data_ptr(),
-            C.shells.numel(), *slots, B.rayleigh.data_ptr(), B.rayleigh_count.data_ptr(),
-            st.ctrl.data_ptr(), a.phase_ptr, angle, shell, int(cfg.tau_table), stream)
-    launch_compact(B.rayleigh, None, B.rayleigh_count, c_r, c_e, None, B.rayleigh_order,
-                   st.ctrl, stream)
-    _launch("resolve_compacted:resolve_scatter", ctypes.byref(a.lanes),
-            B.events_idx.data_ptr(), c_e, C.event_pair.data_ptr(), n_rows, C.rita.data_ptr(),
-            C.rita.shape[1], *slots, B.rayleigh_order.data_ptr(), c_r, st.ctrl.data_ptr(),
-            st.counters.data_ptr(), a.phase_ptr, rita, azimuth, ctypes.byref(a.options),
-            int(cfg.tally_dose), stream)
+            C.shells.numel(), C.rita.data_ptr(), C.rita.shape[1], B.rayleigh_scan.data_ptr(),
+            B.rayleigh_scan.shape[0], c_r, st.ctrl.data_ptr(), st.counters.data_ptr(),
+            a.phase_ptr, angle, shell, rita, azimuth, ctypes.byref(a.options),
+            int(cfg.tau_table), int(cfg.tally_dose), stream)
     if ends_iteration:
         _launch("resolve_compacted:resolve_finish", ctypes.byref(a.lanes), n,
                 st.ctrl.data_ptr(), st.block_dead.data_ptr(), stream)

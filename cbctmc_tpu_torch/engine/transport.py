@@ -1427,7 +1427,7 @@ def flights_phase(C: EngineConsts, st: EngineState, r: int) -> None:
 
 def tally_compacted_phase(C: EngineConsts, st: EngineState) -> None:
     """The v3 tally of a sub-phase: ``tally_compacted`` on the card (its two
-    passes around a ``compact`` of the doubles)."""
+    passes; the first ranks the doubles)."""
     if st.ctrl.device.type == "cpu":
         tally_compacted_phase_reference(C, st)
     else:
@@ -1436,9 +1436,10 @@ def tally_compacted_phase(C: EngineConsts, st: EngineState) -> None:
 
 def resolve_compacted_phase(C: EngineConsts, st: EngineState, r: int,
                             ends_iteration: bool = False) -> None:
-    """The v3 resolve of sub-phase ``r``: ``compact`` of the events,
-    ``resolve_compacted``'s branch and samplers, ``compact`` of the Rayleigh
-    slots, the samplers' write-back and, ``ends_iteration``, its finish."""
+    """The v3 resolve of sub-phase ``r``: ``compact`` of the events, then
+    ``resolve_compacted`` (the branch, the Rayleigh slots' ranks, the
+    samplers and the write-back in one launch) and, ``ends_iteration``, its
+    finish."""
     if st.ctrl.device.type == "cpu":
         resolve_compacted_reference(C, st, iteration_bits(C, st), r, ends_iteration)
     else:

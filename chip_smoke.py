@@ -217,7 +217,10 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
 19. the engine's v3 body (:func:`v3_path`, ``resolve_inplace=False``, with
     the tabulated and with the analytic Compton angle): on the main path's
     scene under both and under v3 with the dose tally (one launch's voxel
-    and material dose within 1e-5), each launch group of the 5th iteration
+    and material dose within 1e-5), one iteration launch by launch with
+    each launch's device time and the floor of a launch that only reads the
+    control words at the iteration's grids, each launch group of the 5th
+    iteration
     (the refill, per sub-phase the flights, the compacted tally, the
     compacted resolve) against its plain version on the state before it
     (phase 8's limits), ``compact`` on that iteration's events bit-equal at
@@ -665,13 +668,14 @@ def expected_phase_launches(iterations: int, cfg) -> dict:
     iteration carries the tally, so ``tally`` itself is not launched). In
     v3 (``resolve_inplace=False``): one refill, one flight-only
     flight_resolve per flight, and per sub-phase two tally_compacted
-    launches, four compact (the doubles, the events' counts and scan, the
-    Rayleigh slots) and two resolve_compacted, plus the iteration's finish."""
+    launches (the primary pass, which ranks the doubles, and the doubles'
+    pass), one compact (the events) and one resolve_compacted, plus the
+    iteration's finish: 12 an iteration at two sub-phases."""
     R = max(1, cfg.n_resolves)
     if not cfg.resolve_inplace:
         return {"refill": iterations, "flight_resolve": iterations * cfg.max_virtual_trips,
-                "tally": 0, "compact": iterations * R * 4, "tally_compacted": iterations * R * 2,
-                "resolve_compacted": iterations * (2 * R + 1)}
+                "tally": 0, "compact": iterations * R, "tally_compacted": iterations * R * 2,
+                "resolve_compacted": iterations * (R + 1)}
     return {"refill": iterations * R, "flight_resolve": iterations * cfg.max_virtual_trips,
             "tally": 0, "compact": 0, "tally_compacted": 0, "resolve_compacted": 0}
 
@@ -4671,6 +4675,79 @@ def _entries_ms(make_call, st, names) -> tuple:
     return total, "+".join(sorted(timers))
 
 
+V3_SPLIT_KERNELS = ("refill_kernel", "flight_resolve_kernel", "tally_primary_kernel",
+                    "tally_doubles_kernel", "compact_kernel", "resolve_compacted_kernel",
+                    "resolve_finish_kernel")
+
+
+def v3_iteration_split(kernels, card, name, C, st) -> dict:
+    """One v3 iteration (the state before the 5th) launch by launch: each
+    launch's device time in the order the iteration runs them, the mean over
+    V3_TIMING_REPS iterations on fresh clones (the profiler; when it drops
+    launches, the mean by kernel instead), the sum beside the iteration's
+    device time as run (CUDA events, host gaps included); then the floor of
+    a launch that only reads the control words, at the grid of the lanes
+    (refill, tally, compact, finish), of the first design's resolve (a
+    thread a slot) and of this one's (a tile of RESOLVE_TILE threads a
+    slot)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cbctmc_tpu_torch.engine import transport
+
+    phases = transport._engine_phases()
+    reps = [st.clone() for _ in range(V3_TIMING_REPS + 1)]
+    for s in reps:
+        kernels.prepare_phase_launches(C, s)  # the launch arguments outside the window
+    transport.outer_iteration(phases, C, reps[0])
+    torch.cuda.synchronize()
+    named = re.compile(rf"(?:^|[\s:])({'|'.join(V3_SPLIT_KERNELS)})")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for s in reps[1:]:
+            transport.outer_iteration(phases, C, s)
+        torch.cuda.synchronize()
+    launches = []
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            found = named.search(e.name)
+            if found:
+                t_us = getattr(e, "device_time", None)
+                t_us = getattr(e, "cuda_time", 0.0) if t_us is None else t_us
+                launches.append((e.time_range.start, found.group(1), t_us))
+    launches.sort()
+    per = sum(expected_phase_launches(1, C.config).values())
+    seq = [k for _, k, _ in launches[:per]]
+    if len(launches) == per * V3_TIMING_REPS and all(
+            [k for _, k, _ in launches[i * per:(i + 1) * per]] == seq
+            for i in range(V3_TIMING_REPS)):
+        us = [float(np.mean([launches[i * per + p][2] for i in range(V3_TIMING_REPS)]))
+              for p in range(per)]
+        split = [(k, u) for k, u in zip(seq, us)]
+    else:
+        say(f"{name}: the profiler recorded {len(launches)} of {per * V3_TIMING_REPS} launches "
+            "or another order: the mean by kernel")
+        split = sorted({k: float(np.mean([u for _, kk, u in launches if kk == k]))
+                        for _, k, _ in launches}.items())
+    reps = [st.clone() for _ in range(V3_TIMING_REPS + 1)]
+    for s in reps:
+        kernels.prepare_phase_launches(C, s)
+    as_run = as_run_ms([(lambda s=s: transport.outer_iteration(phases, C, s)) for s in reps])
+    lanes = -(-C.n_lanes // kernels.PHASE_BLOCK)
+    grids = {"lanes": lanes, "first resolve": -(-C.config.event_lanes // kernels.PHASE_BLOCK),
+             "resolve": -(-C.config.event_lanes * kernels.RESOLVE_TILE // kernels.PHASE_BLOCK)}
+    ctrl = st.ctrl.clone()
+    floors = {}
+    for grid, blocks in grids.items():
+        calls = [(lambda: kernels.control_floor(ctrl, blocks))] * (V3_TIMING_REPS + 1)
+        floors[grid] = (blocks, kernel_ms(calls, "control_floor_kernel", 1)[0])
+    say(f"{name}: one iteration launch by launch (us, profiler): "
+        f"{[(k.replace('_kernel', ''), round(u, 3)) for k, u in split]}; sum "
+        f"{sum(u for _, u in split):.3f} us, as run {as_run * 1e3:.3f} us; the floor of a launch "
+        f"that reads the control words: "
+        f"{ {g: f'{b} blocks {ms * 1e3:.3f} us' for g, (b, ms) in floors.items()} }", card)
+    return {"split_us": split, "as_run_us": as_run * 1e3,
+            "floor_us": {g: ms * 1e3 for g, (_, ms) in floors.items()}}
+
+
 def check_v3_variant(kernels, card, scanner, name) -> dict:
     """One v3 configuration at full width: each launch group of the 5th
     iteration against its plain version on the state before it (phase 8's
@@ -4678,13 +4755,15 @@ def check_v3_variant(kernels, card, scanner, name) -> dict:
     before); ``compact`` on that iteration's event mask (bit-equal idx and
     ranks, at the budget and a starved one); the device times of
     ``tally_compacted`` and ``resolve_compacted`` beside their plain
-    versions and bounds."""
+    versions and bounds; before them the iteration split launch by launch
+    (:func:`v3_iteration_split`)."""
     from cbctmc_tpu_torch.engine import transport
     from cbctmc_tpu_torch.engine.transport import production_engine_config
 
     cfg = production_engine_config(**ENGINE_OVERRIDES, **V3_CHECKS[name])
     C, st = state_before_an_iteration(scanner, cfg)
     n = C.n_lanes
+    v3_iteration_split(kernels, card, name, C, st)
 
     def call(fn, s):
         fn(s)
@@ -4697,8 +4776,7 @@ def check_v3_variant(kernels, card, scanner, name) -> dict:
             rows["compact"] = check_compact(kernels, card, name, mask, cfg)
         if kernel in ("tally_compacted", "resolve_compacted") and kernel not in rows:
             names = (("tally_primary_kernel", "tally_doubles_kernel")
-                     if kernel == "tally_compacted" else
-                     ("resolve_branch_kernel", "resolve_scatter_kernel"))
+                     if kernel == "tally_compacted" else ("resolve_compacted_kernel",))
             ms, timer = _entries_ms(lambda s: engine(s), st, names)
             plain_calls = [(lambda s=s: plain(s)) for s in (st.clone() for _ in range(3))]
             p_ms = kernel_ms(plain_calls, None)[0]
@@ -4725,8 +4803,8 @@ def check_compact(kernels, card, name, mask, cfg) -> dict:
     after its first tally) at the event budget and at a tenth of it, and on
     a seeded mask of the Rayleigh sub-batch's shape: idx and ranks
     bit-equal to ``compact_indices`` on the card; its device time at the
-    event budget (two launches: the counts per block, the scan) beside the
-    plain version's, its bound and ``torch.cumsum`` of the mask."""
+    event budget (one launch: the single-pass scan) beside the plain
+    version's, its bound and ``torch.cumsum`` of the mask."""
     from cbctmc_tpu_torch.engine.transport import compact_indices
 
     n, c_e = mask.shape[0], cfg.event_lanes
@@ -4747,10 +4825,10 @@ def check_compact(kernels, card, name, mask, cfg) -> dict:
     p_ms = kernel_ms([(lambda: compact_indices(mask, c_e, n))] * 3, None)[0]
     cums = [(lambda: torch.cumsum(mask, 0, dtype=torch.int32))] * (V3_TIMING_REPS + 1)
     lib_ms = kernel_ms(cums, None)[0]
-    n_bytes = n + 4 * n + 4 * c_e + 2 * 4 * -(-n // 256)  # mask, ranks, slots, counts
+    n_bytes = n + 4 * n + 4 * c_e  # the mask read, the ranks and the slots written
     b_ms, b_by = bound(n_bytes, n)
-    say(f"{name}: compact of {n} lanes into {c_e} slots {ms:.5f} ms by the {timer} (two "
-        f"launches; plain {p_ms:.5f}, torch.cumsum of the mask {lib_ms:.5f}; bound "
+    say(f"{name}: compact of {n} lanes into {c_e} slots {ms:.5f} ms by the {timer} (one "
+        f"launch; plain {p_ms:.5f}, torch.cumsum of the mask {lib_ms:.5f}; bound "
         f"{b_ms:.6f} by {b_by}: {n_bytes} B)", card)
     return dict(max_abs_err=0.0, ms=ms, timer=timer, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)

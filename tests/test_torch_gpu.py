@@ -435,19 +435,92 @@ V3_CONFIGS = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,budget,share", [
     (1, 4, 1.0), (1_000, 300, 0.5), (70_001, 50_000, 0.5), (4_096, 8_192, 0.3),
-    (5_000, 100, 0.0), (65_536, 22_937, 0.3), (22_937, 3_822, 0.1)])
+    (5_000, 100, 0.0), (65_536, 22_937, 0.3), (22_937, 3_822, 0.1),
+    (1 << 20, 367_001, 0.35), (1 << 20, (1 << 20) + 77, 0.5), (1 << 20, 0, 0.5),
+    (65_536, 0, 0.3), (1 << 20, 5_000, 0.0)])
 def test_compact_kernel_on_card(cuda, m, budget, share):
-    """Over budget, under budget, a budget past the mask's length, an empty
-    mask, the production event and Rayleigh batches: idx and ranks equal to
-    the plain version's, two launches counted."""
-    rng = np.random.default_rng(m)
+    """Over budget, under budget, a budget past the mask's length, a budget
+    of 0, an empty mask, the production event and Rayleigh batches, 2^20
+    entries: idx and ranks equal to the plain version's, one launch counted
+    (the single-pass scan)."""
+    rng = np.random.default_rng(m + budget)
     mask = torch.from_numpy(rng.random(m) < share).to(cuda)
     kernels.reset_launch_counts()
     idx, order = kernels.compact(mask, budget, m)
     want_idx, want_order = transport.compact_indices(mask, budget, m)
     torch.cuda.synchronize()
     assert torch.equal(idx, want_idx) and torch.equal(order, want_order)
-    assert kernels.launch_counts["compact"] == 2
+    assert kernels.launch_counts["compact"] == 1
+
+
+@pytest.mark.gpu
+def test_compact_epochs_without_a_reset_on_card(cuda):
+    """Many launches on one scan scratch (the wrapper keeps one per grid),
+    then a CUDA graph of 16 compactions on the engine's control words,
+    replayed twice with new masks in between: every launch's idx and ranks
+    equal the plain version's, though the scratch is never reset."""
+    m, budget = 70_001, 22_937
+    rng = np.random.default_rng(7)
+    for k in range(40):
+        mask = torch.from_numpy(rng.random(m) < rng.random()).to(cuda)
+        idx, order = kernels.compact(mask, budget // (1 + k % 3), m)
+        want_idx, want_order = transport.compact_indices(mask, budget // (1 + k % 3), m)
+        assert torch.equal(idx, want_idx) and torch.equal(order, want_order), k
+    masks = torch.zeros((16, m), dtype=torch.uint8, device=cuda)
+    alive = torch.ones(m, dtype=torch.uint8, device=cuda)
+    idx = torch.zeros((16, budget), dtype=torch.int32, device=cuda)
+    order = torch.zeros((16, m), dtype=torch.int32, device=cuda)
+    ctrl = torch.zeros(32, dtype=torch.int32, device=cuda)
+    ctrl[transport.CTRL_RUN] = 1
+    scan = torch.zeros(kernels.scan_words(-(-m // kernels.COMPACT_BLOCK)), dtype=torch.int64,
+                       device=cuda)
+    kernels.load_kernels(("compact",))
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for k in range(16):
+            kernels.launch_compact(masks[k], alive, scan, budget // (1 + k % 3), m, idx[k],
+                                   order[k], ctrl, stream.cuda_stream)
+    for replay in range(2):
+        masks.copy_(torch.from_numpy(rng.random((16, m)) < rng.random((16, 1))))
+        graph.replay()
+        torch.cuda.synchronize()
+        for k in range(16):
+            b = budget // (1 + k % 3)
+            want_idx, want_order = transport.compact_indices(masks[k].bool(), b, m)
+            assert torch.equal(idx[k, :b], want_idx) and torch.equal(order[k], want_order), (
+                replay, k)
+    assert int(ctrl[kernels.PHASE_LAUNCH_WORDS["compact"]]) == 32
+    assert int(scan[0]) == 32 * (scan.shape[0] - 1)  # every launch took a ticket a block
+
+
+@pytest.mark.gpu
+def test_v3_graph_replays_without_a_reset_on_card(cuda):
+    """The engine's recorded graph of 16 v3 iterations replayed twice on one
+    state (its three scans' scratch never reset) against 16 plain
+    iterations after each replay: every compaction inside ranked alike, so
+    the lanes, the counters and the control words agree (the limits of the
+    phase kernels above)."""
+    config = V3_CONFIGS["v3"]
+    C, st, _ = state_in_mid_run(slab_engine(cuda, config, mono=False), config, 10_000_000, 11)
+    got, want = st.clone(), st.clone()
+    phases = transport._engine_phases()
+    kernels.prepare_phase_launches(C, got)
+    kernels.load_kernels(kernels.phase_entries(config))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(16):
+            transport.outer_iteration(phases, C, got)
+    for replay in range(2):
+        graph.replay()
+        for _ in range(16):
+            transport.outer_iteration(transport._plain_phases(), C, want)
+        torch.cuda.synchronize()
+        _assert_phase_matches(got, want, config.n_lanes, f"replay {replay}")
+        assert int(got.ctrl[transport.CTRL_ITERATION]) == 4 + 16 * (replay + 1)
+    B = got.launch_args.compact
+    for scan in (B.events_scan, B.doubles_scan):  # 2 sub-phases x 32 iterations
+        assert int(scan[0]) == 64 * (scan.shape[0] - 1)
 
 
 @pytest.mark.gpu
