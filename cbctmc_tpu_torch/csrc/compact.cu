@@ -8,9 +8,10 @@
 // among those slots into rayleigh_lanes, the tally's doubles into
 // doubles_lanes. No Pallas counterpart: on the TPU it is XLA's cumsum and
 // scatter. Plain version: transport.compact_indices. This kernel is the
-// events' compaction (and the wrapper kernels.compact); the other two are
-// the same scan (compact.cuh) inside the kernels that make their masks
-// (resolve_compacted.cu, tally_compacted.cu).
+// compaction as a launch of its own (the wrapper kernels.compact); the
+// engine runs all three as the same scan (compact.cuh) inside the kernels
+// that make their masks (tally_compacted.cu: the doubles and the events,
+// with this kernel's fill; resolve_compacted.cu: the Rayleigh slots).
 //
 // Contract: mask[i] = a[i] && (b == nullptr || b[i]) for i < m (bytes);
 // idx[0 .. budget) gets the indices of the first `budget` true entries in

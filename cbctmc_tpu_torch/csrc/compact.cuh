@@ -3,9 +3,9 @@
 // Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
 // NVIDIA technical report NVR-2016-002), as device functions: the
 // compaction of compact.cu, the Rayleigh slots' ranks inside
-// resolve_compacted.cu and the doubles' ranks inside tally_compacted.cu call
-// it where they make their mask, so no launch of its own sits between a
-// mask and its ranks.
+// resolve_compacted.cu and the doubles' and the events' ranks inside
+// tally_compacted.cu call it where they make their mask, so no launch of its
+// own sits between a mask and its ranks.
 //
 // A launch that scans owns a ScanScratch: one 64-bit ticket word and one
 // 64-bit flag word per block of the launch, zeroed once when allocated and

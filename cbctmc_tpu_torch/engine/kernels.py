@@ -23,28 +23,33 @@ combination), chosen at the launch from the configuration; the production
 configuration runs the instantiation with every option off. Their plain
 versions are the ``*_phase_reference`` functions of ``transport.py``.
 
-Three more run the engine's v3 body (``resolve_inplace=False``), whose
+Three more serve the engine's v3 body (``resolve_inplace=False``), whose
 sub-phase is the flights (``flight_resolve`` launches that fly only, on
 the pair table), then a compacted tally and a compacted resolve
-(:func:`launch_tally_compacted`, :func:`launch_resolve_compacted`), four
+(:func:`launch_tally_compacted`, :func:`launch_resolve_compacted`), two
 launches a sub-phase and the iteration's finish:
 
-- ``compact``: the order-preserving compaction of a mask into a batch of
-  static size and each entry's rank, one launch (:func:`compact`): a
-  single-pass scan by decoupled look-back (``csrc/compact.cuh``), whose
-  blocks take tickets and tag their flags with the launch's epoch, so its
-  scratch (:func:`scan_words` words) is zeroed once and never reset; the
-  other two kernels run the same scan where they make their masks;
-- ``tally_compacted``: the primary pass of the tally, which also ranks the
-  doubles, and the second pass over them with the overflow carry;
+- ``tally_compacted``: the tally and the events' compaction in one launch:
+  every lane's stash or parked record, the doubles ranked and tallied or
+  carried where they are ranked, and the pending events ranked into the
+  resolve's slots (``EngineState.events_idx``), both by the single-pass
+  scan by decoupled look-back of ``csrc/compact.cuh``, whose blocks take
+  tickets and tag their flags with the launch's epoch, so its scratch is
+  zeroed once and never reset;
 - ``resolve_compacted``: a tile of threads per event slot: the branch, the
-  Rayleigh slots' ranks, the Compton sampler (tabulated or GCOa angle, its
-  shell terms and trips spread over the tile), RITA, the write-back and the
-  lane's finish in one launch; its entry ``resolve_finish`` ends the
-  iteration (the dead lanes per block, the loop's control words).
+  Rayleigh slots' ranks (the same scan), the Compton sampler (tabulated or
+  GCOa angle, its shell terms and trips spread over the tile), RITA, the
+  write-back and the lane's finish in one launch; its entry
+  ``resolve_finish`` ends the iteration (the dead lanes per block, the
+  loop's control words);
+- ``compact``: the order-preserving compaction of a mask into a batch of
+  static size and each entry's rank, one launch (:func:`compact`, scratch
+  of :func:`scan_words` words), the scan as a kernel of its own; the
+  engine no longer launches it (the tally ranks the events).
 
-Their plain versions are ``transport.compact_indices``,
-``tally_compacted_phase_reference`` and ``resolve_compacted_reference``.
+Their plain versions are ``transport.tally_compacted_events_reference``
+(``tally_compacted_phase_reference``, then ``compact_indices`` of the
+events), ``resolve_compacted_reference`` and ``compact_indices``.
 Five more are single-purpose kernels, each still checked
 and timed on its own (``transport.run_projection_stepwise`` drives all but
 ``flight_prototype``):
@@ -139,12 +144,14 @@ KERNELS = ("gather_probe", "flight_prototype", "flight_step", "refill", "flight_
 PHASE_LAUNCH_WORDS = {"refill": 11, "flight_resolve": 12, "tally": 13, "compact": 14,
                       "tally_compacted": 15, "resolve_compacted": 16}
 #: the launch functions of the v3 kernels, by ``kernel:entry``
-V3_ENTRIES = ("compact", "tally_compacted", "tally_compacted:tally_doubles",
-              "resolve_compacted", "resolve_compacted:resolve_finish")
+V3_ENTRIES = ("tally_compacted", "resolve_compacted", "resolve_compacted:resolve_finish")
 #: lanes per block of the phase kernels (PHASE_THREADS in csrc/engine.cuh)
 PHASE_BLOCK = 256
 #: entries per block of ``compact`` (COMPACT_BLOCK in csrc/compact.cu)
 COMPACT_BLOCK = 1024
+#: lanes per block of ``tally_compacted`` (TALLY_BLOCK in csrc/tally_compacted.cu);
+#: its scan scratch holds the widest grid, PHASE_BLOCK lanes a block
+TALLY_BLOCK = 1024
 # -fmad=false: every product and sum rounds on its own, as the plain
 # versions' separate PyTorch operations do (no --use_fast_math: the physics
 # needs logf/expf/expm1f to full accuracy)
@@ -341,8 +348,7 @@ _SIGNATURES = {
     "demons_jacobian": [_P, _P, _I, _I, _I, _F, _P, _P],
     "compact": [_P, _P, _I, _P, _LL, _I, _I, _P, _P, _P, _P],
     "compact:control_floor": [_P, _I, _P],
-    "tally_compacted": [_LP, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
-    "tally_compacted:tally_doubles": [_LP, _I, _P, _P, _P, _P, _P, _P, _P],
+    "tally_compacted": [_LP, _I, _P, _P, _P, _P, _P, _LL, _I, _P, _I, _P, _P],
     "resolve_compacted": [_LP, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _LL, _I, _P, _P, _P,
                           _I, _I, _I, _I, ctypes.POINTER(_OptionsC), _I, _I, _P],
     "resolve_compacted:resolve_finish": [_LP, _I, _P, _P, _P],
@@ -1059,6 +1065,7 @@ class _PhaseArgs:
             _check(C.event_pair, "event_pair", torch.float32,
                    (6 * F.pair.shape[0],), dev)
             self.compact = CompactBuffers.allocate(n, cfg.event_lanes, dev)
+            event_slots(C, st)
         self.consts = C
         self.n = n
         self.lanes = _LanesC(*(getattr(st.lanes, k).data_ptr() for k in FlightLanes._fields))
@@ -1095,28 +1102,43 @@ def _check_scan(scan: torch.Tensor, words: int, what: str) -> None:
         raise ValueError(f"{what}: {tuple(scan.shape)} words, expected {words}")
 
 
-class CompactBuffers(NamedTuple):
-    """Scratch of the v3 kernels: the doubles byte per lane (written by the
-    tally's first pass, read by its second), the events' slots, and the
-    scan scratch of each of the three scans (the events' compaction, the
-    doubles' ranks in the tally, the Rayleigh slots' ranks in the resolve):
-    zeroed once here, never reset (the flags carry the launch's epoch)."""
+def tally_scan_words(n: int) -> int:
+    """Words (int64) of ``tally_compacted``'s scan scratch for ``n`` lanes:
+    one ticket and two rows of flags (the doubles', the events'), a flag a
+    block at the widest grid (a lane a thread, ``PHASE_BLOCK`` lanes a
+    block)."""
+    return 1 + 2 * _blocks(n)
 
-    doubles: torch.Tensor  # u8[n]: 0, 1 a double below the budget, 2 past it
-    doubles_scan: torch.Tensor  # i64[scan_words(blocks of n)]
-    events_scan: torch.Tensor  # i64[scan_words(compact's blocks of n)]
-    events_idx: torch.Tensor  # i32[c_e]
+
+class CompactBuffers(NamedTuple):
+    """Scan scratch of the v3 kernels, one a launch that scans: the tally's
+    (the doubles' and the events' ranks) and the resolve's (the Rayleigh
+    slots' ranks); zeroed once here, never reset (the flags carry the
+    launch's epoch). The events' slots, which the tally writes and the
+    resolve reads, are the engine state's (``EngineState.events_idx``)."""
+
+    tally_scan: torch.Tensor  # i64[tally_scan_words(n)]
     rayleigh_scan: torch.Tensor  # i64[scan_words(blocks of c_e * RESOLVE_TILE_MAX)]
 
     @classmethod
     def allocate(cls, n: int, c_e: int, device) -> "CompactBuffers":
-        u8, i32, i64 = torch.uint8, torch.int32, torch.int64
-        shapes = dict(doubles=(n, u8), doubles_scan=(scan_words(_blocks(n)), i64),
-                      events_scan=(scan_words(_blocks(n, COMPACT_BLOCK)), i64),
-                      events_idx=(c_e, i32),
-                      rayleigh_scan=(scan_words(_blocks(c_e * RESOLVE_TILE_MAX)), i64))
-        return cls(**{k: torch.zeros((m,), dtype=dt, device=device)
-                      for k, (m, dt) in shapes.items()})
+        words = dict(tally_scan=tally_scan_words(n),
+                     rayleigh_scan=scan_words(_blocks(c_e * RESOLVE_TILE_MAX)))
+        return cls(**{k: torch.zeros((m,), dtype=torch.int64, device=device)
+                      for k, m in words.items()})
+
+
+def event_slots(C, st) -> torch.Tensor:
+    """The v3 events' slots of ``st`` (i32[event_lanes]), allocated at the
+    first call on a state that has none: written by every
+    ``tally_compacted`` launch (and by its plain version on the card), read
+    by the ``resolve_compacted`` launch after it."""
+    c_e = C.config.event_lanes
+    if st.events_idx is None:
+        st.events_idx = torch.full((c_e,), C.n_lanes, dtype=torch.int32,
+                                   device=st.ctrl.device)
+    _check(st.events_idx, "events_idx", torch.int32, (c_e,), st.ctrl.device)
+    return st.events_idx
 
 
 def _phase_args(C, st) -> _PhaseArgs:
@@ -1233,32 +1255,32 @@ def control_floor(ctrl: torch.Tensor, blocks: int) -> None:
 
 
 def launch_tally_compacted(C, st) -> None:
-    """The v3 tally of a sub-phase on the engine state of a CUDA device, two
-    launches: ``tally_compacted`` (every lane's stash or parked record; the
-    doubles ranked by its scan, a byte per lane) and
-    ``tally_compacted:tally_doubles`` (the doubles below ``doubles_lanes``,
-    the overflow carry, the parked flags cleared). Plain version:
-    ``transport.tally_compacted_phase_reference``."""
+    """The v3 tally of a sub-phase on the engine state of a CUDA device, one
+    ``tally_compacted`` launch: every lane's stash or parked record, the
+    doubles ranked by its scan and settled where they are ranked (below
+    ``doubles_lanes`` tallied, past it carried), the parked flags cleared,
+    and the pending events ranked by a second scan into ``st.events_idx``
+    (``event_lanes`` slots, ``n`` in the empty ones) for the resolve after
+    it. Plain version: ``transport.tally_compacted_events_reference``."""
     a = _phase_args(C, st)
-    B, n, stream = a.compact, a.n, _stream(st.ctrl)
-    common = (ctypes.byref(a.lanes), n, st.image.data_ptr(), st.ctrl.data_ptr(),
-              st.counters.data_ptr(), st.energy.data_ptr(), B.doubles.data_ptr())
-    _check_scan(B.doubles_scan, scan_words(_blocks(n)), "doubles scan")
-    _launch("tally_compacted", *common, B.doubles_scan.data_ptr(), B.doubles_scan.shape[0],
-            C.config.doubles_lanes, a.params_ptr, stream)
-    _launch("tally_compacted:tally_doubles", *common, a.params_ptr, stream)
+    B, n, cfg = a.compact, a.n, C.config
+    _check_scan(B.tally_scan, tally_scan_words(n), "tally scan")
+    events = event_slots(C, st)
+    _launch("tally_compacted", ctypes.byref(a.lanes), n, st.image.data_ptr(), st.ctrl.data_ptr(),
+            st.counters.data_ptr(), st.energy.data_ptr(), B.tally_scan.data_ptr(),
+            B.tally_scan.shape[0], cfg.doubles_lanes, events.data_ptr(), cfg.event_lanes,
+            a.params_ptr, _stream(st.ctrl))
 
 
 def launch_resolve_compacted(C, st, r: int, ends_iteration: bool = False) -> None:
     """The v3 resolve of sub-phase ``r`` on the engine state of a CUDA
-    device: ``compact`` of the pending events (one launch), then
-    ``resolve_compacted`` (one launch: the branch, the Rayleigh slots'
-    ranks, the samplers, the write-back, the lanes' finish) and,
-    ``ends_iteration``, ``resolve_compacted:resolve_finish``. Plain version:
-    ``transport.resolve_compacted_reference``."""
+    device, on the events' slots the tally before it wrote
+    (``st.events_idx``): ``resolve_compacted`` (one launch: the branch, the
+    Rayleigh slots' ranks, the samplers, the write-back, the lanes' finish)
+    and, ``ends_iteration``, ``resolve_compacted:resolve_finish``. Plain
+    version: ``transport.resolve_compacted_reference``."""
     a = _phase_args(C, st)
     B, n, stream, cfg = a.compact, a.n, _stream(st.ctrl), C.config
-    L = st.lanes
     c_e, c_r = cfg.event_lanes, cfg.rayleigh_lanes
     if c_e < 0 or c_r < 0:
         raise ValueError(f"resolve_compacted: budgets {c_e} / {c_r} must be >= 0")
@@ -1266,9 +1288,7 @@ def launch_resolve_compacted(C, st, r: int, ends_iteration: bool = False) -> Non
     base = C.rows.resolve[r]
     angle, shell, rita, azimuth = (base + k for k in C.rows.v3_offsets)
     n_rows = C.event_pair.numel() // 6
-    launch_compact(L.pending.view(torch.uint8), L.alive.view(torch.uint8), B.events_scan, c_e,
-                   n, B.events_idx, None, st.ctrl, stream)
-    _launch("resolve_compacted", ctypes.byref(a.lanes), B.events_idx.data_ptr(), c_e,
+    _launch("resolve_compacted", ctypes.byref(a.lanes), event_slots(C, st).data_ptr(), c_e,
             C.event_pair.data_ptr(), n_rows, C.icdf.data_ptr(), C.shells.data_ptr(),
             C.shells.numel(), C.rita.data_ptr(), C.rita.shape[1], B.rayleigh_scan.data_ptr(),
             B.rayleigh_scan.shape[0], c_r, st.ctrl.data_ptr(), st.counters.data_ptr(),

@@ -53,10 +53,15 @@ record, then the doubles in a batch of ``doubles_lanes``, the overflow
 carried) and a compacted resolve (the pending events in a batch of
 ``event_lanes``, the Rayleigh ones in ``rayleigh_lanes``; events past a
 budget stay pending), with no refill between sub-phases; the last resolve
-ends the iteration. Its kernels are ``compact``, ``tally_compacted`` and
-``resolve_compacted`` (``csrc/``), its plain versions
-:func:`compact_indices`, :func:`tally_compacted_phase_reference` and
-:func:`resolve_compacted_reference`.
+ends the iteration. On the card a sub-phase is the flights and two launches:
+``tally_compacted`` (the tally, its doubles settled where they are ranked,
+and the pending events ranked into the resolve's slots) and
+``resolve_compacted`` (``csrc/``): 8 launches an iteration at two
+sub-phases. The plain versions are :func:`tally_compacted_phase_reference`
+and :func:`resolve_compacted_reference`, which compacts the events itself
+(:func:`compact_indices`, the plain version of the ``compact`` kernel); the
+card's tally launch is held against
+:func:`tally_compacted_events_reference`.
 
 Detector images accumulate energy in eV (float32) per (primary, Compton,
 Rayleigh, multi-scatter); the caller normalises to eV/cm^2/history.
@@ -837,6 +842,9 @@ class EngineState:
     key: Tuple[int, int] = (0, 0)  # the Philox key, as in ctrl[CTRL_KEY0:]
     voxel_dose: torch.Tensor | None = None  # f32[n_voxels + 1]
     material_dose: torch.Tensor | None = None  # f32[n_mats + 1, 2]
+    # v3 on the card: the events' slots (i32[event_lanes]) that a sub-phase's
+    # tally writes and its resolve reads (kernels.event_slots allocates them)
+    events_idx: torch.Tensor | None = None
     # the plain versions' block of random words and the iteration it is of
     bits: torch.Tensor | None = dataclasses.field(default=None, repr=False, compare=False)
     bits_iteration: int = -1
@@ -930,6 +938,7 @@ class EngineState:
             energy=self.energy.clone(), key=self.key,
             voxel_dose=None if self.voxel_dose is None else self.voxel_dose.clone(),
             material_dose=None if self.material_dose is None else self.material_dose.clone(),
+            events_idx=None if self.events_idx is None else self.events_idx.clone(),
         )
 
     def carry(self) -> LaneState:
@@ -1241,6 +1250,24 @@ def tally_compacted_phase_reference(C: EngineConsts, st: EngineState) -> None:
                   + second_val.sum(dtype=torch.float64))
 
 
+def tally_compacted_events_reference(C: EngineConsts, st: EngineState) -> None:
+    """Plain version of the card's ``tally_compacted`` launch: the tally
+    (:func:`tally_compacted_phase_reference`), then the pending events
+    compacted into the state's slots (``st.events_idx``) as the resolve
+    after it compacts them (:func:`compact_indices` of ``pending & alive``
+    into ``event_lanes`` slots, ``n`` in the empty ones); the tally changes
+    neither mask."""
+    if not _running(st):
+        return
+    tally_compacted_phase_reference(C, st)
+    idx, _ = compact_indices(st.lanes.pending & st.lanes.alive, C.config.event_lanes,
+                             C.n_lanes)
+    if st.events_idx is None:
+        st.events_idx = idx
+    else:
+        st.events_idx.copy_(idx)
+
+
 def resolve_compacted_reference(C: EngineConsts, st: EngineState, bits: torch.Tensor,
                                 r: int, ends_iteration: bool = False) -> None:
     """Plain version of the ``resolve_compacted`` kernel, the v3 resolve of
@@ -1426,8 +1453,9 @@ def flights_phase(C: EngineConsts, st: EngineState, r: int) -> None:
 
 
 def tally_compacted_phase(C: EngineConsts, st: EngineState) -> None:
-    """The v3 tally of a sub-phase: ``tally_compacted`` on the card (its two
-    passes; the first ranks the doubles)."""
+    """The v3 tally of a sub-phase: ``tally_compacted`` on the card (one
+    launch, which also ranks the pending events into the resolve's slots);
+    on the CPU its plain version, the JAX engine's tally op for op."""
     if st.ctrl.device.type == "cpu":
         tally_compacted_phase_reference(C, st)
     else:
@@ -1436,10 +1464,11 @@ def tally_compacted_phase(C: EngineConsts, st: EngineState) -> None:
 
 def resolve_compacted_phase(C: EngineConsts, st: EngineState, r: int,
                             ends_iteration: bool = False) -> None:
-    """The v3 resolve of sub-phase ``r``: ``compact`` of the events, then
-    ``resolve_compacted`` (the branch, the Rayleigh slots' ranks, the
-    samplers and the write-back in one launch) and, ``ends_iteration``, its
-    finish."""
+    """The v3 resolve of sub-phase ``r``: ``resolve_compacted`` on the
+    events' slots the tally ranked (the branch, the Rayleigh slots' ranks,
+    the samplers and the write-back in one launch) and, ``ends_iteration``,
+    its finish; on the CPU its plain version, which compacts the events
+    itself."""
     if st.ctrl.device.type == "cpu":
         resolve_compacted_reference(C, st, iteration_bits(C, st), r, ends_iteration)
     else:

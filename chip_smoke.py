@@ -221,9 +221,11 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     each launch's device time and the floor of a launch that only reads the
     control words at the iteration's grids, each launch group of the 5th
     iteration
-    (the refill, per sub-phase the flights, the compacted tally, the
-    compacted resolve) against its plain version on the state before it
-    (phase 8's limits), ``compact`` on that iteration's events bit-equal at
+    (the refill, per sub-phase the flights, the compacted tally with the
+    events' ranks, the compacted resolve) against its plain version on the
+    state before it (phase 8's limits; the events' slots bit-equal), the
+    same on the slab at 4 flights a sub-phase with more doubles than the
+    32 doubles' slots, ``compact`` on that iteration's events bit-equal at
     the event budget and at a tenth of it, the device times of the three v3
     kernels with plain times, bounds and ``torch.cumsum`` beside
     ``compact``; on the slab, the whole v3 engine from one key as the
@@ -667,14 +669,14 @@ def expected_phase_launches(iterations: int, cfg) -> dict:
     sub-phase but the last, one flight_resolve per flight (the last of an
     iteration carries the tally, so ``tally`` itself is not launched). In
     v3 (``resolve_inplace=False``): one refill, one flight-only
-    flight_resolve per flight, and per sub-phase two tally_compacted
-    launches (the primary pass, which ranks the doubles, and the doubles'
-    pass), one compact (the events) and one resolve_compacted, plus the
-    iteration's finish: 12 an iteration at two sub-phases."""
+    flight_resolve per flight, and per sub-phase one tally_compacted (the
+    doubles ranked and settled and the events ranked in the same launch, so
+    no compact) and one resolve_compacted, plus the iteration's finish: 8 an
+    iteration at two sub-phases."""
     R = max(1, cfg.n_resolves)
     if not cfg.resolve_inplace:
         return {"refill": iterations, "flight_resolve": iterations * cfg.max_virtual_trips,
-                "tally": 0, "compact": iterations * R, "tally_compacted": iterations * R * 2,
+                "tally": 0, "compact": 0, "tally_compacted": iterations * R,
                 "resolve_compacted": iterations * (R + 1)}
     return {"refill": iterations * R, "flight_resolve": iterations * cfg.max_virtual_trips,
             "tally": 0, "compact": 0, "tally_compacted": 0, "resolve_compacted": 0}
@@ -889,16 +891,20 @@ def state_before_an_iteration(scanner, config=None):
     """``(consts, state)`` of an engine call on the main path's scene (under
     ``config``, the scanner's unless given) after CAPTURE_ITERATION outer
     iterations (through the phase kernels), ready to run the next one."""
-    import dataclasses
+    return captured_state(projection_args(scanner, config))
 
+
+def captured_state(args):
+    """``(consts, state)`` of ``run_projection(**args)`` after
+    CAPTURE_ITERATION outer iterations, ready to run the next one."""
     from cbctmc_tpu_torch.engine import transport
     from cbctmc_tpu_torch.engine.rng import make_key
 
-    cfg = dataclasses.replace(config or scanner.engine_config,
-                              max_outer_iterations=CAPTURE_ITERATION)
-    args = projection_args(scanner, cfg)
+    args = {**args, "config": dataclasses.replace(args["config"],
+                                                  max_outer_iterations=CAPTURE_ITERATION)}
     ws = transport.EngineWorkspace(args["tables"], args["woodcock"], args["volume"],
-                                   args["n_pixels_x"], args["n_pixels_z"], cfg, DEVICE)
+                                   args["n_pixels_x"], args["n_pixels_z"], args["config"],
+                                   DEVICE)
     transport.run_projection(n_histories=CAPTURE_HISTORIES, key=make_key(0, 0, 0),
                              workspace=ws, iterations_per_read=1, **args)
     st = ws.state.clone()
@@ -1277,9 +1283,12 @@ def phase_bound(kernel, before, after, C) -> tuple:
     return n_bytes, n_ops, what
 
 
-def compare_phase(card, label, call, engine, plain, st, n):
+def compare_phase(card, label, call, engine, plain, st, n, exact=False):
     """Run one phase through the kernel and through the plain version on
-    clones of ``st``; returns ``(plain outcome, max float diff)``."""
+    clones of ``st``; returns ``(plain outcome, max float diff)``. ``exact``
+    (the v3 tally): every lane field, the events' slots, the counters and
+    the control words bit-equal; the image and the tallied energy within
+    the limits of the others."""
     got, want = st.clone(), st.clone()
     for dose in (got.voxel_dose, got.material_dose, want.voxel_dose, want.material_dose):
         if dose is not None:  # tally_dose: the two sides' sums of this launch's deposits
@@ -1293,6 +1302,9 @@ def compare_phase(card, label, call, engine, plain, st, n):
     words_equal = (torch.equal(got.ctrl[host_words], want.ctrl[host_words])
                    and torch.equal(got.block_dead, want.block_dead)
                    and torch.equal(got.counters, want.counters))
+    # v3: the events' slots the tally ranks for the resolve, bit-equal
+    slots = (None if got.events_idx is None or want.events_idx is None
+             else int((got.events_idx != want.events_idx).sum()))
     sum_k, sum_p = float(got.image.double().sum()), float(want.image.double().sum())
     image_rel = abs(sum_k - sum_p) / max(abs(sum_p), 1e-30)
     e_k, e_p = float(got.energy), float(want.energy)
@@ -1300,12 +1312,18 @@ def compare_phase(card, label, call, engine, plain, st, n):
         f"{n_off} more beyond {PHASE_FLOAT_TOL:g} * (1 + |value|); max float diff "
         f"{err:.3e} ({err_field or 'none'}); float fields not bit-equal: "
         f"{touched or 'none'}; budget, live, iteration and run words, per-block dead counts "
-        f"and counters {'equal' if words_equal else 'DIFFER'}; image sum rel diff "
-        f"{image_rel:.3e}", card)
+        f"and counters {'equal' if words_equal else 'DIFFER'}; "
+        + ("" if slots is None else f"{slots} event slots differ; ")
+        + f"image sum rel diff {image_rel:.3e}", card)
     if n_bad + n_off > PHASE_LANE_SHARE * n:
         raise AssertionError(f"{label}: {n_bad + n_off} lanes part from the plain version")
     if not words_equal and n_bad == 0:
         raise AssertionError(f"{label}: control words or counters differ")
+    if slots and n_bad == 0:
+        raise AssertionError(f"{label}: {slots} event slots differ")
+    if exact and (n_bad or touched or slots or not words_equal):
+        raise AssertionError(f"{label}: the lane state, the event slots, the counters or the "
+                             "control words are not bit-equal")
     if image_rel > PHASE_IMAGE_TOL or abs(e_k - e_p) > PHASE_IMAGE_TOL * max(e_p, 1.0):
         raise AssertionError(f"{label}: image sums differ by {image_rel:.3e}")
     if want.voxel_dose is not None:  # tally_dose: both tallies against the plain sums
@@ -4593,8 +4611,9 @@ V3_TIMING_REPS = 10
 def v3_steps(C):
     """The launch groups of a v3 outer iteration in the order they run:
     ``(kernel, label, engine call(st), plain call(st))``: the refill, then
-    per sub-phase its flights, the compacted tally and the compacted
-    resolve (the last one ends the iteration)."""
+    per sub-phase its flights, the compacted tally (which ranks the events
+    into ``st.events_idx``) and the compacted resolve (the last one ends
+    the iteration)."""
     from cbctmc_tpu_torch.engine import transport as T
 
     def bits(st):
@@ -4610,7 +4629,7 @@ def v3_steps(C):
             ("flight_resolve", f"flights {r}", lambda st, r=r: T.flights_phase(C, st, r),
              lambda st, r=r: T.flights_phase_reference(C, st, bits(st), r)),
             ("tally_compacted", f"tally_compacted {r}", lambda st: T.tally_compacted_phase(C, st),
-             lambda st: T.tally_compacted_phase_reference(C, st)),
+             lambda st: T.tally_compacted_events_reference(C, st)),
             ("resolve_compacted", f"resolve_compacted {r}" + " + finish" * last,
              lambda st, r=r, last=last: T.resolve_compacted_phase(C, st, r, last),
              lambda st, r=r, last=last: T.resolve_compacted_reference(C, st, bits(st), r, last)),
@@ -4620,29 +4639,29 @@ def v3_steps(C):
 
 def v3_bound(kernel, before, after, C) -> tuple:
     """The least bytes and operations of one sub-phase's ``tally_compacted``
-    (its two passes) or ``resolve_compacted`` (the branch and the scatter)
-    on this state: each input the function needs read once and each output
-    written once; the kernels' own scratch (the doubles byte, the slot
-    arrays, the per-block counts, the Rayleigh ranks, the per-block copies
-    of the shell table) is left out, and the compactions between them are
-    ``compact``'s. Data-dependent parts are counted from the outcome."""
-    from cbctmc_tpu_torch.engine import transport
-
+    (the tally and the events' ranks) or ``resolve_compacted`` (the branch
+    and the scatter) on this state: each input the function needs read once
+    and each output written once; the kernels' own scratch (the scan flags,
+    the Rayleigh ranks, the per-block copies of the shell table) is left
+    out. Data-dependent parts are counted from the outcome."""
     L0, L1 = before.lanes, after.lanes
-    n, npix = C.n_lanes, C.n_pixels
+    n = C.n_lanes
     d = (after.counters - before.counters).tolist()
     if kernel == "tally_compacted":
         parked = int(L0.escaped.sum())
         stashed = int(L0.stash_valid.sum())
         kept = int(L1.stash_valid.sum())
-        n_bytes = (2 * n + parked * 32 + stashed * 8  # the flags, the records, the stashes
+        cleared = parked + stashed - kept  # flags cleared
+        c_e = C.config.event_lanes
+        n_bytes = (4 * n + parked * 32 + stashed * 8  # 4 flags, the records, the stashes
                    + d[0] * 8  # a record: 4 B of image read and written
-                   + 2 * n + kept * 8)  # the flags and the carried stashes written
+                   + cleared + kept * 8  # the flags cleared and the carried stashes
+                   + 4 * c_e)  # the events' slots
         n_ops = parked * 40 + d[0]  # a parked record's pixel, a stash's add
-        _, hit = transport._tally_pixel(L0.px, L0.py, L0.pz, L0.dx, L0.dy, L0.dz, C.detector,
-                                        C.n_pixels_x, C.n_pixels_z)
-        doubles = int((L0.stash_valid & (L0.stash_idx < 4 * npix) & L0.escaped & hit).sum())
-        what = f"{d[0]} records tallied, {doubles} doubles, {kept} carried"
+        doubles = v3_doubles(C, before)
+        events = int((L0.pending & L0.alive).sum())
+        what = (f"{d[0]} records tallied, {doubles} doubles ({C.config.doubles_lanes} slots), "
+                f"{kept} carried, {events} events into {c_e} slots")
         return n_bytes, n_ops, what
     c_e = C.config.event_lanes
     events = min(int((L0.pending & L0.alive).sum()), c_e)
@@ -4663,6 +4682,48 @@ def v3_bound(kernel, before, after, C) -> tuple:
     return n_bytes, n_ops, what
 
 
+def v3_doubles(C, st) -> int:
+    """Lanes of ``st`` that hold a stashed and a parked record that both
+    hit the detector: the doubles its next tally ranks."""
+    from cbctmc_tpu_torch.engine import transport
+
+    L, npix = st.lanes, C.n_pixels
+    _, hit = transport._tally_pixel(L.px, L.py, L.pz, L.dx, L.dy, L.dz, C.detector,
+                                    C.n_pixels_x, C.n_pixels_z)
+    return int((L.stash_valid & (L.stash_idx < 4 * npix) & L.escaped & hit).sum())
+
+
+def check_v3_starved_slab(card, slab):
+    """Each launch group of a v3 iteration against its plain version (the
+    tally bit-equal in its lane state, slots and counters) on the slab at 4
+    flights a sub-phase with V3_STARVED's 32 doubles' slots, on the state
+    before the 5th iteration: its doubles must exceed the doubles' budget
+    and its events the event budget, so the tally's overflow carry and the
+    events past their budget both run on the card."""
+    from cbctmc_tpu_torch.engine import transport
+
+    scene, cfg = slab
+    cfg = dataclasses.replace(cfg, **V3_VARIANTS["v3"],
+                              doubles_fraction=V3_STARVED["doubles_fraction"])
+    tables, woodcock, volume, src, det = scene
+    args = dict(tables=tables, woodcock=woodcock, volume=volume, source=src, detector=det,
+                n_pixels_x=32, n_pixels_z=32, config=cfg, device=DEVICE)
+    C, st = captured_state(args)
+    most = events = 0
+    for kernel, label, engine, plain in v3_steps(C):
+        if kernel == "tally_compacted":
+            most = max(most, v3_doubles(C, st))
+            events = max(events, int((st.lanes.pending & st.lanes.alive).sum()))
+        st, _ = compare_phase(card, f"v3 starved slab: {label}", lambda fn, s: fn(s), engine,
+                              plain, st, C.n_lanes, exact=kernel == "tally_compacted")
+    say(f"v3 starved slab: at most {most} doubles before a tally ({cfg.doubles_lanes} slots) "
+        f"and {events} events ({cfg.event_lanes} slots)", card)
+    if most <= cfg.doubles_lanes or events <= cfg.event_lanes:
+        raise AssertionError("v3 starved slab: no tally had more doubles or events than slots")
+    if int(st.ctrl[transport.CTRL_ITERATION]) != CAPTURE_ITERATION + 1:
+        raise AssertionError("v3 starved slab: the last resolve did not end the iteration")
+
+
 def _entries_ms(make_call, st, names) -> tuple:
     """Device time per call of the named kernels' launches (fresh clones of
     ``st`` for each), summed; and the timer that gave each."""
@@ -4675,9 +4736,8 @@ def _entries_ms(make_call, st, names) -> tuple:
     return total, "+".join(sorted(timers))
 
 
-V3_SPLIT_KERNELS = ("refill_kernel", "flight_resolve_kernel", "tally_primary_kernel",
-                    "tally_doubles_kernel", "compact_kernel", "resolve_compacted_kernel",
-                    "resolve_finish_kernel")
+V3_SPLIT_KERNELS = ("refill_kernel", "flight_resolve_kernel", "tally_compacted_kernel",
+                    "resolve_compacted_kernel", "resolve_finish_kernel")
 
 
 def v3_iteration_split(kernels, card, name, C, st) -> dict:
@@ -4687,9 +4747,8 @@ def v3_iteration_split(kernels, card, name, C, st) -> dict:
     launches, the mean by kernel instead), the sum beside the iteration's
     device time as run (CUDA events, host gaps included); then the floor of
     a launch that only reads the control words, at the grid of the lanes
-    (refill, tally, compact, finish), of the first design's resolve (a
-    thread a slot) and of this one's (a tile of RESOLVE_TILE threads a
-    slot)."""
+    (refill, finish), of the tally (TALLY_BLOCK lanes a block) and of the
+    resolve (a tile of RESOLVE_TILE threads a slot)."""
     from torch.profiler import ProfilerActivity, profile
 
     from cbctmc_tpu_torch.engine import transport
@@ -4732,7 +4791,7 @@ def v3_iteration_split(kernels, card, name, C, st) -> dict:
         kernels.prepare_phase_launches(C, s)
     as_run = as_run_ms([(lambda s=s: transport.outer_iteration(phases, C, s)) for s in reps])
     lanes = -(-C.n_lanes // kernels.PHASE_BLOCK)
-    grids = {"lanes": lanes, "first resolve": -(-C.config.event_lanes // kernels.PHASE_BLOCK),
+    grids = {"lanes": lanes, "tally": -(-C.n_lanes // kernels.TALLY_BLOCK),
              "resolve": -(-C.config.event_lanes * kernels.RESOLVE_TILE // kernels.PHASE_BLOCK)}
     ctrl = st.ctrl.clone()
     floors = {}
@@ -4770,13 +4829,13 @@ def check_v3_variant(kernels, card, scanner, name) -> dict:
 
     rows = {}
     for kernel, label, engine, plain in v3_steps(C):
-        want, err = compare_phase(card, f"{name}: {label}", call, engine, plain, st, n)
+        want, err = compare_phase(card, f"{name}: {label}", call, engine, plain, st, n,
+                                  exact=kernel == "tally_compacted")
         if kernel == "tally_compacted" and kernel not in rows:
             mask = want.lanes.pending & want.lanes.alive  # the events the resolve compacts
             rows["compact"] = check_compact(kernels, card, name, mask, cfg)
         if kernel in ("tally_compacted", "resolve_compacted") and kernel not in rows:
-            names = (("tally_primary_kernel", "tally_doubles_kernel")
-                     if kernel == "tally_compacted" else ("resolve_compacted_kernel",))
+            names = (f"{kernel}_kernel",)
             ms, timer = _entries_ms(lambda s: engine(s), st, names)
             plain_calls = [(lambda s=s: plain(s)) for s in (st.clone() for _ in range(3))]
             p_ms = kernel_ms(plain_calls, None)[0]
@@ -4790,8 +4849,11 @@ def check_v3_variant(kernels, card, scanner, name) -> dict:
             rows[kernel]["max_abs_err"] = max(rows[kernel]["max_abs_err"], err)
         if label.endswith("finish"):
             ms, timer = _entries_ms(lambda s: engine(s), st, ("resolve_finish_kernel",))
-            say(f"{name}: the iteration's finish (resolve_finish) {ms:.5f} ms by the {timer}",
-                card)
+            # it reads two flags a lane, writes a count a block and settles the words
+            blocks = st.block_dead.numel()
+            b_ms, b_by = bound(2 * n + 4 * blocks + 4 * 16, 0)
+            say(f"{name}: the iteration's finish (resolve_finish) {ms:.5f} ms by the {timer} "
+                f"(bound {b_ms:.6f} by {b_by}: {2 * n + 4 * blocks + 4 * 16} B)", card)
         st = want
     if int(st.ctrl[transport.CTRL_ITERATION]) != CAPTURE_ITERATION + 1:
         raise AssertionError(f"{name}: the last resolve did not end the iteration")
@@ -4953,19 +5015,20 @@ def v3_rates(kernels, card, scanner) -> tuple:
 def v3_path(kernels, card, scanner, slab) -> dict:
     """Phase 19: the engine's v3 body at full width and on the slab
     (:func:`check_v3_variant` for both configurations and v3 with the dose
-    tally, :func:`whole_engine_v3`,
+    tally, :func:`check_v3_starved_slab`, :func:`whole_engine_v3`,
     :func:`slab_v3`, :func:`v3_rates`). The main path of v3 is
     ``run_projection`` of V3_HISTORIES on the main path's scene under both
     configurations (:func:`v3_rates`, the launch counters zeroed just before
-    each run and read just after): the three v3 kernels must have run there;
-    the launches that hold them against their plain versions are not
-    counted."""
-    import dataclasses
-
+    each run and read just after): ``tally_compacted`` and
+    ``resolve_compacted`` must have run there, and ``compact`` not (the
+    tally ranks the events); the launches that hold them against their
+    plain versions are not counted."""
     t0 = time.monotonic()
     walls = {}
     rows = {name: check_v3_variant(kernels, card, scanner, name) for name in V3_CHECKS}
     walls["full width"] = time.monotonic() - t0
+    check_v3_starved_slab(card, slab)
+    walls["starved slab"] = time.monotonic() - t0 - sum(walls.values())
     scene, cfg = slab
     for name, over in V3_VARIANTS.items():
         whole_engine_v3(card, scene, dataclasses.replace(cfg, **over), name)
@@ -4975,7 +5038,7 @@ def v3_path(kernels, card, scanner, slab) -> dict:
     rates, v3_launches = v3_rates(kernels, card, scanner)
     walls["rates"] = time.monotonic() - t0 - sum(walls.values())
     launches = {k: v3_launches[k] for k in ("compact", "tally_compacted", "resolve_compacted")}
-    if not all(launches.values()):
+    if launches["compact"] or not (launches["tally_compacted"] and launches["resolve_compacted"]):
         raise AssertionError(f"phase 19: launches {launches}")
     wall = time.monotonic() - t0
     say(f"phase 19: {wall:.1f} s ({ {k: round(v, 1) for k, v in walls.items()} } s); "

@@ -38,10 +38,13 @@ change, parent), a process of its own imports that checkout's
   and the v3 configurations (``v3_rates``);
 - with ``--variants`` (the working tree's process only): the v3 resolve
   rebuilt as each of ``RESOLVE_VARIANTS`` (text edits: another tile size,
-  RITA's search by one thread), at each resolve of the iteration held
-  equal to the shipped kernel's outcome on the same state (every lane
-  field, the counters and the control words) and timed on it, with what
-  ``ptxas -v`` says of it.
+  RITA's search by one thread) and the v3 tally as each of
+  ``TALLY_VARIANTS`` (other grids: 1 and 2 lanes a thread), at
+  each launch of its kernel in the iteration held equal to the shipped
+  kernel's outcome on the same state (every lane field, the events' slots,
+  the counters and the control words; the image within 1e-6 of its largest
+  pixel, its atomics' order changing) and timed on it, with what ``ptxas
+  -v`` says of it.
 
 Every line names the card and its power limit; the last line of the output
 is one JSON object with every checkout's results.
@@ -62,6 +65,11 @@ RESOLVE_VARIANTS = {
     "resolve_tile8": [("#define RESOLVE_TILE 4", "#define RESOLVE_TILE 8")],
     "resolve_rita_one_thread": [("costh = rayleigh_rita_costh_tile(tile, energy,",
                                  "costh = rayleigh_rita_costh(energy,")],
+}
+#: the v3 tally's variants (text edits of tally_compacted.cu): other grids,
+#: 1 and 2 lanes a thread (256 and 512 a block) instead of 4 (1,024)
+TALLY_VARIANTS = {
+    f"tally_items{k}": [("#define TALLY_ITEMS 4", f"#define TALLY_ITEMS {k}")] for k in (1, 2)
 }
 V3_KERNELS = ("compact", "tally_compacted", "resolve_compacted")
 
@@ -93,11 +101,23 @@ def fresh(kernels, C, st, k):
     return reps
 
 
-def v3_times(cs, kernels, transport, card, tag, C, st, tiles) -> dict:
+def same_outcome(got, want) -> bool:
+    """Every lane field, the events' slots, the counters and the control
+    words equal; the image within 1e-6 of its largest pixel."""
+    slots = got.events_idx is None or torch.equal(got.events_idx, want.events_idx)
+    scale = max(float(want.image.abs().max()), 1.0)
+    return (all(torch.equal(a, b) for a, b in zip(got.lanes, want.lanes)) and slots
+            and torch.equal(got.counters, want.counters)
+            and torch.equal(got.ctrl[:11], want.ctrl[:11])
+            and float((got.image - want.image).abs().max()) <= 1e-6 * scale)
+
+
+def v3_times(cs, kernels, transport, card, tag, C, st, variants) -> dict:
     """One v3 configuration's launch groups, its events' compact and its
     whole iteration on the state ``st`` before the 5th iteration; at each
-    resolve, each tile variant of ``tiles`` (``{name: launch function}``)
-    held equal to the shipped kernel's outcome and timed on the same state."""
+    launch group of a kernel that ``variants`` (``{name: (kernel, launch
+    function)}``) rebuilds, each such variant held equal to the shipped
+    kernel's outcome and timed on the same state."""
     k = cs.V3_TIMING_REPS + 1
     out = {}
     for kernel, label, engine, plain in cs.v3_steps(C):
@@ -114,17 +134,16 @@ def v3_times(cs, kernels, transport, card, tag, C, st, tiles) -> dict:
             out["compact"] = ms * 1e3
             cs.say(f"{tag}: compact of the {int(mask.sum())} events of {n} lanes into {c_e} "
                    f"slots {ms * 1e3:.3f} us ({timer})", card)
-        if kernel == "resolve_compacted":
+        mine = {vname: fn for vname, (kern, fn) in variants.items() if kern == kernel}
+        if mine:
             want = st.clone()
             engine(want)
-            for vname, fn in tiles.items():
+            for vname, fn in mine.items():
                 got = st.clone()
-                with kernel_variants.swapped(kernels, "resolve_compacted", fn):
+                with kernel_variants.swapped(kernels, kernel, fn):
                     engine(got)
                     torch.cuda.synchronize()
-                    if not (all(torch.equal(a, b) for a, b in zip(got.lanes, want.lanes))
-                            and torch.equal(got.counters, want.counters)
-                            and torch.equal(got.ctrl[:11], want.ctrl[:11])):
+                    if not same_outcome(got, want):
                         raise AssertionError(f"{tag}: {vname}: {label}: the outcome differs "
                                              "from the shipped kernel's")
                     reps = fresh(kernels, C, st, k)
@@ -151,18 +170,21 @@ def whole_iteration(cs, kernels, transport, card, tag, C, st) -> dict:
             "as_run_us": as_run * 1e3}
 
 
-def tile_variants(cs, kernels, card) -> dict:
-    """The resolve rebuilt as each of RESOLVE_VARIANTS: ``{name: launch
-    function}``, with what ptxas says of each."""
+def kernel_variants_built(cs, kernels, card) -> dict:
+    """The resolve rebuilt as each of RESOLVE_VARIANTS and the tally as each
+    of TALLY_VARIANTS: ``{name: (kernel, launch function)}``, with what
+    ptxas says of each."""
     built = kernel_variants.build_variants(kernels, {
-        name: ("resolve_compacted", {"resolve_compacted.cu": edits})
-        for name, edits in RESOLVE_VARIANTS.items()})
+        **{name: ("resolve_compacted", {"resolve_compacted.cu": edits})
+           for name, edits in RESOLVE_VARIANTS.items()},
+        **{name: ("tally_compacted", {"tally_compacted.cu": edits})
+           for name, edits in TALLY_VARIANTS.items()}})
     for vname in built:
         log = (kernels.BUILD_DIR / "variants" / vname / "build_log.txt").read_text()
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "stack frame" in line:
                 cs.say(f"ptxas {vname}: {line.strip()}", card)
-    return {vname: fn for vname, (_, fn) in built.items()}
+    return built
 
 
 def child(root, with_variants: bool) -> None:
@@ -207,12 +229,12 @@ def child(root, with_variants: bool) -> None:
         torch.cuda.empty_cache()
     result = {"root": str(root), "card": card, "ptxas": ptxas, "times": times}
     if v3:
-        tiles = tile_variants(cs, kernels, card) if with_variants else {}
+        variants = kernel_variants_built(cs, kernels, card) if with_variants else {}
         for name, overrides in cs.V3_CHECKS.items():
             cfg = production_engine_config(**cs.ENGINE_OVERRIDES, **overrides)
             C, st = cs.state_before_an_iteration(scanner, cfg)
             tag = f"{root.name or root}: {name}"
-            times[name] = v3_times(cs, kernels, transport, card, tag, C, st, tiles)
+            times[name] = v3_times(cs, kernels, transport, card, tag, C, st, variants)
             times[name]["iteration"] = whole_iteration(cs, kernels, transport, card, tag, C, st)
             del C, st
             torch.cuda.empty_cache()

@@ -518,9 +518,8 @@ def test_v3_graph_replays_without_a_reset_on_card(cuda):
         torch.cuda.synchronize()
         _assert_phase_matches(got, want, config.n_lanes, f"replay {replay}")
         assert int(got.ctrl[transport.CTRL_ITERATION]) == 4 + 16 * (replay + 1)
-    B = got.launch_args.compact
-    for scan in (B.events_scan, B.doubles_scan):  # 2 sub-phases x 32 iterations
-        assert int(scan[0]) == 64 * (scan.shape[0] - 1)
+    scan = got.launch_args.compact.tally_scan  # 2 sub-phases x 32 iterations
+    assert int(scan[0]) == 64 * -(-config.n_lanes // kernels.TALLY_BLOCK)
 
 
 @pytest.mark.gpu
@@ -554,6 +553,66 @@ def test_v3_kernels_on_card(cuda, config_name):
     assert int(st.ctrl[transport.CTRL_ITERATION]) == 5  # the last resolve ended it
     if config_name == "v3_starved":
         assert bool(st.lanes.pending.any())  # events past the budget wait
+
+
+#: the fused tally's cases: the production width at the event budget and at
+#: a tenth of it, and the slab at 4 flights a sub-phase with 32 doubles' slots
+#: (more doubles than slots: the overflow carry; more events than slots too)
+TALLY_CASES = {
+    "event_budget": (transport.production_engine_config(
+        n_lanes=1 << 16, resolve_inplace=False), False),
+    "tenth_of_it": (transport.production_engine_config(
+        n_lanes=1 << 16, resolve_inplace=False, event_fraction=0.035), False),
+    "doubles_past_budget": (dataclasses.replace(
+        SLAB_CONFIG, resolve_inplace=False, doubles_fraction=1e-9), True),
+}
+
+
+def _doubles(C, st):
+    L = st.lanes
+    _, hit = transport._tally_pixel(L.px, L.py, L.pz, L.dx, L.dy, L.dz, C.detector,
+                                    C.n_pixels_x, C.n_pixels_z)
+    return int((L.stash_valid & (L.stash_idx < 4 * C.n_pixels) & L.escaped & hit).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TALLY_CASES))
+def test_v3_tally_kernel_on_card(cuda, case):
+    """The fused ``tally_compacted`` launch against its plain composition
+    (the tally, then ``compact_indices`` of the pending, live lanes) at each
+    sub-phase of the iteration after 4: every lane field, the events'
+    slots, the counters and the control words bit-equal; the image sums
+    within 1e-5 and the tallied energy within 1e-12 relative; one launch
+    counted on the device. Where the doubles' budget binds, a tally sees
+    more doubles than its slots."""
+    from torch_kernel_inputs import v3_phase_steps
+
+    config, binds = TALLY_CASES[case]
+    scene = slab_engine(cuda, config, mono=False)
+    C, st, _ = state_in_mid_run(scene, config, 10_000_000, seed=13)
+    most, tallies = 0, 0
+    for name, engine, plain in v3_phase_steps(C):
+        if name == "tally_compacted":
+            most = max(most, _doubles(C, st))
+            got, want = st.clone(), st.clone()
+            engine(got)
+            plain(want)
+            torch.cuda.synchronize()
+            assert _launches(got, name) == _launches(st, name) + 1
+            for field, a, b in zip(FlightLanes._fields, got.lanes, want.lanes):
+                assert torch.equal(a, b), (case, field)
+            assert torch.equal(got.events_idx, want.events_idx), case
+            assert torch.equal(got.counters, want.counters), case
+            assert torch.equal(got.ctrl[:11], want.ctrl[:11]), case
+            bad, rel, words_equal, image_rel = state_diff(got, want)
+            assert words_equal and image_rel <= 1e-5, (case, image_rel)
+            assert abs(float(got.energy) - float(want.energy)) <= 1e-12 * float(want.energy)
+            tallies += 1
+            st = want
+        else:
+            plain(st)
+    assert tallies == max(1, config.n_resolves)
+    assert (most > config.doubles_lanes) == binds, (case, most, config.doubles_lanes)
 
 
 @pytest.mark.gpu

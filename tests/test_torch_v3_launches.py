@@ -40,9 +40,9 @@ def _fake_engine(monkeypatch, config=V3):
     st = types.SimpleNamespace(lanes=lanes, ctrl=torch.zeros(20, dtype=torch.int32),
                                image=torch.zeros(9), counters=torch.zeros(10, dtype=torch.int64),
                                energy=torch.zeros(1, dtype=torch.float64),
-                               block_dead=torch.zeros(4, dtype=torch.int32))
+                               block_dead=torch.zeros(4, dtype=torch.int32), events_idx=None)
     C = types.SimpleNamespace(
-        config=config, rows=types.SimpleNamespace(resolve=(40, 110), v3_offsets=(0, 2, 26, 62)),
+        config=config, n_lanes=n, rows=types.SimpleNamespace(resolve=(40, 110), v3_offsets=(0, 2, 26, 62)),
         event_pair=torch.zeros(6 * 8), icdf=torch.zeros(4), shells=torch.zeros(3, 2, 4),
         rita=torch.zeros(4, 256))
     monkeypatch.setattr(kernels, "_stream", lambda t: 0)
@@ -58,20 +58,18 @@ def _smoke():
 
 
 def test_scan_scratch_sizes():
-    """One int64 ticket and a flag a block for each of the three scans, all
-    zero: the doubles' over the tally's blocks of the lanes, the events'
-    over compact's blocks of 1,024 lanes, the Rayleigh slots' over the
-    resolve's grid at its widest tile."""
+    """The scratch of the two scanning launches, int64 and all zero: the
+    tally's one ticket and two rows of flags (the doubles', the events'), a
+    flag a block at its widest grid (256 lanes a block); the resolve's
+    ticket and a flag a block of its grid at its widest tile. The events'
+    slots are the engine state's."""
     B = kernels.CompactBuffers.allocate(3000, 350, "cpu")
-    assert kernels.scan_words(4) == 5
-    assert B.doubles.shape == (3000,) and B.doubles.dtype == torch.uint8
-    assert B.events_idx.shape == (350,) and B.events_idx.dtype == torch.int32
-    for scan, words in ((B.doubles_scan, 13), (B.events_scan, 4),
+    assert kernels.scan_words(4) == 5 and kernels.tally_scan_words(3000) == 25
+    for scan, words in ((B.tally_scan, 25),
                         (B.rayleigh_scan, 1 + -(-350 * kernels.RESOLVE_TILE_MAX // 256))):
         assert scan.dtype == torch.int64 and scan.shape == (words,)
         assert not scan.any()
-    assert set(B._fields) == {"doubles", "doubles_scan", "events_scan", "events_idx",
-                              "rayleigh_scan"}
+    assert set(B._fields) == {"tally_scan", "rayleigh_scan"}
 
 
 @pytest.mark.parametrize("with_ctrl", [False, True])
@@ -117,36 +115,38 @@ def test_compact_refuses_before_launching(recorded):
 
 
 def test_v3_subphase_launches(recorded, monkeypatch):
-    """A v3 sub-phase hands the card four launches (the tally's two passes,
-    the events' compact, the fused resolve) and the last one of an iteration
-    the finish as well: with the refill and the two flights 12 an iteration
-    at two sub-phases, which is what chip_smoke.expected_phase_launches
-    holds the device's launch words to."""
+    """A v3 sub-phase hands the card two launches (the fused tally, which
+    also ranks the events, and the fused resolve; no ``compact``) and the
+    last one of an iteration the finish as well: with the refill and the two
+    flights 8 an iteration at two sub-phases, which is what
+    chip_smoke.expected_phase_launches holds the device's launch words to."""
     C, st, args = _fake_engine(monkeypatch)
     R = V3.n_resolves
     for r in range(R):
         kernels.launch_tally_compacted(C, st)
         kernels.launch_resolve_compacted(C, st, r, ends_iteration=r == R - 1)
     names = [name for name, _ in recorded]
-    sub = ["tally_compacted", "tally_compacted:tally_doubles", "compact", "resolve_compacted"]
+    sub = ["tally_compacted", "resolve_compacted"]
     assert names == sub * R + ["resolve_compacted:resolve_finish"]
     per_kernel = {k: sum(n.partition(":")[0] == k for n in names)
                   for k in ("compact", "tally_compacted", "resolve_compacted")}
     assert per_kernel == {k: kernels.enqueued_counts[k] for k in per_kernel}
+    assert per_kernel["compact"] == 0
     want = _smoke().expected_phase_launches(1, V3)
     assert {k: want[k] for k in per_kernel} == per_kernel
-    assert want["refill"] + want["flight_resolve"] + sum(per_kernel.values()) == 12
+    assert want["refill"] + want["flight_resolve"] + sum(per_kernel.values()) == 8
     assert sum(_smoke().expected_phase_launches(1, transport.production_engine_config())
                .values()) == 4
-    # the tally's passes share the doubles byte; the resolve takes the
-    # events' slots, its own scan scratch and the rows of its sub-phase
+    # the tally takes its scan scratch, the doubles' budget and the events'
+    # slots of the state; the resolve those slots, its own scan scratch and
+    # the rows of its sub-phase
     B = args.compact
-    first, second = recorded[0][1], recorded[1][1]
-    assert first[6] == second[6] == B.doubles.data_ptr()
-    assert first[7:10] == (B.doubles_scan.data_ptr(), B.doubles_scan.shape[0],
-                           V3.doubles_lanes)
-    res = recorded[3][1]
-    assert res[1] == B.events_idx.data_ptr() and res[2] == V3.event_lanes
+    tally = recorded[0][1]
+    assert st.events_idx.shape == (V3.event_lanes,) and st.events_idx.dtype == torch.int32
+    assert tally[6:11] == (B.tally_scan.data_ptr(), B.tally_scan.shape[0], V3.doubles_lanes,
+                           st.events_idx.data_ptr(), V3.event_lanes)
+    res = recorded[1][1]
+    assert res[1] == st.events_idx.data_ptr() and res[2] == V3.event_lanes
     assert res[10:13] == (B.rayleigh_scan.data_ptr(), B.rayleigh_scan.shape[0],
                           V3.rayleigh_lanes)
     assert res[16:20] == tuple(C.rows.resolve[0] + k for k in C.rows.v3_offsets)
@@ -159,28 +159,34 @@ def test_v3_resolve_refuses_a_scratch_of_another_grid(recorded, monkeypatch):
     args.compact = B._replace(rayleigh_scan=B.rayleigh_scan[:-1].clone())
     with pytest.raises(ValueError, match="rayleigh scan"):
         kernels.launch_resolve_compacted(C, st, 0)
-    args.compact = B._replace(doubles_scan=torch.zeros(3, dtype=torch.int64))
-    with pytest.raises(ValueError, match="doubles scan"):
+    args.compact = B._replace(tally_scan=torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="tally scan"):
+        kernels.launch_tally_compacted(C, st)
+    args.compact = B
+    st.events_idx = torch.zeros(V3.event_lanes - 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="events_idx"):
         kernels.launch_tally_compacted(C, st)
     assert recorded == []
 
 
 def test_v3_entries_are_the_launch_functions():
     """The launch functions an iteration calls (loaded before a graph is
-    recorded): the production ones, and under v3 the three kernels' five."""
+    recorded): the production ones, and under v3 the two kernels' three."""
     assert kernels.phase_entries(transport.production_engine_config()) == (
         "refill", "flight_resolve")
     assert kernels.phase_entries(V3) == (
-        "refill", "flight_resolve", "compact", "tally_compacted",
-        "tally_compacted:tally_doubles", "resolve_compacted", "resolve_compacted:resolve_finish")
+        "refill", "flight_resolve", "tally_compacted", "resolve_compacted",
+        "resolve_compacted:resolve_finish")
     for entry in kernels.phase_entries(V3):
         assert entry in kernels._SIGNATURES
 
 
 def test_block_sizes_are_the_sources():
-    """The wrapper's resolve tile (the floor's grid in chip_smoke.py) and
-    compact's entries a block (its scan scratch) are the ones the kernels
-    are built with; the tile within what the resolve's scratch holds."""
+    """The wrapper's resolve tile (the floor's grid in chip_smoke.py),
+    compact's entries a block (its scan scratch) and the tally's lanes a
+    block are the ones the kernels are built with; the tile within what the
+    resolve's scratch holds, the tally's block no narrower than the grid its
+    scratch holds."""
     text = (Path(kernels.CSRC) / "resolve_compacted.cu").read_text()
     assert f"#define RESOLVE_TILE {kernels.RESOLVE_TILE}\n" in text
     assert kernels.RESOLVE_TILE <= kernels.RESOLVE_TILE_MAX
@@ -188,3 +194,7 @@ def test_block_sizes_are_the_sources():
     items = kernels.COMPACT_BLOCK // kernels.PHASE_BLOCK
     assert f"#define COMPACT_ITEMS {items}\n" in text
     assert "#define COMPACT_BLOCK (PHASE_THREADS * COMPACT_ITEMS)" in text
+    text = (Path(kernels.CSRC) / "tally_compacted.cu").read_text()
+    assert f"#define TALLY_ITEMS {kernels.TALLY_BLOCK // kernels.PHASE_BLOCK}\n" in text
+    assert "#define TALLY_BLOCK (PHASE_THREADS * TALLY_ITEMS)" in text
+    assert kernels.TALLY_BLOCK % kernels.PHASE_BLOCK == 0

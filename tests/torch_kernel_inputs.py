@@ -165,10 +165,10 @@ def v3_phase_steps(C):
     """The launches of a v3 outer iteration (``resolve_inplace=False``)
     grouped by kernel, in the order they run: ``(kernel, engine call(st),
     plain call(st))``: the refill, then per sub-phase its flights (the
-    ``flight_resolve`` launches that fly only), the compacted tally (two
-    ``tally_compacted`` passes around a ``compact``) and the compacted resolve
-    (``compact``, ``resolve_compacted``'s entries; the last sub-phase's ends
-    the iteration)."""
+    ``flight_resolve`` launches that fly only), the compacted tally (one
+    ``tally_compacted`` launch, which also ranks the events into
+    ``st.events_idx``) and the compacted resolve (``resolve_compacted``'s
+    entries; the last sub-phase's ends the iteration)."""
     from cbctmc_tpu_torch.engine import transport as T
 
     def bits(st):
@@ -183,7 +183,7 @@ def v3_phase_steps(C):
             ("flight_resolve", lambda st, r=r: T.flights_phase(C, st, r),
              lambda st, r=r: T.flights_phase_reference(C, st, bits(st), r)),
             ("tally_compacted", lambda st: T.tally_compacted_phase(C, st),
-             lambda st: T.tally_compacted_phase_reference(C, st)),
+             lambda st: T.tally_compacted_events_reference(C, st)),
             ("resolve_compacted", lambda st, r=r, last=last: T.resolve_compacted_phase(
                 C, st, r, last),
              lambda st, r=r, last=last: T.resolve_compacted_reference(C, st, bits(st), r, last)),
@@ -195,8 +195,9 @@ def state_diff(a, b):
     """How two engine states differ: ``(lanes where an integer or flag field
     of the lanes or candidates differs, the largest |a - b| / (1 + |b|) of a
     float field on the other lanes, whether the control words the host reads
-    (budget, live, iteration, run) / block_dead / the integer counters are
-    equal, relative difference of the image sums)``."""
+    (budget, live, iteration, run) / block_dead / the integer counters / the
+    v3 events' slots where both states hold them are equal, relative
+    difference of the image sums)``."""
     pairs = list(zip(a.lanes._fields, a.lanes, b.lanes)) + [
         (f"cand.{k}", x, y) for k, x, y in zip(a.cand._fields, a.cand, b.cand)]
     bad = torch.zeros_like(a.lanes.alive)
@@ -211,6 +212,8 @@ def state_diff(a, b):
     host_words = [0, 1, 5, 6]  # transport.CTRL_REMAINING, _LIVE, _ITERATION, _RUN
     words_equal = (torch.equal(a.ctrl[host_words], b.ctrl[host_words])
                    and torch.equal(a.block_dead, b.block_dead)
-                   and torch.equal(a.counters, b.counters))
+                   and torch.equal(a.counters, b.counters)
+                   and (a.events_idx is None or b.events_idx is None
+                        or torch.equal(a.events_idx, b.events_idx)))
     sa, sb = float(a.image.double().sum()), float(b.image.double().sum())
     return bad, rel, words_equal, abs(sa - sb) / max(abs(sb), 1e-30)
