@@ -124,14 +124,21 @@ Phases (each raises on failure; nothing lets the run exit 0 after one):
     the air flat at 2e9) and its acceptance post-processing (crop 1024, bin
     4, ``air_normalize``, two own-simulation WPC fits of 6 orders, FDK onto
     (256, 256, 60), the primary-only, total and scatter-corrected ROI
-    tables); ``simulate_and_reconstruct_water`` on the (400, 400, 120) water
+    tables); the record chain after it (:func:`records_chain`): the fast
+    scan and both masks on 8 of the views, the segmenter's Dice on seed
+    9000 on the card and on the CPU, a low scan of the 64 views at 6e6, the
+    guidance, the triplets and
+    5 train steps, the speedup net over the low scan and both acceptances
+    of its stacks; ``simulate_and_reconstruct_water`` on the (400, 400, 120) water
     phantom at 16 views, binning 4, 6e7 and 5.4e8 histories;
     ``run_line_pair_simulations`` of the 1, 2, 3 and 4 mm line pairs at
     MTF_VIEWS views, 1e8 histories, binning 2; checked: every ROI mean
     finite, each WPC fit's objective at its coefficients no larger than at
     the uncorrected volume (its feasible point c = e_1), ``backproject``
-    launched once per FDK chunk, ``refill`` / ``flight_resolve`` (counted on
-    the device) those of the runs' iterations and no other kernel launched,
+    launched once per FDK chunk, ``primary_trace`` once per fast view,
+    ``joseph_project`` once per 64 views of the guidance, ``refill`` /
+    ``flight_resolve`` (counted on the device) those of the runs' iterations
+    and no other kernel launched; the chain's checks (:func:`records_chain`);
     the water std finite and lower at 5.4e8 than at 6e7, four finite MTF
     values with the coarsest 1.0; the three MAREs, the photon statistics and
     the walls printed;
@@ -400,6 +407,16 @@ VALIDATION_VIEWS = 64  # CatPhan views over 360 deg from 270
 VALIDATION_HISTORIES = 120_000_000  # per view, the record's
 VALIDATION_AIR_HISTORIES = 2_000_000_000  # scripts/run_catphan_simulation.py's air flat
 VALIDATION_SEED = 42
+# the record chain after the raw acceptance, on phase 14's scan at a small depth
+CHAIN_FAST_VIEWS = 8  # of the scan's views, for the fast scan and both masks
+CHAIN_RATIO_TOL = 0.01  # MC / deterministic primary total
+CHAIN_Z_MEAN_MAX = 1.5  # mean |z| under the relative mask
+CHAIN_Z_MAX = 6.0
+CHAIN_DICE_SEED = 9000  # a seed of docs/validation/segmenter_eval_r4.json
+CHAIN_PHANTOM = 500  # the guidance's CatPhan grid over 500 mm: the main path's scene
+CHAIN_LOW_HISTORIES = 6_000_000  # the speedup's low scan, a view (the scripts' n_low)
+CHAIN_TRAIN_STEPS = 5
+CHAIN_PRETRAIN_STEPS = 3  # L1 for these steps, then the NLL
 NOISE_SHAPE = (400, 400, 120)  # the noise record's water phantom
 NOISE_VIEWS = 16
 NOISE_COUNTS = (60_000_000, 540_000_000)  # the record's lowest and highest
@@ -3183,23 +3200,156 @@ def wpc_objective(powers, masks, targets, coefficients) -> float:
     return float(sum(np.mean((vol[m] - targets[n]) ** 2) for n, m in masks.items()))
 
 
+def records_chain(records, card, scanner, images, air, angles) -> dict:
+    """The CatPhan record chain after the raw acceptance
+    (scripts/torch_validation_records.py's ``fast-scan``, ``rescore-fast-scan``,
+    ``segmenter-dice``, ``train-speedup``, ``speedup-acceptance``) through its
+    functions at a small depth, on phase 14's scan at the whole detector's
+    width: the deterministic primary of CHAIN_FAST_VIEWS of its views against
+    their MC primary channel under both masks, and the fast views composed;
+    the packaged segmenter's Dice on ``generate_case(CHAIN_DICE_SEED)``; a low
+    scan of the views at CHAIN_LOW_HISTORIES, the guidance, the triplets and
+    CHAIN_TRAIN_STEPS train steps with the holdout check at each, in a
+    temporary folder; the packaged speedup net over the low scan's views and
+    both acceptances of its stacks. Checked: the totals' ratio within
+    CHAIN_RATIO_TOL, mean |z| under the relative mask below CHAIN_Z_MEAN_MAX
+    and its max below CHAIN_Z_MAX, the fast views finite; each label's Dice
+    within records.DICE_LABEL_TOL of the port's on the CPU (the JAX record's
+    on that seed printed: the JAX package on the CPU reads the port's
+    values, not the record's); every
+    loss and the holdout gain finite; both denoised stacks finite and both
+    acceptances' ROI means finite. Returns the walls and the numbers."""
+    import tempfile
+
+    from cbctmc_tpu_torch.pipeline.fast_scan import FastScanConfig, compose_fast_view
+
+    walls = {}
+    # the fast scan on CHAIN_FAST_VIEWS of the views, both masks
+    t0 = time.monotonic()
+    sel = np.linspace(0, len(angles) - 1, CHAIN_FAST_VIEWS).round().astype(int)
+    ctx = records.PrimaryContext(scanner, np.asarray(angles)[sel], 2, True, walls)
+    cfg = FastScanConfig(n_histories_target=FAST_TARGET_HISTORIES,
+                         pixel_area_cm2=ctx.pixel_area_cm2())
+    generator = torch.Generator(device=DEVICE)
+    generator.manual_seed(20260819)
+    views, lit_max, lit_sum, lit_n, fast_finite = [], 0.0, 0.0, 0, True
+    for j, i in enumerate(sel):
+        mean, var = ctx.primary(j)
+        st = records.superpixel_statistics(mean, var, images[i, 0], VALIDATION_HISTORIES)
+        views.append(st)
+        lit_max = max(lit_max, float(np.abs(st["z_lit"]).max()))
+        lit_sum += float(np.abs(st["z_lit"]).sum())
+        lit_n += st["n_lit"]
+        fp, ft = compose_fast_view(generator, mean, var, images[i, 0], images[i, 1], cfg,
+                                   device=DEVICE)
+        fast_finite &= bool(np.isfinite(fp).all() and np.isfinite(ft).all())
+    rel = records.relative_mask_report(views)
+    walls["fast_scan"] = time.monotonic() - t0
+    say(f"record chain, fast scan ({CHAIN_FAST_VIEWS} of the {len(angles)} views x "
+        f"{VALIDATION_HISTORIES:.2e}): MC / deterministic primary "
+        f"{rel['primary_total_ratio_mc_over_det']:.6f}; relative mask |z| mean "
+        f"{rel['abs_z_mean']:.4f}, max {rel['abs_z_max']:.4f}, z mean {rel['z_mean']:.4f}, std "
+        f"{rel['z_std']:.4f}, masked {rel['masked_fraction']:.4f}; the script's mask |z| mean "
+        f"{lit_sum / max(lit_n, 1):.4f}, max {lit_max:.4f}; fast views finite {fast_finite}; "
+        f"{walls['fast_scan']:.2f} s", card)
+    if (abs(rel["primary_total_ratio_mc_over_det"] - 1.0) > CHAIN_RATIO_TOL
+            or not rel["abs_z_mean"] < CHAIN_Z_MEAN_MAX or not rel["abs_z_max"] < CHAIN_Z_MAX
+            or not fast_finite):
+        raise AssertionError(f"record chain: the fast scan's check {rel}")
+
+    # the segmenter's Dice on one of the JAX record's seeds, held to the port's
+    # on the CPU (held to the JAX package's in tests/test_torch_records_dice.py);
+    # the JAX record, which the JAX package itself no longer reproduces on the
+    # CPU (ROADMAP queue 3), is printed beside
+    t0 = time.monotonic()
+    assets = ROOT / "cbctmc_tpu_torch" / "assets" / "models"
+    ckpt = assets / "segmenter" / "default.ckpt"
+    per_volume, mean_dice, _ = records.segmenter_dice(
+        records.segmenter_from_checkpoint(ckpt, DEVICE), [CHAIN_DICE_SEED])
+    walls["segmenter_dice"] = time.monotonic() - t0
+    cpu_volume, cpu_mean, _ = records.segmenter_dice(
+        records.segmenter_from_checkpoint(ckpt, "cpu"), [CHAIN_DICE_SEED])
+    items = [records.compare(f"{name} Dice", per_volume[0][name], cpu_volume[0][name],
+                             records.DICE_LABEL_TOL) for name in cpu_volume[0]]
+    jax = json.loads((records.JAX_RECORDS / "segmenter_eval_r4.json").read_text())
+    to_record = records.dice_items(per_volume, [CHAIN_DICE_SEED], mean_dice, jax)
+    worst = max(items, key=lambda it: it["diff"])
+    say(f"record chain, segmenter Dice (seed {CHAIN_DICE_SEED}): "
+        f"{ {k: round(v, 6) for k, v in per_volume[0].items()} }, foreground mean "
+        f"{mean_dice:.6f} (CPU {cpu_mean:.6f}); largest difference to the CPU's "
+        f"{worst['item']} {worst['diff']:.6g} (limit {records.DICE_LABEL_TOL}); to the JAX "
+        f"record (printed) { {it['item']: round(it['diff'], 6) for it in to_record} }; "
+        f"{walls['segmenter_dice']:.2f} s on the card", card)
+    if not all(it["within"] for it in items):
+        raise AssertionError(f"record chain: the card's Dice against the CPU's {items}")
+
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        tmp = Path(tmp)
+        # the low scan, the guidance, the triplets and a few train steps
+        walls.update(records.low_scan(scanner, angles, CHAIN_LOW_HISTORIES, VALIDATION_SEED + 31,
+                                      tmp / "low.npy", both=True))
+        n, _, h, w = images.shape
+        walls.update(records.forward_guidance(CHAIN_PHANTOM, angles, h, w, tmp / "fp.npy",
+                                                 DEVICE))
+        low = np.load(tmp / "low.npy")
+        fp = np.load(tmp / "fp.npy")
+        t0 = time.monotonic()
+        records.write_triplets(low[:, 1], images, fp, tmp / "triplets", tmp / "holdout")
+        walls["triplets"] = time.monotonic() - t0
+        trained = records.train_with_holdout(
+            tmp, tmp / "triplets", tmp / "holdout", CHAIN_TRAIN_STEPS, CHAIN_PRETRAIN_STEPS,
+            TRAIN_BATCH, TRAIN_PATCH, 1, DEVICE)
+        walls.update(trained["walls"])
+        losses = [trained["losses"][k] for k in sorted(trained["losses"])]
+        gain = trained["report"]["mean_psnr_gain_db"]
+        say(f"record chain, speedup training ({n} views, {n // 8} held out, "
+            f"{CHAIN_TRAIN_STEPS} steps, L1 for {CHAIN_PRETRAIN_STEPS}): losses {losses}, "
+            f"holdout gains by step { {k: round(v, 3) for k, v in trained['gains'].items()} }, "
+            f"the kept step's {gain:.3f} dB; step walls "
+            f"{[round(x, 4) for x in trained['step_walls']]} s", card)
+        if len(losses) != CHAIN_TRAIN_STEPS or not np.isfinite(losses + [gain]).all():
+            raise AssertionError(f"record chain: losses {losses}, holdout gain {gain}")
+
+        # the speedup net over the low scan, both stacks scored
+        reports, finite, score_walls = records.denoise_and_score(
+            low, fp, assets / "speedup" / "default.ckpt", air, angles, VALIDATION_HISTORIES,
+            4, 0, DEVICE)
+        walls.update(score_walls)
+        del low, fp
+    summary = records.speedup_summary("packaged", VALIDATION_HISTORIES, n, reports)
+    say(f"record chain, speedup acceptance ({n} views at {CHAIN_LOW_HISTORIES:.1e}): stacks "
+        f"finite {finite}; MARE {summary['mare_solid']}, mean std / Varian "
+        f"{summary['mean_std_ratio_vs_varian']}", card)
+    for tag in ("sample", "mean"):
+        means = [v["mean"] for v in reports[tag]["total_own_wpc"].values()
+                 if isinstance(v, dict)]
+        if not finite[tag] or len(means) != 11 or not np.isfinite(means).all():
+            raise AssertionError(f"record chain: the speedup's {tag} stack or its acceptance")
+    say(f"record chain walls { {k: round(v, 3) for k, v in walls.items()} } s", card)
+    return {"walls": walls, "fast": rel, "dice": mean_dice, "losses": losses,
+            "speedup": summary}
+
+
 def validation_path(kernels, card, scanner):
     """The validation workflows at the reference's scenes on the main path's
     scanner and the port's modules (scripts/torch_validation_records.py's
-    CatPhan scan and acceptance, ``simulate_and_reconstruct_water``,
-    ``run_line_pair_simulations``), the launch counters zeroed just before
-    and read just after. Returns the walls."""
+    CatPhan scan at the whole detector's width and its acceptance, the
+    record chain after it (:func:`records_chain`),
+    ``simulate_and_reconstruct_water``, ``run_line_pair_simulations``), the
+    launch counters zeroed just before and read just after. Returns the
+    walls."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch_validation_records as records
     from cbctmc_tpu_torch.engine.simulate import MCScanner
     from cbctmc_tpu_torch.physics.reference_values import REFERENCE_MU
     from cbctmc_tpu_torch.pipeline import mtf_workflow, noise_fit, wpc_fit
+    from cbctmc_tpu_torch.recon.joseph import PROJECT_VIEW_CHUNK
 
     cfg = scanner.engine_config
     walls = {}
     # every engine call's iterations, every FDK's chunks, the WPC fits'
     # power volumes and the line-pair profiles' peaks, kept as the path runs
-    runs, fdk_chunks, powers, peaks = [], [], [], []
+    runs, fdk_chunks, powers, peaks, fp_views = [], [], [], [], []
     simulate = MCScanner.simulate
 
     def kept_simulate(self, *args, **kwargs):
@@ -3224,8 +3374,13 @@ def validation_path(kernels, card, scanner):
         peaks.append((len(maxs), len(mins)))
         return profile, maxs, mins
 
+    def counted_fp(volume, geometry, angles, *args, fn=records.project_forward, **kwargs):
+        fp_views.append(len(angles))
+        return fn(volume, geometry, angles, *args, **kwargs)
+
     patched += [(wpc_fit, "reconstruct_projection_powers", kept_powers),
-                (mtf_workflow, "extract_line_pair_profile", kept_profile)]
+                (mtf_workflow, "extract_line_pair_profile", kept_profile),
+                (records, "project_forward", counted_fp)]
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
     for owner, name, fn in patched:
         setattr(owner, name, fn)
@@ -3235,7 +3390,7 @@ def validation_path(kernels, card, scanner):
     try:
         images, air, angles, sim_walls, _ = records.simulate_catphan(
             scanner, VALIDATION_VIEWS, VALIDATION_HISTORIES, VALIDATION_AIR_HISTORIES,
-            VALIDATION_SEED, crop_x=HALF_FAN_COLUMNS)
+            VALIDATION_SEED)
         walls.update(sim_walls)
         t0 = time.monotonic()
         results, acc_walls, _ = records.catphan_acceptance(
@@ -3243,6 +3398,11 @@ def validation_path(kernels, card, scanner):
             device=DEVICE)
         walls.update(acc_walls)
         walls["acceptance"] = time.monotonic() - t0
+        raw_fits = len(powers)  # the chain's acceptances fit theirs after these
+        t0 = time.monotonic()
+        chain = records_chain(records, card, scanner, images, air, angles)
+        walls.update({f"chain {k}": v for k, v in chain["walls"].items()})
+        walls["chain"] = time.monotonic() - t0
         del images, air
         noise = {}
         for i, n in enumerate(NOISE_COUNTS):
@@ -3270,8 +3430,9 @@ def validation_path(kernels, card, scanner):
         means = [v["mean"] for v in results[section].values() if isinstance(v, dict)]
         if len(means) != 11 or not np.isfinite(means).all():
             raise AssertionError(f"{section}: ROI means {means}")
-    if len(powers) != 2:
-        raise AssertionError(f"{len(powers)} WPC fits, expected 2")
+    if raw_fits != 2 or len(powers) != 6:
+        raise AssertionError(f"{raw_fits} WPC fits in the acceptance, {len(powers) - raw_fits} "
+                             f"in the chain's two, expected 2 and 4")
     objectives = []
     for power, key in zip(powers, ("wpc_coefficients", "scatter_corrected_wpc_coefficients")):
         masks = {n: m for n, m in wpc_fit.catphan_roi_masks(power.shape[1:]).items()
@@ -3313,14 +3474,17 @@ def validation_path(kernels, card, scanner):
     # the kernels of the path
     expected = expected_phase_launches(sum(runs), cfg)
     expected["backproject"] = sum(fdk_chunks)
+    expected["primary_trace"] = CHAIN_FAST_VIEWS  # one a view of the fast scan
+    expected["joseph_project"] = sum(-(-n // PROJECT_VIEW_CHUNK) for n in fp_views)
     for name in kernels.KERNELS:
         n = expected.get(name, 0)
-        if launches[name] != n or (name in ("refill", "flight_resolve", "backproject")
-                                   and n == 0):
+        if launches[name] != n or (name in ("refill", "flight_resolve", "backproject",
+                                            "primary_trace", "joseph_project") and n == 0):
             raise AssertionError(f"validation path: {name} {launches[name]} launches, "
                                  f"expected {n}")
     say(f"validation path: {len(runs)} engine calls, {sum(runs)} iterations, "
-        f"{len(fdk_chunks)} FDKs in {sum(fdk_chunks)} chunks; launches "
+        f"{len(fdk_chunks)} FDKs in {sum(fdk_chunks)} chunks, {len(fp_views)} forward "
+        f"projections of {sum(fp_views)} views; launches "
         f"{ {k: v for k, v in launches.items() if v} }; walls "
         f"{ {k: round(v, 3) for k, v in walls.items()} } s", card)
     return walls
